@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--persons N] [--pq-rows N] [--out results.json]
+    python3 chip_smoke.py [--persons N] [--pq-rows N] [--profile]
+                          [--out results.json]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once), then runs four phases and fails if any fails:
@@ -14,16 +15,23 @@ per source, all at once), then runs four phases and fails if any fails:
    keep the IVF sums exact, and the PQ sums run in the plain version's
    order, so ids must be equal and max |delta| <= 1e-4.  Prints kernel,
    plain and library (one PyTorch call of the same function) times.
-2. serving at full size: ``PandaDB(device="cuda")`` over a 200,000-person
-   SNB graph with 128-d faces and the IVF-Flat face index; a ``QueryServer``
-   answers the semantic and structured requests below.  Launch counts are
-   zeroed just before this phase and read after phase 3.
+2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
+   persons (100,000 by default) with 128-d faces and the IVF-Flat face
+   index; a ``QueryServer`` answers the semantic and structured requests
+   below, the unfiltered ``knows`` var-var query among them.  Launch counts
+   are zeroed just before this phase and read after phase 3.
 3. PQ: ``IVFIndex.search_many`` on 1,000,000 SIFT-like vectors (pq_m=16),
    Q = 256, k in {10, 100}, in ``adc``, residual ``adc`` and ``fused`` mode,
-   each held against the float ``search_exact`` by recall (>= 0.85; the
-   same index and queries on the CPU give 0.91 at k=10, 0.99 at k=100).
+   each held against the float ``search_exact`` by recall (>= 0.90; the
+   card reads 0.94 at k=10 and 0.98 at k=100 on this data).
 4. parity: the serving requests at 5,000 persons, card against CPU: rows
    identical.
+
+``--profile`` runs each serving request and each PQ search mode once more,
+after the main path's run and uncounted, under ``torch.profiler`` and
+``cProfile``: host wall time, device busy time (CUDA kernels and copies,
+which run on one stream), the idle share ``1 - busy / wall``, and the
+kernels and host functions that took the most time.
 
 The second-to-last line holds the kernels' numbers as JSON, the line before
 it the card's name and power limit; the last line is
@@ -48,8 +56,8 @@ SIM_THRESHOLD = 0.80           # the executor's similarity threshold
 
 SERVE_REQUESTS = [
     ("knows_var_var",
-     "MATCH (n:Person)-[:knows]->(m:Person) WHERE n.age < 20 AND "
-     "n.photo->face ~: m.photo->face RETURN n.name, m.name"),
+     "MATCH (n:Person)-[:knows]->(m:Person) WHERE n.photo->face ~: "
+     "m.photo->face RETURN n.name, m.name"),
     ("age_var_var_limit",
      "MATCH (n:Person), (m:Person) WHERE n.age < 19 AND n.photo->face ~: "
      "m.photo->face RETURN n.name, m.name LIMIT 100"),
@@ -94,6 +102,42 @@ def time_ms(torch, fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled(torch, fn, top: int = 5) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` and ``cProfile``: host
+    wall ms, device busy ms, idle share, and the ``top`` kernels (device
+    time) and host functions (own time) by time."""
+    import cProfile
+    import pstats
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    host = cProfile.Profile()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        host.enable()
+        fn()
+        torch.cuda.synchronize()
+        host.disable()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, kernels = 0.0, []
+    for ev in prof.key_averages():
+        # kernel and copy rows only: an operator row repeats its kernels
+        dev_us = ev.self_device_time_total
+        if ev.device_type == DeviceType.CUDA and dev_us > 0:
+            busy += dev_us / 1e3
+            kernels.append((dev_us / 1e3, ev.count, ev.key[:80]))
+    funcs = [(tt * 1e3, nc, f"{name} ({Path(file).name}:{line})")
+             for (file, line, name), (_, nc, tt, _, _)
+             in pstats.Stats(host).stats.items()]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall,
+            "device_top": [{"name": n, "ms": ms, "calls": c}
+                           for ms, c, n in sorted(kernels, reverse=True)[:top]],
+            "host_top": [{"name": n, "ms": ms, "calls": c}
+                         for ms, c, n in sorted(funcs, reverse=True)[:top]]}
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -266,7 +310,7 @@ def serve(db, persons, device: str):
     """Every request through one QueryServer: {name: (rows, ms)}."""
     from repro_torch.serving.engine import QueryServer
 
-    server = QueryServer(db, n_workers=2, device=device)
+    server = QueryServer(db, n_workers=2)
     server.start()
     out = {}
     try:
@@ -274,7 +318,7 @@ def serve(db, persons, device: str):
             params = ({"src": photo_of(db, persons[7])}
                       if "$src" in text else None)
             t0 = time.perf_counter()
-            rows, err = server.submit(text, params=params).get(timeout=900)
+            rows, err = server.submit(text, params=params).get(timeout=1800)
             if device != "cpu":
                 import torch
                 torch.cuda.synchronize()
@@ -294,7 +338,7 @@ def face_of(db, persons, name: str):
     return np.asarray(db.phi_for_blobs("face", [int(col.values[nid])])[0])
 
 
-def phase_serving(torch, n_persons: int):
+def phase_serving(torch, n_persons: int, prof=None):
     t0 = time.perf_counter()
     db, persons = build_db(n_persons, "cuda")
     idx = db.indexes["face"]
@@ -318,6 +362,13 @@ def phase_serving(torch, n_persons: int):
     probe = {r["p.name"] for r in answers["create_from_source"][0]}
     check("person_7" in probe, "createFromSource probe missed its own photo")
     check(len(answers["structured_team"][0]) == 1, "structured team query")
+    if prof is not None:
+        session = db.session()
+        for name, text in SERVE_REQUESTS:
+            params = ({"src": photo_of(db, persons[7])}
+                      if "$src" in text else {})
+            prof(f"serving {name}",
+                 lambda: session.run(text, params).fetchall())
     db.aipm.shutdown()
     return {name: {"rows": len(rows), "latency_ms": ms}
             for name, (rows, ms) in answers.items()}
@@ -331,11 +382,6 @@ def phase_parity(n_persons: int = 5000):
         check(a[name][0] == b[name][0],
               f"parity: {name} rows differ card vs cpu")
         log(f"[parity] {name}: rows={len(a[name][0])} identical card/cpu")
-    text = ("MATCH (n:Person)-[:knows]->(m:Person) WHERE n.photo->face ~: "
-            "m.photo->face RETURN n.name, m.name")
-    ra, rb = card.query(text), cpu.query(text)
-    check(ra == rb, "parity: full knows var-var rows differ card vs cpu")
-    log(f"[parity] knows_var_var_all: rows={len(ra)} identical card/cpu")
     card.aipm.shutdown()
     cpu.aipm.shutdown()
 
@@ -345,7 +391,7 @@ def phase_parity(n_persons: int = 5000):
 # ---------------------------------------------------------------------------
 
 
-def phase_pq(torch, n_rows: int):
+def phase_pq(torch, n_rows: int, prof=None):
     import numpy as np
     from repro_torch.configs.pandadb import VectorIndexConfig
     from repro_torch.core.vector_index import IVFIndex
@@ -394,8 +440,13 @@ def phase_pq(torch, n_rows: int):
                 log(f"[pq] {label} Q={len(queries)} N={n_rows} k={k}: "
                     f"recall@{k}={recall:.4f} ms={ms:.1f}")
                 check(bool(np.isfinite(v).all()), f"{label} non-finite")
-                check(recall >= 0.85, f"{label} recall@{k} {recall}")
+                check(recall >= 0.90, f"{label} recall@{k} {recall}")
                 out[f"{label}_k{k}"] = {"recall": recall, "ms": ms}
+        if prof is not None and not residual:
+            for mode in ("float", "adc", "fused"):
+                for k in (10, 100):
+                    prof(f"pq {mode} k={k}",
+                         lambda: idx.search_many(queries, k, mode=mode))
         del idx
         torch.cuda.empty_cache()
     return out
@@ -408,8 +459,11 @@ def phase_pq(torch, n_rows: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--persons", type=int, default=200_000)
+    ap.add_argument("--persons", type=int, default=100_000)
     ap.add_argument("--pq-rows", type=int, default=1_000_000)
+    ap.add_argument("--profile", action="store_true",
+                    help="profile each serving request and PQ search mode "
+                         "once more (uncounted)")
     ap.add_argument("--out", default=None,
                     help="also write every phase's numbers to this JSON file")
     args = ap.parse_args()
@@ -456,12 +510,30 @@ def main() -> int:
             log(f"[{name}] FAILED after {time.perf_counter() - t0:.1f}s: "
                 f"{type(e).__name__}: {e}")
 
+    profiles = results["profile"] = {}
+
+    def prof(label, fn):
+        # an extra call for the profilers: its launches are not counted
+        saved = {c: c.n for c in counters.values()}
+        try:
+            profiles[label] = p = profiled(torch, fn)
+        finally:
+            for c, n in saved.items():
+                c.n = n
+        log(f"[profile] {label}: wall_ms={p['wall_ms']:.1f} device_busy_ms="
+            f"{p['device_busy_ms']:.2f} idle_share={p['idle_share']:.4f}")
+        for side in ("device_top", "host_top"):
+            for e in p[side]:
+                log(f"[profile]   {side[:-4]} {e['ms']:.2f} ms "
+                    f"/ {e['calls']}: {e['name']}")
+
     run("kernels", phase_kernels, torch, args.pq_rows)
     for c in counters.values():
         c.reset()
-    run("serving", phase_serving, torch, args.persons)
+    run("serving", phase_serving, torch, args.persons,
+        prof if args.profile else None)
     serving_ivf = ivf_ops.launches.n
-    run("pq", phase_pq, torch, args.pq_rows)
+    run("pq", phase_pq, torch, args.pq_rows, prof if args.profile else None)
     launches = {name: c.n for name, c in counters.items()}
     log(f"[main path] launches {launches} (ivf_scan while serving: "
         f"{serving_ivf})")

@@ -15,8 +15,6 @@ class VectorIndexConfig:
     min_buckets: int = 4
     nprobe: int = 8               # buckets scanned per query
     kmeans_iters: int = 8         # batch-build refinement steps
-    block_n: int = 512            # ivf_scan kernel tile; gathered corpora are
-    #                               padded to a multiple for stable shapes
     pending_compact_frac: float = 0.1   # compact append buffers once pending
     #                                     rows exceed this fraction of N
     pending_compact_min: int = 1024     # ... but never before this many

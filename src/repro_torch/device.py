@@ -1,8 +1,9 @@
 """Device choice for the port's entry points.
 
-``PandaDB``, ``IVFIndex.build`` and ``QueryServer`` run on the CUDA card
-unless the caller names another device.  With no device named and no card
-present they raise: nothing drops to the CPU on its own."""
+``PandaDB`` and ``IVFIndex.build`` run on the CUDA card unless the caller
+names another device, and ``QueryServer`` runs on its db's device.  With no
+device named and no card present they raise: nothing drops to the CPU on its
+own."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -27,9 +28,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
     return dev
 
-
-def same_device(a: torch.device, b: torch.device) -> bool:
-    """Equal devices, where an unindexed ``cuda`` matches any card index."""
-    a, b = torch.device(a), torch.device(b)
-    return a.type == b.type and (a.index is None or b.index is None
-                                 or a.index == b.index)

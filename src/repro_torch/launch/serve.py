@@ -49,7 +49,7 @@ def run_overload(db, queries, args) -> None:
     """Measure closed-loop capacity, then offer ~2x open-loop with
     per-request deadlines and a bounded admission queue; print goodput and
     every overload counter."""
-    probe = QueryServer(db, n_workers=args.workers, device=db.device)
+    probe = QueryServer(db, n_workers=args.workers)
     cap = probe.run_closed_loop(queries, n_clients=args.clients,
                                 duration_s=max(1.0, args.duration / 2))
     capacity_qps = cap.throughput_qps
@@ -59,8 +59,7 @@ def run_overload(db, queries, args) -> None:
                             admission_policy="reject",
                             default_deadline_ms=args.deadline_ms,
                             shed_on_arrival=True)
-    server = QueryServer(db, n_workers=args.workers, serving=serving,
-                         device=db.device)
+    server = QueryServer(db, n_workers=args.workers, serving=serving)
     summary = server.run_open_loop(
         queries, rate_qps=max(2.0, 2.0 * capacity_qps),
         duration_s=args.duration, deadline_ms=args.deadline_ms)
@@ -98,7 +97,7 @@ def main() -> None:
         run_overload(db, QUERIES, args)
         return
 
-    server = QueryServer(db, n_workers=args.workers, device=db.device)
+    server = QueryServer(db, n_workers=args.workers)
     stats = server.run_closed_loop(QUERIES, n_clients=args.clients,
                                    duration_s=args.duration)
     print(json.dumps(stats.summary(), indent=1))

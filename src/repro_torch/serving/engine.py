@@ -9,8 +9,8 @@ Reading-queries go to any worker; writing-queries serialize through the
 db-level write lock + leader WAL (paper §VII-A).
 
 ``db`` is a single-node :class:`~repro_torch.core.database.PandaDB`; the
-server runs on its device, the CUDA card unless the caller passes
-``device="cpu"`` to both.  (Serving a cluster coordinator comes with the
+server runs on its device, the CUDA card unless the db was built with
+``device="cpu"``.  (Serving a cluster coordinator comes with the
 port's cluster slice.)  :meth:`QueryServer.route_counts` surfaces the
 serving counters for the load just served.
 
@@ -40,7 +40,6 @@ import numpy as np
 
 from repro_torch.configs.pandadb import ServingConfig
 from repro_torch.core.deadline import Deadline, DeadlineExceeded, OverloadedError
-from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.obs import MetricsRegistry, SlowQueryLog
 
 #: a request: query text, or (text, params dict)
@@ -151,15 +150,9 @@ class QueryServer:
     def __init__(self, db, n_workers: int = 1,
                  use_prepared: bool = True,
                  prefetch_depth: Optional[int] = None,
-                 serving: Optional[ServingConfig] = None,
-                 device: DeviceLike = None) -> None:
-        #: the device requests run on (None: the CUDA card); it must be the
-        #: db's own
-        self.device = resolve_device(device)
-        db_device = getattr(db, "device", None)
-        if db_device is not None and not same_device(db_device, self.device):
-            raise ValueError(f"QueryServer on {self.device} cannot serve a "
-                             f"db on {db_device}")
+                 serving: Optional[ServingConfig] = None) -> None:
+        #: the device requests run on: the db's own
+        self.device = db.device
         self.db = db
         self.n_workers = n_workers
         self.use_prepared = use_prepared

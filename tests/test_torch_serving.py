@@ -3,7 +3,7 @@
 
 Every request goes through ``QueryServer.submit`` on both sides; the rows
 each server answers must be identical.  The port runs with
-``device="cpu"``, which the server must be told as well as the db.
+``device="cpu"``; the server runs on its db's device.
 """
 import dataclasses
 
@@ -72,8 +72,7 @@ def dbs():
 def test_server_rows_identical(dbs):
     ref, port = dbs
     want = _serve(RefServer(ref, n_workers=2), ref, REQUESTS)
-    got = _serve(PortServer(port, n_workers=2, device="cpu"), port,
-                 REQUESTS)
+    got = _serve(PortServer(port, n_workers=2), port, REQUESTS)
     assert got == want
     assert all(isinstance(r, list) for r in got) and any(got)
 
@@ -82,12 +81,12 @@ def test_server_rows_identical(dbs):
 def test_each_request_identical(dbs, i):
     ref, port = dbs
     want = _serve(RefServer(ref), ref, [REQUESTS[i]])
-    assert _serve(PortServer(port, device="cpu"), port, [REQUESTS[i]]) == want
+    assert _serve(PortServer(port), port, [REQUESTS[i]]) == want
 
 
 def test_server_counters_match(dbs):
     ref, port = dbs
-    rs, ps = RefServer(ref), PortServer(port, device="cpu")
+    rs, ps = RefServer(ref), PortServer(port)
     _serve(rs, ref, REQUESTS[3:])
     _serve(ps, port, REQUESTS[3:])
     assert ps.overload_counters() == rs.overload_counters()
@@ -95,22 +94,19 @@ def test_server_counters_match(dbs):
 
 
 def test_server_needs_a_card_unless_told_cpu(dbs):
+    """The server takes its db's device; a db named no device needs a
+    card, so a server on the CPU exists only for a db told ``cpu``."""
     _, port = dbs
+    assert PortServer(port).device == port.device == torch.device("cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        PortServer(port)
-
-
-def test_server_refuses_a_db_on_another_device(dbs):
-    _, port = dbs
-    with pytest.raises(ValueError, match="cannot serve"):
-        PortServer(port, device="meta")
+        port_core.PandaDB()
 
 
 def test_closed_loop_serves_without_failures(dbs):
     _, port = dbs
-    server = PortServer(port, n_workers=2, device="cpu")
+    server = PortServer(port, n_workers=2)
     stats = server.run_closed_loop(REQUESTS[3:], n_clients=2,
                                    duration_s=0.5)
     assert len(stats.latencies_ms) > 0
@@ -138,7 +134,7 @@ def test_traced_serving_identical(dbs):
     port = _db(port_core, port_aipm, port_snb, n=150, device="cpu",
                cfg=dataclasses.replace(PortCfg(), obs=PortObs(trace=True)))
     want = _serve(RefServer(ref), ref, REQUESTS[:2])
-    assert _serve(PortServer(port, device="cpu"), port, REQUESTS[:2]) == want
+    assert _serve(PortServer(port), port, REQUESTS[:2]) == want
     assert port.tracer.last is not None
     names = {s.name for s in port.tracer.last.spans()}
     assert names == {s.name for s in ref.tracer.last.spans()}
@@ -151,8 +147,7 @@ def test_deadline_overload_counters_identical(dbs):
     from repro.configs.pandadb import ServingConfig as RefServing
     from repro_torch.configs.pandadb import ServingConfig as PortServing
     rs = RefServer(ref, serving=RefServing(shed_on_arrival=False))
-    ps = PortServer(port, serving=PortServing(shed_on_arrival=False),
-                    device="cpu")
+    ps = PortServer(port, serving=PortServing(shed_on_arrival=False))
     for server in (rs, ps):
         server.start()
         rows, err = server.submit(REQUESTS[4], deadline_ms=1e-6).get(

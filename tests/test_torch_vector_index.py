@@ -322,3 +322,14 @@ def test_device_tables_mirror_host_arrays():
     np.testing.assert_array_equal(port.t_bias.numpy(), port.code_bias)
     np.testing.assert_array_equal(port.t_bucket32.numpy(), port.bucket_of)
     assert dataclasses.is_dataclass(port)
+
+
+def test_config_matches_reference_but_the_tpu_tile():
+    """Every index knob of the reference, with its default, except
+    ``block_n``: the Pallas kernels' tile, to which the reference pads its
+    corpora.  The port's CUDA kernels mask their own last tile of a fixed
+    size and pad nothing."""
+    ref = {f.name: f.default for f in dataclasses.fields(RefCfg)}
+    port = {f.name: f.default for f in dataclasses.fields(PortCfg)}
+    assert ref.pop("block_n") == 512
+    assert port == ref
