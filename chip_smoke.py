@@ -5,29 +5,43 @@
                           [--out results.json]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all at once), then runs four phases and fails if any fails:
+per source, all at once), then runs five phases and fails if any fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
-   version on the card, at the main path's shapes (IVF: Q in {256, 930},
+   version on the card, at the main paths' shapes (IVF: Q in {256, 930},
    N = 200,000, d = 128, k in {10, 64, 20,001}; PQ: Q = 256, N = 1,000,000,
-   M = 16, K = 256, k' in {80, 800}), with a ragged ``n_valid``, exact
-   duplicate rows (ties) and starved probe masks.  Integer-valued vectors
-   keep the IVF sums exact, and the PQ sums run in the plain version's
-   order, so ids must be equal and max |delta| <= 1e-4.  Prints kernel,
+   M = 16, K = 256, k' in {80, 800}; merge: P in {2, 4, 8} shard windows
+   of K in {10, 100, 10,002} for Q in {1, 256, 4096}), with a ragged
+   ``n_valid``, exact duplicate rows and cross-shard ties, (-inf, -1)
+   padding, an all-padding shard, starved probe masks and int64 ids past
+   2**31.  Integer-valued vectors keep the IVF sums exact, the PQ sums run
+   in the plain version's order and the merge does no arithmetic, so ids
+   must be equal and max |delta| <= 1e-4 (0 for the merge).  Prints kernel,
    plain and library (one PyTorch call of the same function) times.
 2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
    persons (100,000 by default) with 128-d faces and the IVF-Flat face
    index; a ``QueryServer`` answers the semantic and structured requests
-   below, the unfiltered ``knows`` var-var query among them.  Launch counts
-   are zeroed just before this phase and read after phase 3.
+   below, the unfiltered ``knows`` var-var query among them.
 3. PQ: ``IVFIndex.search_many`` on 1,000,000 SIFT-like vectors (pq_m=16),
    Q = 256, k in {10, 100}, in ``adc``, residual ``adc`` and ``fused`` mode,
    each held against the float ``search_exact`` by recall (>= 0.90; the
    card reads 0.94 at k=10 and 0.98 at k=100 on this data).
-4. parity: the serving requests at 5,000 persons, card against CPU: rows
-   identical.
+4. cluster: ``ShardedPandaDB(n_shards=4, device="cuda")`` over 100,000
+   persons written through the coordinator as ``launch/serve.py::
+   build_cluster`` does, 128-d faces, four IVF-Flat pieces on the card.  A
+   ``QueryServer`` over it answers the cluster requests; ``knn`` at Q = 256, k in {10, 100} is held against
+   the merged single index; phase 3's residual 1M-row index, cut in four,
+   serves a fused scatter-gather by recall (>= 0.90); a 2 x 2
+   ``ReplicatedPandaDB`` at 20,000 persons loses a replica halfway through
+   a closed loop and must fail no request.
+5. parity: the serving requests at 5,000 persons, and the cluster's
+   requests and kNN at 5,000 persons, card against CPU: rows identical,
+   kNN ids identical wherever neighbouring scores differ by more than 1e-4.
 
-``--profile`` runs each serving request and each PQ search mode once more,
+Launch counts are zeroed just before each main path (phases 2-3, the
+single node; phase 4, the cluster) and read just after it; every kernel of
+a path must have launched on it.  ``--profile`` runs each serving request,
+each PQ search mode, one cluster kNN and one fan-out request once more,
 after the main path's run and uncounted, under ``torch.profiler`` and
 ``cProfile``: host wall time, device busy time (CUDA kernels and copies,
 which run on one stream), the idle share ``1 - busy / wall``, and the
@@ -53,6 +67,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 peak outside tensor cores
 SIM_THRESHOLD = 0.80           # the executor's similarity threshold
+FACE_DIM = 128                 # the faces of every serving phase
+KNN_GAP = 1e-4                 # kNN ids must agree where scores differ more
+CLUSTER_PERSONS = 100_000      # persons of the 4-shard cluster phase
 
 SERVE_REQUESTS = [
     ("knows_var_var",
@@ -280,7 +297,84 @@ def phase_kernels(torch, pq_rows: int):
         out[name] = dict(main, max_abs_err=worst)
     del luts, codes, rb, bias, cs, pm, table, flat_codes
     torch.cuda.empty_cache()
+    out["topk_merge"] = kernel_topk_merge(torch, dev)
     return out
+
+
+def merge_windows(torch, dev, p: int, qn: int, kk: int, gen):
+    """P shard windows [P, Q, K] as a scatter-gather stacks them: rows
+    sorted, values on a 1/64 grid (ties inside a window) with shard 1 a
+    copy of shard 0 (exact ties across shards), the last tenth of every
+    window (-inf, -1) padding, shard 2 all padding when P >= 4, int64 ids
+    up to 2**40."""
+    v = torch.randn(p, qn, kk, device=dev, generator=gen)
+    v = (torch.round(v * 64) / 64).sort(dim=2, descending=True).values
+    v[1] = v[0]
+    ids = torch.randint(0, 1 << 40, (p, qn, kk), device=dev, generator=gen)
+    pad = max(1, kk // 10)
+    v[:, :, kk - pad:] = -torch.inf
+    ids[:, :, kk - pad:] = -1
+    if p >= 4:
+        v[2] = -torch.inf
+        ids[2] = -1
+    return v.contiguous(), ids.contiguous()
+
+
+def kernel_topk_merge(torch, dev):
+    from repro_torch.kernels.topk_merge.ops import merge_topk_dev
+    from repro_torch.kernels.topk_merge.ref import merge_topk_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst, main = 0.0, None
+    for p in (2, 4, 8):
+        for qn in (1, 256, 4096):
+            for kk in (10, 100, 10_002):
+                vals, ids = merge_windows(torch, dev, p, qn, kk, gen)
+                c = p * kk
+                nv = c - kk // 2          # cuts into the last shard
+                k = kk
+                kv, ki = merge_topk_dev(vals, ids, k, n_valid=nv)
+                pv, pi = merge_topk_ref(vals, ids, k, n_valid=nv)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(ki, pi))
+                fin = torch.isfinite(pv)
+                same_inf = bool(torch.equal(fin, torch.isfinite(kv)))
+                err = (float((kv[fin] - pv[fin]).abs().max())
+                       if fin.any() else 0.0)
+                worst = max(worst, err)
+                ms = time_ms(torch, lambda: merge_topk_dev(vals, ids, k,
+                                                           n_valid=nv))
+                plain_ms = time_ms(torch, lambda: merge_topk_ref(
+                    vals, ids, k, n_valid=nv))
+
+                def library():
+                    flat = vals.permute(1, 0, 2).reshape(qn, c)
+                    flat = flat.masked_fill(
+                        torch.arange(c, device=dev) >= nv, -torch.inf)
+                    tv, tp = torch.topk(flat, k)
+                    return tv, torch.gather(
+                        ids.permute(1, 0, 2).reshape(qn, c), 1, tp)
+
+                lib_ms = time_ms(torch, library)
+                # values read once; ids read and (value, id) written for
+                # the k chosen columns only
+                b_ms, b_by = bound(4.0 * qn * c + 8.0 * qn * k
+                                   + 12.0 * qn * k, 0.0)
+                log(f"[kernels] topk_merge P={p} Q={qn} K={kk} k={k} "
+                    f"n_valid={nv}: ids_equal={same} max_abs_err={err} "
+                    f"ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                    f"library_ms={lib_ms:.3f} bound_ms={b_ms:.4f} ({b_by})")
+                check(same and same_inf,
+                      f"topk_merge ids differ at P={p} Q={qn} K={kk}")
+                check(err == 0.0, f"topk_merge max|delta| {err} at P={p} "
+                      f"Q={qn} K={kk}")
+                if (p, qn, kk) == (4, 256, 10):    # the cluster kNN's merge
+                    main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                shape=f"P={p} Q={qn} K={kk} k={k}")
+                del vals, ids, kv, ki, pv, pi
+        torch.cuda.empty_cache()
+    return dict(main, max_abs_err=worst)
 
 
 # ---------------------------------------------------------------------------
@@ -306,17 +400,23 @@ def photo_of(db, nid: int) -> bytes:
     return db.graph.blobs.read(int(col.values[nid]))
 
 
-def serve(db, persons, device: str):
-    """Every request through one QueryServer: {name: (rows, ms)}."""
+def single_requests(db, persons):
+    """SERVE_REQUESTS as (name, text, params), the probe with person 7's
+    photo."""
+    return [(name, text, {"src": photo_of(db, persons[7])}
+             if "$src" in text else None) for name, text in SERVE_REQUESTS]
+
+
+def serve(db, requests, device: str):
+    """Every (name, text, params) request through one QueryServer:
+    {name: (rows, ms)}."""
     from repro_torch.serving.engine import QueryServer
 
     server = QueryServer(db, n_workers=2)
     server.start()
     out = {}
     try:
-        for name, text in SERVE_REQUESTS:
-            params = ({"src": photo_of(db, persons[7])}
-                      if "$src" in text else None)
+        for name, text, params in requests:
             t0 = time.perf_counter()
             rows, err = server.submit(text, params=params).get(timeout=1800)
             if device != "cpu":
@@ -347,7 +447,10 @@ def phase_serving(torch, n_persons: int, prof=None):
         f"dim={idx.vectors.shape[1]} on {idx.t_vectors.device} "
         f"({idx.t_vectors.numel() * 4 / 1e6:.1f} MB) "
         f"in {time.perf_counter() - t0:.1f}s")
-    answers = serve(db, persons, "cuda")
+    from repro_torch.kernels.ivf_scan import ops as ivf_ops
+    before = ivf_ops.launches.n
+    answers = serve(db, single_requests(db, persons), "cuda")
+    check(ivf_ops.launches.n > before, "serving launched no ivf_scan")
     for name, (rows, ms) in answers.items():
         log(f"[serving] {name}: rows={len(rows)} latency_ms={ms:.1f}")
     knows, _ = answers["knows_var_var"]
@@ -375,15 +478,227 @@ def phase_serving(torch, n_persons: int, prof=None):
 
 
 def phase_parity(n_persons: int = 5000):
+    from repro_torch.cluster import FaultInjector
+    from repro_torch.launch.serve import build_cluster
+
     card, persons = build_db(n_persons, "cuda")
     cpu, _ = build_db(n_persons, "cpu")
-    a, b = serve(card, persons, "cuda"), serve(cpu, persons, "cpu")
+    a = serve(card, single_requests(card, persons), "cuda")
+    b = serve(cpu, single_requests(cpu, persons), "cpu")
     for name, _ in SERVE_REQUESTS:
         check(a[name][0] == b[name][0],
               f"parity: {name} rows differ card vs cpu")
         log(f"[parity] {name}: rows={len(a[name][0])} identical card/cpu")
     card.aipm.shutdown()
     cpu.aipm.shutdown()
+    out = {}
+    card, cpu = (build_cluster(n_persons, 4, 1, FaultInjector(0),
+                               device=d, dim=FACE_DIM)
+                 for d in ("cuda", "cpu"))
+    a = serve(card, cluster_requests(card), "cuda")
+    b = serve(cpu, cluster_requests(cpu), "cpu")
+    for name in a:
+        check(a[name][0] == b[name][0],
+              f"parity: cluster {name} rows differ card vs cpu")
+        log(f"[parity] cluster {name}: rows={len(a[name][0])} identical "
+            f"card/cpu")
+    q = unit_queries(3, 256)
+    for k in (10, 100):
+        out[f"cluster_knn_k{k}"] = compare_knn(
+            f"[parity] cluster knn k={k} card vs cpu", card.knn("face", q, k),
+            cpu.knn("face", q, k))
+    card.close()
+    cpu.close()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: cluster
+# ---------------------------------------------------------------------------
+
+
+def compare_knn(label: str, got, want) -> dict:
+    """kNN (vals, ids) against a reference run: the same -inf padding, max
+    |delta| <= KNN_GAP over finite scores, and the same ids at every
+    position whose score differs from both neighbours' by more than
+    KNN_GAP (a closer pair may swap on one rounding)."""
+    import numpy as np
+    gv, gi = got
+    wv, wi = want
+    fin = np.isfinite(wv)
+    check(bool((np.isfinite(gv) == fin).all()), f"{label}: padding differs")
+    err = float(np.abs(gv[fin] - wv[fin]).max()) if fin.any() else 0.0
+    gap = np.full(wv.shape, np.inf, np.float32)
+    with np.errstate(invalid="ignore"):
+        d = np.abs(np.diff(wv, axis=1))
+    d = np.where(np.isfinite(d), d, np.inf)
+    gap[:, 1:] = d
+    gap[:, :-1] = np.minimum(gap[:, :-1], d)
+    sep = gap > KNN_GAP
+    id_miss = int((gi != wi)[sep].sum())
+    bitwise = int((gv == wv).sum())
+    log(f"{label}: max_abs_err={err} ids_differ_where_separated={id_miss} "
+        f"of {int(sep.sum())} ids_equal={int((gi == wi).sum())} "
+        f"values_bitwise_equal={bitwise} of {wv.size}")
+    check(err <= KNN_GAP, f"{label}: max|delta| {err}")
+    check(id_miss == 0, f"{label}: {id_miss} separated ids differ")
+    return {"max_abs_err": err, "ids_differ_where_separated": id_miss,
+            "values_bitwise_equal": bitwise, "values": int(wv.size)}
+
+
+def unit_queries(seed: int, n: int):
+    """``n`` random unit vectors: queries at the faces' own scale (the
+    extractor returns unit vectors), so scores stay within [-4, 0]."""
+    import numpy as np
+    q = np.random.default_rng(seed).standard_normal((n, FACE_DIM))
+    return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+
+def cluster_photo(c, nid: int) -> bytes:
+    owner = c.read_db(c.owner_of(nid))
+    col = owner.graph.store.node_props.column("photo")
+    return owner.graph.blobs.read(int(col.values[nid]))
+
+
+def cluster_requests(c):
+    """launch/serve.py's CLUSTER_QUERIES plus the createFromSource probe
+    with person 7's photo, as (name, text, params)."""
+    from repro_torch.launch.serve import CLUSTER_QUERIES
+    names = ("age_limit", "name_scan", "routed_lookup", "knows_expand")
+    out = [(name, *(q if isinstance(q, tuple) else (q, None)))
+           for name, q in zip(names, CLUSTER_QUERIES)]
+    out.append(("create_from_source",
+                "MATCH (p:Person) WHERE p.photo->face ~: "
+                "createFromSource($src)->face RETURN p.name",
+                {"src": cluster_photo(c, 7)}))
+    return out
+
+
+def phase_cluster(torch, n_persons: int, shared: dict, prof=None):
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from repro_torch.cluster import FaultInjector
+    from repro_torch.core.vector_index import IVFIndex, scatter_gather_knn
+    from repro_torch.launch.serve import CLUSTER_QUERIES, build_cluster
+    from repro_torch.serving.engine import QueryServer
+
+    out = {}
+    t0 = time.perf_counter()
+    c = build_cluster(n_persons, 4, 1, FaultInjector(0), device="cuda",
+                      dim=FACE_DIM)
+    pieces = c.index_pieces("face")
+    check(all(p.t_vectors.device.type == "cuda" for p in pieces),
+          "an index piece is not on the card")
+    out["build_s"] = time.perf_counter() - t0
+    log(f"[cluster] built persons={n_persons} shards={c.n_shards} on "
+        f"{c.device}: piece rows {[p.n_total for p in pieces]} buckets="
+        f"{pieces[0].centroids.shape[0]} dim={pieces[0].vectors.shape[1]} "
+        f"in {out['build_s']:.1f}s")
+
+    answers = serve(c, cluster_requests(c), "cuda")
+    for name, (rows, ms) in answers.items():
+        log(f"[cluster] {name}: rows={len(rows)} latency_ms={ms:.1f}")
+    out["requests"] = {name: {"rows": len(rows), "latency_ms": ms}
+                       for name, (rows, ms) in answers.items()}
+    check(len(answers["age_limit"][0]) == 5, "cluster LIMIT row count")
+    check(answers["name_scan"][0] == [{"n.age": 21.0}], "cluster name scan")
+    check(answers["routed_lookup"][0] == [{"p.name": "person_3"}],
+          "cluster routed lookup")
+    knows = answers["knows_expand"][0]
+    check(len(knows) > 0 and all(
+        r["m.__self__"] == int(r["n.name"].split("_")[1]) + 1
+        for r in knows), "cluster knows expand rows")
+    check("person_7" in {r["p.name"] for r in answers["create_from_source"][0]},
+          "cluster createFromSource probe missed its own photo")
+
+    q = unit_queries(2, 256)
+    merged = IVFIndex.merge_pieces(pieces)
+    for k in (10, 100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = c.knn("face", q, k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        res = compare_knn(f"[cluster] knn Q=256 k={k} vs merged index",
+                          got, merged.search_many(q, k))
+        out[f"knn_k{k}"] = dict(res, ms=ms)
+        log(f"[cluster] knn Q=256 k={k}: ms={ms:.1f}")
+    del merged
+    if prof is not None:
+        prof("cluster knn Q=256 k=10", lambda: c.knn("face", q, 10))
+        session = c.session()
+        text = dict((n, t) for n, t, _ in cluster_requests(c))["knows_expand"]
+        prof("cluster fan-out knows_expand",
+             lambda: session.run(text).fetchall())
+    c.close()
+
+    # phase 3's residual 1M-row IVF-PQ index, cut in four: a fused scan per
+    # shard with the re-rank budget split, merged on the card
+    idx, queries = shared.pop("pq_index"), shared.pop("pq_queries")
+    pq_pieces = idx.shard(4)
+    with ThreadPoolExecutor(4) as pool:
+        for k in (10, 100):
+            _, truth = idx.search_exact(queries, k)
+            _, single = idx.search_many(queries, k, mode="fused")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, ids = scatter_gather_knn(pq_pieces, queries, k, mode="fused",
+                                        split_rerank_budget=True, pool=pool)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            hits = sum(len(set(a.tolist()) & set(e.tolist()) - {-1})
+                       for a, e in zip(ids, truth))
+            recall = hits / (len(queries) * k)
+            same = float((ids == single).mean())
+            log(f"[cluster] pq fused 4 shards Q={len(queries)} "
+                f"N={idx.n_total} k={k}: recall@{k}={recall:.4f} "
+                f"ids_equal_unsharded={same:.4f} ms={ms:.1f}")
+            check(bool(np.isfinite(v).all()), "sharded pq non-finite")
+            check(recall >= 0.90, f"sharded pq recall@{k} {recall}")
+            out[f"pq_fused_k{k}"] = {"recall": recall, "ms": ms,
+                                     "ids_equal_unsharded": same}
+    del idx, pq_pieces
+    torch.cuda.empty_cache()
+
+    # chaos: a replica of shard 0 is fail-stopped halfway through a closed
+    # loop; failover and hedged reads must mask it
+    faults = FaultInjector(seed=0)
+    rc = build_cluster(20_000, 2, 2, faults, device="cuda", dim=FACE_DIM)
+    qk = unit_queries(5, 64)
+    before = rc.knn("face", qk, 10)
+    server = QueryServer(rc, n_workers=2)
+    duration = 8.0
+    killer = threading.Timer(duration / 2, faults.fail_stop, args=(0, 0))
+    killer.start()
+    try:
+        stats = server.run_closed_loop(CLUSTER_QUERIES, n_clients=4,
+                                       duration_s=duration)
+    finally:
+        killer.cancel()
+    counts = server.route_counts()
+    after = rc.knn("face", qk, 10)
+    summary = stats.summary()
+    log(f"[cluster] chaos 2x2 persons=20000: requests={summary['requests']} "
+        f"p50_ms={summary['p50_ms']:.1f} p99_ms={summary['p99_ms']:.1f} "
+        f"failed={counts.get('serve_failed')} failovers="
+        f"{counts.get('failovers')} hedges_fired={counts.get('hedges_fired')}"
+        f" replica_0_0_alive={rc.replica_sets[0].alive[0]}")
+    check(summary["requests"] > 0, "chaos loop served nothing")
+    check(counts.get("serve_failed", 0) == 0 and
+          counts["serve_completed"] == counts["serve_submitted"],
+          f"chaos: requests failed {counts}")
+    check(not rc.replica_sets[0].alive[0] and counts["failovers"] >= 1,
+          "chaos: the kill did not land or no failover was counted")
+    check(bool(np.array_equal(before[1], after[1])),
+          "chaos: kNN ids changed after the kill")
+    rc.close()
+    out["chaos"] = {"requests": summary["requests"],
+                    "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
+                    "failovers": counts["failovers"],
+                    "hedges_fired": counts["hedges_fired"]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +706,7 @@ def phase_parity(n_persons: int = 5000):
 # ---------------------------------------------------------------------------
 
 
-def phase_pq(torch, n_rows: int, prof=None):
+def phase_pq(torch, n_rows: int, shared: dict, prof=None):
     import numpy as np
     from repro_torch.configs.pandadb import VectorIndexConfig
     from repro_torch.core.vector_index import IVFIndex
@@ -447,6 +762,8 @@ def phase_pq(torch, n_rows: int, prof=None):
                 for k in (10, 100):
                     prof(f"pq {mode} k={k}",
                          lambda: idx.search_many(queries, k, mode=mode))
+        if residual:       # the cluster phase shards this one
+            shared["pq_index"], shared["pq_queries"] = idx, queries
         del idx
         torch.cuda.empty_cache()
     return out
@@ -480,6 +797,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.ivf_scan import ops as ivf_ops
     from repro_torch.kernels.pq_scan import ops as pq_ops
+    from repro_torch.kernels.topk_merge import ops as merge_ops
 
     t_start = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -490,7 +808,8 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}")
     results = {"card": card[0] if card else "", "phases": {}}
     counters = {"ivf_scan": ivf_ops.launches, "pq_scan": pq_ops.launches,
-                "pq_scan_ext": pq_ops.ext_launches}
+                "pq_scan_ext": pq_ops.ext_launches,
+                "topk_merge": merge_ops.launches}
     failed = []
     t0 = time.perf_counter()
     build.build_all()
@@ -527,21 +846,32 @@ def main() -> int:
                 log(f"[profile]   {side[:-4]} {e['ms']:.2f} ms "
                     f"/ {e['calls']}: {e['name']}")
 
+    def main_path(label, needs, *phases):
+        """Run one main path's phases with every count zeroed just before
+        and read just after; each kernel in ``needs`` must have launched."""
+        for c in counters.values():
+            c.reset()
+        for phase in phases:
+            run(*phase)
+        got = {name: c.n for name, c in counters.items()}
+        log(f"[main path] {label} launches {got}")
+        for name in needs:
+            if got[name] <= 0:
+                failed.append(f"{name} never launched on the {label} path")
+        return got
+
+    maybe_prof = prof if args.profile else None
+    shared = {}
     run("kernels", phase_kernels, torch, args.pq_rows)
-    for c in counters.values():
-        c.reset()
-    run("serving", phase_serving, torch, args.persons,
-        prof if args.profile else None)
-    serving_ivf = ivf_ops.launches.n
-    run("pq", phase_pq, torch, args.pq_rows, prof if args.profile else None)
-    launches = {name: c.n for name, c in counters.items()}
-    log(f"[main path] launches {launches} (ivf_scan while serving: "
-        f"{serving_ivf})")
-    if serving_ivf <= 0:
-        failed.append("serving launched no ivf_scan")
-    for name, n in launches.items():
-        if n <= 0:
-            failed.append(f"{name} never launched on the main path")
+    single = main_path(
+        "single-node", ("ivf_scan", "pq_scan", "pq_scan_ext"),
+        ("serving", phase_serving, torch, args.persons, maybe_prof),
+        ("pq", phase_pq, torch, args.pq_rows, shared, maybe_prof))
+    cluster = main_path(
+        "cluster", ("topk_merge", "ivf_scan"),
+        ("cluster", phase_cluster, torch, CLUSTER_PERSONS, shared,
+         maybe_prof))
+    launches = {name: single[name] + cluster[name] for name in counters}
     run("parity", phase_parity)
 
     meta = {
@@ -551,6 +881,8 @@ def main() -> int:
                     "src/repro/kernels/pq_scan/pq_scan.py:106"),
         "pq_scan_ext": ("src/repro_torch/csrc/pq_scan.cu",
                         "src/repro/kernels/pq_scan/pq_scan.py:153"),
+        "topk_merge": ("src/repro_torch/csrc/topk_merge.cu",
+                       "src/repro/kernels/topk_merge/topk_merge.py:57"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -564,7 +896,7 @@ def main() -> int:
                         "library_ms": k.get("library_ms"),
                         "shape": k.get("shape")})
     results["kernels"] = kernels
-    results["launches"] = launches
+    results["launches"] = {"single_node": single, "cluster": cluster}
     results["seconds"] = time.perf_counter() - t_start
     results["failed"] = failed
     if args.out:

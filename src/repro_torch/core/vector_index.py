@@ -29,16 +29,19 @@ candidates against the original float vectors that returns true top-k
 scores.  The cost model picks ADC vs float scan per query batch from
 observed throughputs (``StatisticsService.choose_knn_scan``).
 
-The cluster layer of the reference (``scatter_gather_knn``,
-``flat_shard_view``, ``distributed_knn``, ``merge_topk``) comes with the
-port's cluster slice; :meth:`IVFIndex.shard` and
-:meth:`IVFIndex.merge_pieces` are here already.
+Distributed layout (paper §VII-A: property data sharded): centroids are
+replicated, bucket contents are sharded (:meth:`IVFIndex.shard`); a query
+does a local scan per shard, then the per-shard top-k windows meet in one
+k-way merge on the shards' device -- :func:`scatter_gather_knn`, which runs
+the ``topk_merge`` CUDA kernel on the card.  ``ShardedPandaDB.knn``,
+``ReplicatedPandaDB.knn`` and :func:`distributed_knn` all go through it.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from concurrent.futures import wait as futures_wait
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +51,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ivf_scan.ops import ivf_scan_topk
 from repro_torch.kernels.pq_scan.ops import pq_adc_topk
 from repro_torch.kernels.topk import stable_topk
+from repro_torch.kernels.topk_merge.ops import merge_topk_dev
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +118,17 @@ def masked_scan_topk(q: torch.Tensor, corpus: torch.Tensor,
     return stable_topk(s, k)
 
 
+def merge_topk(vals_parts: torch.Tensor, ids_parts: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard top-k: [P, Q, k] -> [Q, k] (associative), through
+    :func:`merge_topk_dev` over every column (the kernel on the card).
+
+    Padding entries (val=-inf, id=-1) sink to the tail of the merge; callers
+    that may hold fewer than ``k`` real candidates in total should truncate
+    or mask afterwards (see :func:`distributed_knn`)."""
+    return merge_topk_dev(vals_parts, ids_parts, k)
+
+
 def stable_id_hash(ids: np.ndarray) -> np.ndarray:
     """splitmix64 finalizer over external ids: the cluster-wide ownership
     hash.  Stable under row reordering (it sees the *id*, not the row
@@ -131,6 +146,200 @@ def stable_id_hash(ids: np.ndarray) -> np.ndarray:
 def owner_shard(ids: np.ndarray, n_shards: int) -> np.ndarray:
     """Owning shard per external id: ``stable_id_hash(id) % n_shards``."""
     return (stable_id_hash(ids) % np.uint64(max(1, n_shards))).astype(np.int64)
+
+
+def scatter_gather_knn(shards: Sequence["IVFIndex"], queries: np.ndarray,
+                       k: int, nprobe: Optional[int] = None,
+                       mode: str = "auto", rerank: bool = True,
+                       stats=None, record: Optional[Callable] = None,
+                       pool=None, split_rerank_budget: bool = False,
+                       deadline=None, trace=None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """THE cluster merge schedule: per-shard ``search_many`` (ADC, float or
+    fused, per each shard's cost-model call) -> one k-way ``merge_topk_dev``
+    reduce on the shards' device (the ``topk_merge`` CUDA kernel on the
+    card, its plain version on the CPU) -> truncation of shard padding to
+    min(k, total rows).  Every scatter-gather kNN -- ``ShardedPandaDB.knn``,
+    ``ReplicatedPandaDB.knn``, :func:`distributed_knn`, the serving path --
+    routes through here, so the merge semantics cannot drift.
+
+    Output invariant (the ``merge_topk`` padding contract, enforced here
+    rather than trusted): a position holds id=-1 exactly where its value is
+    -inf, i.e. where fewer real candidates existed than ``k`` -- no shard's
+    -1 padding can ever surface with a finite score attached.
+
+    ``stats`` is either one StatisticsService (shared feedback) or a
+    sequence with one entry per shard (each shard's ADC-vs-float choice then
+    uses its own observed throughputs).  ``record(shard_idx, dt, rows)``,
+    if given, receives per-shard wall time + rows scanned (the
+    coordinator's per-shard EWMAs).  ``pool`` is an optional
+    ``concurrent.futures`` executor: shards scatter in parallel; results
+    are merged in shard order either way, so the output is deterministic.
+
+    ``split_rerank_budget=True`` divides the *global* re-rank candidate
+    budget across shards -- each shard scans ADC top-``ceil(rerank_mult/P)
+    * k`` instead of ``rerank_mult * k`` -- so total exact-re-rank work
+    stays constant as shards are added.
+
+    ``deadline`` (a :class:`~repro_torch.core.deadline.Deadline`, optional)
+    is the degradation ladder's last resort: shards whose scans miss the
+    remaining budget are *dropped* and the merge returns partial top-k
+    from the shards that answered -- the padding contract above guarantees
+    dropped contributions surface as (-inf, -1) slots, never as fabricated
+    candidates.  ``partial_topk`` is noted on the deadline; if NO shard
+    answers in time, :class:`DeadlineExceeded` is raised.
+
+    ``trace`` (a :class:`repro_torch.obs.Trace`, optional) records one
+    ``knn.shard_scan`` span per shard (attributed with rows scanned and
+    re-rank mode, correct even off pool threads), a ``knn.merge`` span for
+    the device-side reduce, and a ``degradation`` event when the partial
+    top-k ladder step fires."""
+    queries = np.asarray(queries, np.float32)
+    qn = queries.shape[0]
+    out_v = np.full((qn, k), -np.inf, np.float32)
+    out_i = np.full((qn, k), -1, np.int64)
+    if qn == 0 or not shards:
+        return out_v, out_i
+    per_stats = (list(stats) if isinstance(stats, (list, tuple))
+                 else [stats] * len(shards))
+    rm = None
+    if split_rerank_budget and rerank and len(shards) > 1:
+        rm = max(1, -(-max(sh.cfg.rerank_mult for sh in shards)
+                      // len(shards)))
+
+    # spans from pool threads attach to the caller's current span, captured
+    # here (the pool thread's own stack is empty, so parent= is explicit)
+    t_parent = trace.current() if trace is not None else None
+
+    def scan_one(s: int):
+        t0 = time.perf_counter()
+        rows0 = shards[s].scan_rows
+        v, i = shards[s].search_many(queries, k, nprobe, stats=per_stats[s],
+                                     mode=mode, rerank=rerank,
+                                     rerank_mult=rm)
+        dt = time.perf_counter() - t0
+        scanned = shards[s].scan_rows - rows0
+        if trace is not None:
+            trace.add_timed("knn.shard_scan", dt, parent=t_parent, shard=s,
+                            rows=int(scanned), rerank=rerank)
+        if record is not None:
+            record(s, dt, scanned)
+        return v, i
+
+    pad = (np.full((qn, k), -np.inf, np.float32),
+           np.full((qn, k), -1, np.int64))
+    if pool is not None and len(shards) > 1:
+        if deadline is None:
+            parts = list(pool.map(scan_one, range(len(shards))))
+        else:
+            futs = [pool.submit(scan_one, s) for s in range(len(shards))]
+            futures_wait(futs, timeout=max(0.0, deadline.remaining()))
+            parts, answered = [], 0
+            for f in futs:
+                if f.done() and f.exception() is None:
+                    parts.append(f.result())
+                    answered += 1
+                else:
+                    f.cancel()      # queued legs are withdrawn; running
+                    parts.append(pad)   # legs finish unobserved
+            if answered == 0:
+                deadline.check("knn scatter")
+            if answered < len(shards):
+                deadline.note_degradation("partial_topk")
+                if trace is not None:
+                    trace.event("degradation", parent=t_parent,
+                                step="partial_topk",
+                                answered=answered, shards=len(shards))
+    elif deadline is not None:
+        parts, answered = [], 0
+        for s in range(len(shards)):
+            if deadline.expired():
+                if answered == 0:
+                    deadline.check("knn scatter")
+                parts.append(pad)   # serial last resort: keep what we have
+                continue
+            parts.append(scan_one(s))
+            answered += 1
+        if answered < len(shards):
+            deadline.note_degradation("partial_topk")
+            if trace is not None:
+                trace.event("degradation", parent=t_parent,
+                            step="partial_topk", answered=answered,
+                            shards=len(shards))
+    else:
+        parts = [scan_one(s) for s in range(len(shards))]
+    t_merge = time.perf_counter()
+    dev = shards[0].device
+    v, i = merge_topk_dev(
+        torch.from_numpy(np.stack([p[0] for p in parts])).to(dev),
+        torch.from_numpy(np.stack([p[1] for p in parts])).to(dev), k)
+    v, i = v.cpu().numpy(), i.cpu().numpy()
+    if trace is not None:
+        trace.add_timed("knn.merge", time.perf_counter() - t_merge,
+                        parent=t_parent, shards=len(parts), k=k)
+    total = sum(sh.n_total for sh in shards)
+    kk = min(k, total, v.shape[1])
+    v = v[:, :kk]
+    out_v[:, :kk] = v
+    # pin the padding invariant structurally: wherever the merged window
+    # still holds -inf (a query whose probed buckets had < k real rows
+    # in total), the id is -1 -- whatever payload the shard windows carried
+    out_i[:, :kk] = np.where(np.isfinite(v), i[:, :kk], -1)
+    return out_v[:, :k], out_i[:, :k]
+
+
+def flat_shard_view(corpus: np.ndarray, ids: np.ndarray, metric: str = "l2",
+                    pq: Optional["PQCodebook"] = None,
+                    codes: Optional[np.ndarray] = None,
+                    device: DeviceLike = None) -> "IVFIndex":
+    """Wrap raw (corpus, ids) arrays as a single-bucket :class:`IVFIndex`
+    on ``device`` (default: the CUDA card), so loose shards ride the same
+    scan + merge machinery as built indexes (cosine rows are normalized
+    exactly as :meth:`IVFIndex.build` would)."""
+    corpus = np.asarray(corpus, np.float32)
+    if metric == "cosine" and corpus.size:
+        corpus = corpus / np.maximum(
+            np.linalg.norm(corpus, axis=-1, keepdims=True), 1e-9)
+    n, dim = corpus.shape
+    cfg = VectorIndexConfig(dim=dim, metric=metric, min_buckets=1,
+                            vectors_per_bucket=max(1, n), nprobe=1)
+    return IVFIndex(cfg, np.zeros((1, dim), np.float32),
+                    np.zeros(n, np.int64), corpus,
+                    np.asarray(ids), pq=pq, codes=codes, device=device)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def distributed_knn(q, corpus_shards: Sequence, id_shards: Sequence, k: int,
+                    metric: str = "l2", mode: str = "float",
+                    pq: Optional["PQCodebook"] = None,
+                    code_shards: Optional[Sequence[np.ndarray]] = None,
+                    device: DeviceLike = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference collective schedule: local scan -> local top-k -> merge,
+    with every shard a :func:`flat_shard_view` on ``device``.
+
+    A thin wrapper over :func:`scatter_gather_knn` -- the cluster merge
+    path -- so this host-loop reference and ``ShardedPandaDB`` can never
+    drift.  ``mode="adc"`` with ``pq`` + ``code_shards`` runs the PQ
+    two-stage scan per shard (ADC top-k' + exact re-rank, returned scores
+    exact).  The output ([Q, k'] host tensors, k' = min(k, total rows)) is
+    truncated, so the -1/-inf padding a small shard contributes can never
+    leak into caller-visible results."""
+    views = []
+    for s, (shard, ids) in enumerate(zip(corpus_shards, id_shards)):
+        codes = code_shards[s] if code_shards is not None else None
+        views.append(flat_shard_view(_host(shard), _host(ids), metric, pq=pq,
+                                     codes=codes, device=device))
+    v, i = scatter_gather_knn(views, _host(q).astype(np.float32), k,
+                              nprobe=1, mode=mode)
+    total = sum(int(_host(s).shape[0]) for s in corpus_shards)
+    kk = min(k, total)
+    return (torch.from_numpy(np.ascontiguousarray(v[:, :kk])),
+            torch.from_numpy(np.ascontiguousarray(i[:, :kk])))
 
 
 # ---------------------------------------------------------------------------

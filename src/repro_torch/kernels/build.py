@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 #: kernel library -> its translation unit in ``csrc/``
-SOURCES: Dict[str, str] = {"ivf_scan": "ivf_scan.cu", "pq_scan": "pq_scan.cu"}
+SOURCES: Dict[str, str] = {"ivf_scan": "ivf_scan.cu", "pq_scan": "pq_scan.cu",
+                           "topk_merge": "topk_merge.cu"}
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -8,11 +8,15 @@ once per skeleton across the whole server, not once per request).
 Reading-queries go to any worker; writing-queries serialize through the
 db-level write lock + leader WAL (paper §VII-A).
 
-``db`` is a single-node :class:`~repro_torch.core.database.PandaDB`; the
-server runs on its device, the CUDA card unless the db was built with
-``device="cpu"``.  (Serving a cluster coordinator comes with the
-port's cluster slice.)  :meth:`QueryServer.route_counts` surfaces the
-serving counters for the load just served.
+``db`` may be a single-node :class:`~repro_torch.core.database.PandaDB` or
+a :class:`~repro_torch.cluster.ShardedPandaDB` coordinator -- the session
+surfaces are interchangeable, so every worker's statements route through
+the coordinator (scatter-gather fan-out or owner-shard routing per
+statement) while the cluster-wide plan cache keeps parse+optimize amortized
+exactly as on one node.  The server runs on the db's (or coordinator's)
+device, the CUDA card unless it was built with ``device="cpu"``.
+:meth:`QueryServer.route_counts` surfaces the coordinator's routing
+decisions and failure-masking counters for the load just served.
 
 **Overload behavior** (``ServingConfig``): the request queue can be bounded
 (``queue_depth``), with admission policy ``"reject"`` (the submitter gets

@@ -21,6 +21,9 @@ from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
 from repro_torch.kernels.pq_scan import ops as pq_ops
 from repro_torch.kernels.pq_scan.ops import pq_adc_topk
 from repro_torch.kernels.pq_scan.ref import pq_adc_topk_ref
+from repro_torch.kernels.topk_merge import ops as merge_ops
+from repro_torch.kernels.topk_merge.ops import merge_topk_dev
+from repro_torch.kernels.topk_merge.ref import merge_topk_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +104,51 @@ def test_pq_kernels_match_plain(cuda, k):
         (before[0] + 1, before[1] + 1)
 
 
+def _windows(rng, p, qn, kk, pad=0, ties=False):
+    """Shard windows as a scatter-gather stacks them: rows sorted, (-inf,
+    -1) padding at the tail, int64 ids past 2**31."""
+    v = rng.standard_normal((p, qn, kk)).astype(np.float32)
+    if ties:
+        v = np.round(v * 2)
+    v = -np.sort(-v, axis=2)
+    i = rng.integers(0, 1 << 40, (p, qn, kk)).astype(np.int64)
+    if pad:
+        v[:, :, kk - pad:] = -np.inf
+        i[:, :, kk - pad:] = -1
+    return torch.from_numpy(v), torch.from_numpy(i)
+
+
+@pytest.mark.parametrize("p,qn,kk,k,n_valid,pad", [
+    (2, 1, 1, 1, -1, 0), (2, 37, 10, 10, -1, 4), (4, 300, 16, 7, 60, 0),
+    (3, 70, 64, 256, -1, 20), (8, 9, 100, 100, 777, 30),
+    (4, 5, 300, 1000, -1, 90), (2, 4, 1000, 1500, 1999, 0),
+    (5, 6, 130, 600, 640, 13),
+])
+def test_topk_merge_kernel_matches_plain(cuda, p, qn, kk, k, n_valid, pad):
+    rng = np.random.default_rng(kk + k)
+    vals, ids = _windows(rng, p, qn, kk, pad=pad, ties=p == 3)
+    if p == 4 and qn == 5:
+        vals[1], ids[1] = -np.inf, -1             # an all-padding shard
+    vals, ids = vals.to(cuda), ids.to(cuda)
+    before = merge_ops.launches.n
+    kv, ki = merge_topk_dev(vals, ids, k, n_valid=n_valid)
+    pv, pi = merge_topk_ref(vals, ids, k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert merge_ops.launches.n == before + 1
+    assert ki.dtype == torch.int64
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
+
+
+def test_topk_merge_kernel_tie_order(cuda):
+    """All ties: the lower flattened column comes first."""
+    vals = torch.zeros(3, 4, 6, device=cuda)
+    ids = torch.arange(72, device=cuda).reshape(3, 4, 6)
+    kv, ki = merge_topk_dev(vals, ids, 9)
+    flat = ids.permute(1, 0, 2).reshape(4, 18)
+    assert torch.equal(ki, flat[:, :9])
+
+
 def test_index_on_card_matches_cpu(cuda):
     """One index state on the card and on the CPU: every search mode gives
     the same ids and scores."""
@@ -129,6 +177,29 @@ def test_index_on_card_matches_cpu(cuda):
             b = on_cpu.search_many(q, 50, **kw)
             np.testing.assert_array_equal(a[1], b[1])
             np.testing.assert_array_equal(a[0], b[0])
+
+
+def test_cluster_on_card_matches_cpu(cuda):
+    """A 4-shard cluster on the card and on the CPU: fan-out rows and kNN
+    ids agree, and the card's kNN merge launched the kernel."""
+    from repro_torch.cluster import FaultInjector
+    from repro_torch.launch.serve import CLUSTER_QUERIES, build_cluster
+    card = build_cluster(600, 4, 1, FaultInjector(0), device=cuda)
+    cpu = build_cluster(600, 4, 1, FaultInjector(0), device="cpu")
+    for q in CLUSTER_QUERIES:
+        text, params = q if isinstance(q, tuple) else (q, None)
+        assert card.query(text, params) == cpu.query(text, params)
+    q = np.random.default_rng(0).standard_normal((40, 64)).astype(np.float32)
+    before = (merge_ops.launches.n, ivf_ops.launches.n)
+    for k in (10, 100):
+        cv, ci = card.knn("face", q, k)
+        pv, pi = cpu.knn("face", q, k)
+        np.testing.assert_array_equal(ci, pi)
+        np.testing.assert_allclose(cv, pv, rtol=1e-5, atol=1e-4)
+    assert merge_ops.launches.n == before[0] + 2
+    assert ivf_ops.launches.n > before[1]
+    card.close()
+    cpu.close()
 
 
 def test_query_on_card_matches_cpu(cuda):

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 
 from repro.kernels.ivf_scan.ops import ivf_scan_topk as ivf_ref_jax
 from repro.kernels.pq_scan.ops import pq_adc_topk as pq_ref_jax
+from repro.kernels.topk_merge.ops import merge_topk_dev as merge_ref_jax
+from repro.kernels.topk_merge.ref import merge_topk_ref as merge_ref_np
 from repro_torch.kernels.ivf_scan import ops as ivf_ops
 from repro_torch.kernels.ivf_scan.ops import ivf_scan_topk
 from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
@@ -27,6 +29,9 @@ from repro_torch.kernels.pq_scan import ops as pq_ops
 from repro_torch.kernels.pq_scan.ops import pq_adc_topk
 from repro_torch.kernels.pq_scan.ref import pq_adc_topk_ref
 from repro_torch.kernels.topk import merge_tile_candidates, stable_topk
+from repro_torch.kernels.topk_merge import ops as merge_ops
+from repro_torch.kernels.topk_merge.ops import merge_topk_dev
+from repro_torch.kernels.topk_merge.ref import merge_topk_ref
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -256,3 +261,183 @@ def test_pq_cscores_without_row_bucket_raises():
         pq_adc_topk(torch.zeros(1, 2, 4), torch.zeros(3, 2,
                                                       dtype=torch.uint8),
                     2, cscores=torch.zeros(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# topk_merge (k-way shard reduce)
+# ---------------------------------------------------------------------------
+
+
+def _merge_inputs(p, qn, kk, pad_frac=0.0, seed=0, id_base=0):
+    """Per-shard top-k windows with optional (-inf, -1) tail padding, as
+    tests/test_kernels.py makes them (``id_base`` lifts the ids)."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((p, qn, kk)).astype(np.float32)
+    vals = -np.sort(-vals, axis=2)
+    ids = rng.integers(0, 10_000, (p, qn, kk)).astype(np.int64) + id_base
+    if pad_frac > 0:
+        n_pad = max(1, int(kk * pad_frac))
+        vals[:, :, kk - n_pad:] = -np.inf
+        ids[:, :, kk - n_pad:] = -1
+    return vals, ids
+
+
+def _merge_port(vals, ids, k, n_valid=-1):
+    v, i = merge_topk_dev(torch.from_numpy(vals), torch.from_numpy(ids), k,
+                          n_valid=n_valid)
+    return v.numpy(), i.numpy()
+
+
+def _assert_merge_same(port, *refs):
+    pv, pi = port
+    for ref in refs:
+        rv, ri = (np.asarray(x) for x in ref)
+        assert pi.shape == ri.shape
+        np.testing.assert_array_equal(pi, ri)
+        np.testing.assert_array_equal(pv, rv)      # the merge does no sums
+
+
+def _merge_case(name):
+    """The reference's test_topk_merge_* inputs: (vals, ids, k, n_valid)."""
+    if name.startswith("shapes"):
+        p, qn, kk, k = (int(x) for x in name.split("_")[1:])
+        return (*_merge_inputs(p, qn, kk, seed=p * 100 + qn), k, -1)
+    if name == "padded_shards":
+        return (*_merge_inputs(2, 8, 10, pad_frac=0.8, seed=3), 10, -1)
+    if name == "all_padding_shard":
+        vals, ids = _merge_inputs(3, 6, 8, seed=5)
+        vals[1], ids[1] = -np.inf, -1
+        return vals, ids, 8, -1
+    if name == "everything_padding":
+        return (np.full((2, 3, 4), -np.inf, np.float32),
+                np.full((2, 3, 4), -1, np.int64), 4, -1)
+    if name.startswith("n_valid"):
+        nv = int(name.split("_")[-1])
+        return (*_merge_inputs(4, 5, 5, seed=nv), 16, nv)
+    if name == "tie_order":
+        return (np.zeros((3, 4, 6), np.float32),
+                np.arange(72).reshape(3, 4, 6).astype(np.int64), 9, -1)
+    if name == "kernel_blocks":
+        return (*_merge_inputs(4, 130, 16, pad_frac=0.25, seed=9), 16, -1)
+    raise KeyError(name)
+
+
+MERGE_CASES = ["shapes_2_1_1_1", "shapes_2_4_10_10", "shapes_8_16_10_10",
+               "shapes_4_130_16_7", "shapes_3_8_5_32", "padded_shards",
+               "all_padding_shard", "everything_padding", "n_valid_1",
+               "n_valid_7", "n_valid_13", "n_valid_19", "tie_order",
+               "kernel_blocks"]
+
+
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_topk_merge_matches_pallas_kernel(case):
+    """The reference's test_topk_merge_* cases: the port's merge equals the
+    Pallas kernel (interpret mode) and the numpy oracle, values bitwise."""
+    vals, ids, k, nv = _merge_case(case)
+    pallas = merge_ref_jax(jnp.asarray(vals), jnp.asarray(ids), k,
+                           n_valid=nv, force_pallas=True)
+    port = _merge_port(vals, ids, k, n_valid=nv)
+    _assert_merge_same(port, pallas, merge_ref_np(vals, ids, k, n_valid=nv))
+    pv, pi = port
+    assert np.array_equal(pi == -1, ~np.isfinite(pv))
+    if case == "padded_shards":      # 2 shards x 2 real rows < k = 10
+        assert np.isinf(pv[:, 4:]).all() and (pi[:, 4:] == -1).all()
+    if case == "all_padding_shard":  # 2 live shards x 8 rows >= k = 8
+        assert (pi >= 0).all()
+    if case == "tie_order":
+        flat = np.transpose(ids, (1, 0, 2)).reshape(4, 18)
+        np.testing.assert_array_equal(pi, flat[:, :9])
+
+
+@pytest.mark.parametrize("p,qn,kk,k,pad", [(4, 5, 300, 1000, 0.3),
+                                           (3, 7, 100, 65, 0.0),
+                                           (8, 2, 40, 320, 0.5)])
+def test_topk_merge_large_k_matches_xla_twin(p, qn, kk, k, pad):
+    """k past the reference's k <= 64 kernel gate: the twin is the
+    reference there, and the port serves every k <= n_valid."""
+    vals, ids = _merge_inputs(p, qn, kk, pad_frac=pad, seed=k)
+    ref = merge_ref_jax(jnp.asarray(vals), jnp.asarray(ids), k)
+    _assert_merge_same(_merge_port(vals, ids, k), ref,
+                       merge_ref_np(vals, ids, k))
+
+
+def test_topk_merge_keeps_int64_ids():
+    """Ids past 2**31 survive the merge (the reference's JAX runs without
+    x64 and would cut them to int32)."""
+    vals, ids = _merge_inputs(4, 6, 12, pad_frac=0.25, seed=2,
+                              id_base=3 << 31)
+    pv, pi = _merge_port(vals, ids, 20)
+    assert pi.dtype == np.int64 and pi.max() > 2 ** 31
+    _assert_merge_same((pv, pi), merge_ref_np(vals, ids, 20))
+
+
+def _sort_pairs(v, c):
+    """(value desc, column asc) order along the last axis, stable."""
+    c, pos = torch.sort(c, dim=-1, stable=True)
+    v = torch.gather(v, -1, pos)
+    v, pos = torch.sort(v, dim=-1, descending=True, stable=True)
+    return v, torch.gather(c, -1, pos)
+
+
+def _merge_tile_emulation(vals, ids, k, n_valid):
+    """The CUDA kernel's decomposition in plain torch: clamp to CLAMP, pin
+    columns >= n_valid to NEG, per tile of SEG columns a (value desc,
+    column asc) sort whose first L = min(k, SEG) are kept as a run, then
+    runs merged pairwise into runs of min(2L, k) (a run without a partner
+    filled with (NEG, PAD_COL)) until one is left, then the wrapper's
+    epilogue (``gather_ids``)."""
+    p, qn, kk = vals.shape
+    c = p * kk
+    seg = 32
+    while seg < c and seg < 256:
+        seg <<= 1
+    n_tiles = -(-c // seg)
+    flat = torch.from_numpy(vals).permute(1, 0, 2).reshape(qn, c)
+    flat = torch.clamp_min(flat, merge_ops.CLAMP)
+    cols = torch.arange(n_tiles * seg, dtype=torch.int32).expand(qn, -1)
+    s = torch.full((qn, n_tiles * seg), -3e38)
+    s[:, :n_valid] = flat[:, :n_valid]
+    s, cols = _sort_pairs(s.reshape(qn, n_tiles, seg),
+                          cols.reshape(qn, n_tiles, seg))
+    length = min(k, seg)
+    s, cols = s[:, :, :length], cols[:, :, :length]
+    while s.shape[1] > 1:
+        if s.shape[1] % 2:
+            s = torch.cat([s, torch.full((qn, 1, length), -3e38)], 1)
+            cols = torch.cat([cols, torch.full((qn, 1, length), 2 ** 31 - 1,
+                                               dtype=torch.int32)], 1)
+        n_out, out_len = s.shape[1] // 2, min(2 * length, k)
+        s, cols = _sort_pairs(s.reshape(qn, n_out, 2 * length),
+                              cols.reshape(qn, n_out, 2 * length))
+        s, cols = s[:, :, :out_len], cols[:, :, :out_len]
+        length = out_len
+    assert length == k
+    return merge_ops.gather_ids(s[:, 0], cols[:, 0], torch.from_numpy(ids))
+
+
+@pytest.mark.parametrize("p,qn,kk,k,n_valid,pad", [
+    (2, 3, 10, 10, 20, 0.5), (3, 4, 6, 9, 18, 0.0), (4, 5, 64, 256, 256, 0.2),
+    (4, 3, 75, 40, 290, 0.4), (8, 2, 125, 1000, 1000, 0.3),
+    (3, 2, 100, 300, 300, 0.0), (5, 3, 130, 600, 640, 0.1),
+])
+def test_topk_merge_tile_decomposition_equals_plain(p, qn, kk, k, n_valid,
+                                                    pad):
+    """Per-tile top-L + pairwise run merges + id gather (what the CUDA
+    kernel and its wrapper compute) equals the plain merge, ties and
+    padding included, for one tile, tiles with L < SEG, tiles with L ==
+    SEG, and an odd number of runs."""
+    vals, ids = _merge_inputs(p, qn, kk, pad_frac=pad, seed=kk + k)
+    if p == 3:
+        vals = np.round(vals)                          # heavy ties
+    tv, ti = _merge_tile_emulation(vals, ids, k, n_valid)
+    pv, pi = merge_topk_ref(torch.from_numpy(vals), torch.from_numpy(ids),
+                            k, n_valid=n_valid)
+    np.testing.assert_array_equal(ti.numpy(), pi.numpy())
+    np.testing.assert_array_equal(tv.numpy(), pv.numpy())
+
+
+def test_topk_merge_on_cpu_never_launches():
+    before = merge_ops.launches.n
+    vals, ids = _merge_inputs(2, 3, 4, seed=1)
+    _merge_port(vals, ids, 5)
+    assert merge_ops.launches.n == before

@@ -214,6 +214,7 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.launch.serve, repro_torch.data.synthetic_graph\n"
             "import repro_torch.kernels.ivf_scan.ops, "
             "repro_torch.kernels.pq_scan.ops, repro_torch.configs\n"
+            "import repro_torch.cluster, repro_torch.kernels.topk_merge.ops\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
