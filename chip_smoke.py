@@ -5,7 +5,7 @@
                           [--out results.json]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all at once), then runs five phases and fails if any fails:
+per source, all at once), then runs seven phases and fails if any fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
    version on the card, at the main paths' shapes (IVF: Q in {256, 930},
@@ -16,8 +16,15 @@ per source, all at once), then runs five phases and fails if any fails:
    padding, an all-padding shard, starved probe masks and int64 ids past
    2**31.  Integer-valued vectors keep the IVF sums exact, the PQ sums run
    in the plain version's order and the merge does no arithmetic, so ids
-   must be equal and max |delta| <= 1e-4 (0 for the merge).  Prints kernel,
-   plain and library (one PyTorch call of the same function) times.
+   must be equal and max |delta| <= 1e-4 (0 for the merge).  The attention
+   kernels run at the LM path's shapes (flash: B=8, S=4,096, 32/8 heads of
+   128, bf16, plus the phi forward's S=64, a ragged S, head width 160 and a
+   float32 case; decode: B=8 over a 32,768-position cache with positions
+   spread over it, at the LM path's positions, head width 160, float32),
+   within rtol=1e-2, atol=1e-4 in bf16 (one bf16 ulp of the output) and
+   1e-4 in float32; in each bf16 case a planted fault, the values of one
+   32-key tile zeroed, must fail that limit on the longest rows.  Prints
+   kernel, plain and library (one PyTorch call of the same function) times.
 2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
    persons (100,000 by default) with 128-d faces and the IVF-Flat face
    index; a ``QueryServer`` answers the semantic and structured requests
@@ -34,18 +41,34 @@ per source, all at once), then runs five phases and fails if any fails:
    serves a fused scatter-gather by recall (>= 0.90); a 2 x 2
    ``ReplicatedPandaDB`` at 20,000 persons loses a replica halfway through
    a closed loop and must fail no request.
-5. parity: the serving requests at 5,000 persons, and the cluster's
+5. lm: ``LM(llama3-8b, device="cuda")`` at full width and depth (32 layers,
+   bf16), initialised on the card from a seeded generator; ``prefill_step``
+   on 8 prompts of 4,096 tokens, its cache copied into a 32,768-position
+   cache, 32 greedy ``serve_step``s (logits finite; tokens/s and step ms,
+   and wall against host-thread CPU time in four windows of 8 steps).
+   Then phi: ``PandaDB(device="cuda")`` with 2,000 seeded 64-byte texts,
+   20 of them near-duplicates of 20 planted anchors, the LM registered as
+   ``textvec`` through ``model_embedding_extractor``, the index built; the
+   similarity query from the anchors must return every twin.
+6. parity: the serving requests at 5,000 persons, and the cluster's
    requests and kNN at 5,000 persons, card against CPU: rows identical,
    kNN ids identical wherever neighbouring scores differ by more than 1e-4.
+7. lm parity: a 2-layer float32 cut of llama3-8b with the same weights on
+   the card and the CPU: logits within 1e-4, greedy tokens identical.  Then
+   llama3-8b cut to 2 layers at full width in bf16, on the card through the
+   kernels and through their plain versions: logits within two bf16 ulps of
+   the largest logit, greedy tokens identical wherever the top two logits
+   are further apart than that.
 
 Launch counts are zeroed just before each main path (phases 2-3, the
-single node; phase 4, the cluster) and read just after it; every kernel of
-a path must have launched on it.  ``--profile`` runs each serving request,
-each PQ search mode, one cluster kNN and one fan-out request once more,
-after the main path's run and uncounted, under ``torch.profiler`` and
-``cProfile``: host wall time, device busy time (CUDA kernels and copies,
-which run on one stream), the idle share ``1 - busy / wall``, and the
-kernels and host functions that took the most time.
+single node; phase 4, the cluster; phase 5, the LM) and read just after it;
+every kernel of a path must have launched on it.  ``--profile`` runs each
+serving request, each PQ search mode, one cluster kNN, one fan-out request,
+one prefill and one decode step once more, after the main path's run and
+uncounted, under ``torch.profiler`` and ``cProfile``: host wall time,
+device busy time (CUDA kernels and copies, which run on one stream), the
+idle share ``1 - busy / wall``, and the kernels and host functions that
+took the most time.
 
 The second-to-last line holds the kernels' numbers as JSON, the line before
 it the card's name and power limit; the last line is
@@ -66,6 +89,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 peak outside tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 SIM_THRESHOLD = 0.80           # the executor's similarity threshold
 FACE_DIM = 128                 # the faces of every serving phase
 KNN_GAP = 1e-4                 # kNN ids must agree where scores differ more
@@ -157,11 +181,12 @@ def profiled(torch, fn, top: int = 5) -> dict:
                          for ms, c, n in sorted(funcs, reverse=True)[:top]]}
 
 
-def bound(n_bytes: float, n_ops: float):
-    """Least time on the card: bytes over the memory rate vs float32
-    operations over the float32 peak; the larger one bounds."""
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    """Least time on the card: bytes over the memory rate vs operations over
+    the peak rate of their type (float32 unless given); the larger one
+    bounds."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -298,6 +323,8 @@ def phase_kernels(torch, pq_rows: int):
     del luts, codes, rb, bias, cs, pm, table, flat_codes
     torch.cuda.empty_cache()
     out["topk_merge"] = kernel_topk_merge(torch, dev)
+    out["flash_attention"] = kernel_flash_attention(torch, dev)
+    out["decode_attention"] = kernel_decode_attention(torch, dev)
     return out
 
 
@@ -373,6 +400,184 @@ def kernel_topk_merge(torch, dev):
                                 bound_ms=b_ms, bound_by=b_by,
                                 shape=f"P={p} Q={qn} K={kk} k={k}")
                 del vals, ids, kv, ki, pv, pi
+        torch.cuda.empty_cache()
+    return dict(main, max_abs_err=worst)
+
+
+# the attention kernels' tolerances.  bf16: the kernel and the plain version
+# both round one float32 value per output to bf16, and those float32 values
+# differ by float32 noise only, so they round at most one bf16 ulp apart,
+# <= 2^-7 |x| (rtol 1e-2 keeps a margin); atol covers the float32 noise of
+# outputs near zero.  float32: sums in another order than the plain version.
+ATTN_TOL = {"bfloat16": (1e-2, 1e-4), "float32": (1e-4, 1e-4)}
+FAULT_KEYS = 32                 # one key tile of the kernels, for the fault
+
+
+def attn_err(got, want, dtype_name: str):
+    """(max |delta|, every element within atol + rtol * |want|)."""
+    rtol, atol = ATTN_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return float(diff.max()), bool((diff <= atol + rtol * w.abs()).all())
+
+
+def fault_tile(s: int, last: int) -> slice:
+    """A planted fault's keys: the 32-key tile that starts at the middle of
+    the first ``last + 1`` positions, rounded down to a tile."""
+    start = (last + 1) // 2 // FAULT_KEYS * FAULT_KEYS
+    return slice(start, min(start + FAULT_KEYS, s))
+
+
+def sdpa(torch, q, k, v, **kw):
+    """One ``scaled_dot_product_attention`` call on [B, S, H, D] tensors
+    with fewer key heads: the library yardstick, never used by the port."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True, **kw).transpose(1, 2)
+
+
+def kernel_flash_attention(torch, dev):
+    """flash_attention at the LM path's shapes: the llama3-8b prefill (B=8,
+    S=4,096, 32 query / 8 key heads of 128, bf16), the phi forward (S=64),
+    a ragged S, stablelm's head width 160, and the float32 parity config."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [("prefill", 8, 4096, 32, 8, 128, torch.bfloat16),
+             ("phi", 8, 64, 32, 8, 128, torch.bfloat16),
+             ("ragged", 2, 1000, 32, 8, 128, torch.bfloat16),
+             ("head_dim_160", 2, 2048, 32, 8, 160, torch.bfloat16),
+             ("parity_f32", 2, 37, 4, 2, 32, torch.float32)]
+    worst, main = 0.0, None
+    for label, b, s, h, kvh, d, dt in cases:
+        q = torch.randn(b, s, h, d, device=dev, generator=gen).to(dt)
+        k = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
+        v = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
+        got = flash_attention(q, k, v)
+        want = flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[1]
+        err, ok = attn_err(got, want, name)
+        worst = max(worst, err)
+        ms = time_ms(torch, lambda: flash_attention(q, k, v))
+        plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v))
+        lib_ms = time_ms(torch, lambda: sdpa(torch, q, k, v, is_causal=True))
+        # causal: B*H*S(S+1)/2 (query, key) pairs, 2D operations for the
+        # score and 2D for P.V each; q, k, v read once, o written once
+        n_ops = 2.0 * b * h * d * s * (s + 1)
+        n_bytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * q.element_size()
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
+                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        log(f"[kernels] flash_attention {label} B={b} S={s} H={h} KVH={kvh} "
+            f"D={d} {name}: max_abs_err={err} within_tol={ok} ms={ms:.3f} "
+            f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        check(ok, f"flash_attention {label} off its plain version by {err}")
+        fault = {}
+        if dt == torch.bfloat16:
+            # the tolerance must fail a kernel that loses one key tile's
+            # values on the longest rows (the last query tile, batch row 0)
+            tile, rows = fault_tile(s, s - 1), slice(max(0, s - 64), s)
+            vf = v[:1].clone()
+            vf[:, tile] = 0
+            bad = flash_attention_ref(q[:1], k[:1], vf)[:, rows]
+            f_err, f_ok = attn_err(bad, want[:1, rows], name)
+            fault = dict(fault_err=f_err, fault_caught=not f_ok,
+                         want_mean_abs=float(want[:1, rows].float().abs()
+                                             .mean()))
+            log(f"[kernels] flash_attention {label}: planted fault (values "
+                f"of keys {tile.start}-{tile.stop - 1} zeroed), last 64 "
+                f"rows: max_abs_err={f_err} caught={not f_ok} "
+                f"(mean |want| there {fault['want_mean_abs']:.4g})")
+            check(not f_ok, f"flash_attention {label}: the tolerance passes "
+                  f"a kernel that drops a key tile")
+            del vf, bad
+        if label == "prefill":
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by, **fault,
+                        shape=f"B={b} S={s} H={h} KVH={kvh} D={d} {name}")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return dict(main, max_abs_err=worst)
+
+
+def kernel_decode_attention(torch, dev):
+    """decode_attention over a 32,768-position cache (the decode_32k shape
+    cut to B=8): positions spread over [0, S-1] with one at S-1, the LM
+    path's positions (all 4,100), head width 160, and float32."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [("spread", 8, 32768, 32, 8, 128, torch.bfloat16, None),
+             ("lm_path", 8, 32768, 32, 8, 128, torch.bfloat16, 4100),
+             ("head_dim_160", 4, 8192, 32, 8, 160, torch.bfloat16, None),
+             ("parity_f32", 2, 45, 4, 2, 32, torch.float32, None)]
+    worst, main = 0.0, None
+    for label, b, s, h, kvh, d, dt, at in cases:
+        q = torch.randn(b, 1, h, d, device=dev, generator=gen).to(dt)
+        kc = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
+        vc = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
+        if at is None:
+            pos = torch.randint(0, s, (b,), device=dev, generator=gen,
+                                dtype=torch.int32)
+            pos[0] = s - 1
+            pos[-1] = 0
+        else:
+            pos = torch.full((b,), at, device=dev, dtype=torch.int32)
+        got = decode_attention(q, kc, vc, pos)
+        want = decode_attention_ref(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[1]
+        err, ok = attn_err(got, want, name)
+        worst = max(worst, err)
+        ms = time_ms(torch, lambda: decode_attention(q, kc, vc, pos))
+        plain_ms = time_ms(torch, lambda: decode_attention_ref(q, kc, vc,
+                                                               pos))
+        mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long()
+                )[:, None, None, :]
+        lib_ms = time_ms(torch, lambda: sdpa(torch, q, kc, vc,
+                                             attn_mask=mask))
+        # the function depends on the cache rows at positions <= pos only
+        vis = float(torch.clamp(pos.long() + 1, max=s).sum())
+        n_bytes = (vis * 2 * kvh * d + 2 * b * h * d) * q.element_size() \
+            + 4 * b
+        n_ops = vis * 4.0 * h * d
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
+                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        log(f"[kernels] decode_attention {label} B={b} S={s} H={h} "
+            f"KVH={kvh} D={d} {name} visible_keys={int(vis)}: "
+            f"max_abs_err={err} within_tol={ok} ms={ms:.3f} "
+            f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        check(ok, f"decode_attention {label} off its plain version by {err}")
+        fault = {}
+        if dt == torch.bfloat16:
+            # the tolerance must fail a kernel that loses one key tile's
+            # values on the longest row
+            r = int(pos.argmax())
+            one = slice(r, r + 1)
+            tile = fault_tile(s, int(pos[r]))
+            vf = vc[one].clone()
+            vf[:, tile] = 0
+            bad = decode_attention_ref(q[one], kc[one], vf, pos[one])
+            f_err, f_ok = attn_err(bad, want[one], name)
+            fault = dict(fault_err=f_err, fault_caught=not f_ok,
+                         want_mean_abs=float(want[one].float().abs().mean()))
+            log(f"[kernels] decode_attention {label}: planted fault (values "
+                f"of keys {tile.start}-{tile.stop - 1} zeroed), row with pos "
+                f"{int(pos[r])}: max_abs_err={f_err} caught={not f_ok} "
+                f"(mean |want| there {fault['want_mean_abs']:.4g})")
+            check(not f_ok, f"decode_attention {label}: the tolerance passes "
+                  f"a kernel that drops a key tile")
+            del vf, bad
+        if label == "spread":
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by, **fault,
+                        shape=f"B={b} S={s} H={h} KVH={kvh} D={d} {name}, "
+                              f"pos spread")
+        del q, kc, vc, got, want, mask
         torch.cuda.empty_cache()
     return dict(main, max_abs_err=worst)
 
@@ -770,6 +975,299 @@ def phase_pq(torch, n_rows: int, shared: dict, prof=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the LM (llama3-8b) and the LM as phi
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "llama3-8b"
+PREFILL_BATCH, PREFILL_LEN = 8, 4096    # prefill_32k cut to B=8, S=4,096
+DECODE_LEN, DECODE_STEPS = 32768, 32    # decode_32k's cache, cut to B=8
+DECODE_WINDOWS = 4                      # the decode steps' timing windows
+PHI_DOCS, PHI_TWINS = 2000, 20
+
+
+def phase_lm(torch, prof=None):
+    """llama3-8b at full width and depth on the card: a prefill of 8
+    prompts of 4,096 tokens, 32 greedy decode steps into a 32,768-position
+    cache, then the LM as phi in a PandaDB similarity query."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import prefill_step, serve_step
+    from repro_torch.models.transformer import LM
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    cfg = get_arch(LM_ARCH).model
+    out = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = LM(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    out["init_s"] = time.perf_counter() - t0
+    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff}"
+        f" vocab={cfg.vocab_size} {cfg.dtype}: {n_params} parameters "
+        f"initialised on the card in {out['init_s']:.1f}s")
+    # param_count() leaves out the final norm's d_model scales
+    check(n_params == cfg.param_count() + cfg.d_model,
+          "parameter count differs from the config's")
+
+    b, s = PREFILL_BATCH, PREFILL_LEN
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, pre = prefill_step(model, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(last.shape == (b, cfg.vocab_size) and
+          bool(torch.isfinite(last).all()), "prefill logits not finite")
+    out["prefill"] = {"ms": prefill_s * 1e3,
+                      "tokens_per_s": b * s / prefill_s}
+    log(f"[lm] prefill_step B={b} S={s}: ms={prefill_s * 1e3:.1f} "
+        f"tokens_per_s={b * s / prefill_s:.1f}")
+
+    cache = model.init_cache(b, DECODE_LEN)
+    for dst, src in zip(cache["dense"], pre["dense"]):
+        dst[:, :, :s] = src
+    del pre
+    nxt = last.argmax(-1)
+    steps_ms, cpu_ms, generated = [], [], []
+    for t in range(DECODE_STEPS):
+        pos = torch.full((b,), s + t, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.thread_time()
+        logits, cache = serve_step(model, cache, nxt[:, None], pos)
+        nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        cpu_ms.append((time.thread_time() - c0) * 1e3)
+        check(bool(torch.isfinite(logits).all()),
+              f"decode step {t} logits not finite")
+        generated.append(nxt)
+    written = cache["dense"][0][:, :, s:s + DECODE_STEPS]
+    check(bool((written.abs().amax(dim=(0, 2, 3, 4)) > 0).all()),
+          "decode steps left cache rows unwritten")
+    check(bool((cache["dense"][0][:, :, s + DECODE_STEPS:] == 0).all()),
+          "decode wrote past its positions")
+    total = sum(steps_ms) / 1e3
+    out["decode"] = {"steps": DECODE_STEPS, "batch": b,
+                     "cache_len": DECODE_LEN,
+                     "step_ms_mean": sum(steps_ms) / len(steps_ms),
+                     "step_ms_min": min(steps_ms),
+                     "step_ms_max": max(steps_ms),
+                     "tokens_per_s": b * DECODE_STEPS / total}
+    log(f"[lm] serve_step x{DECODE_STEPS} B={b} cache={DECODE_LEN} from "
+        f"pos {s}: step_ms mean={out['decode']['step_ms_mean']:.2f} "
+        f"min={min(steps_ms):.2f} max={max(steps_ms):.2f} "
+        f"tokens_per_s={out['decode']['tokens_per_s']:.1f}; first row's "
+        f"tokens {[int(x[0]) for x in generated[:8]]}")
+    # the step's spread: wall against this thread's CPU time, by window; a
+    # step whose CPU time is its wall time is the host issuing work
+    win = DECODE_STEPS // DECODE_WINDOWS
+    out["decode"]["windows"] = [
+        {"wall_ms": sum(steps_ms[i:i + win]) / win,
+         "thread_cpu_ms": sum(cpu_ms[i:i + win]) / win}
+        for i in range(0, win * DECODE_WINDOWS, win)]
+    log(f"[lm] decode windows of {win} steps, wall ms / thread CPU ms a "
+        "step: " + ", ".join(f"{w['wall_ms']:.2f} / {w['thread_cpu_ms']:.2f}"
+                             for w in out["decode"]["windows"]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lm] peak device memory {out['peak_gb']:.1f} GB")
+    if prof is not None:
+        prof("lm prefill B=8 S=4096", lambda: prefill_step(model, tokens))
+        pos = torch.full((b,), s + DECODE_STEPS, dtype=torch.int32,
+                         device=dev)
+        prof("lm decode step B=8 cache=32768 pos=4128",
+             lambda: serve_step(model, cache, nxt[:, None], pos))
+    del cache, logits, written, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["phi"] = phase_phi(torch, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_phi(torch, model):
+    """The LM as phi: 2,000 Doc nodes with seeded 64-byte texts, 20 of them
+    near-duplicates (one byte changed) of 20 planted anchors;
+    ``model_embedding_extractor(lm, dim=128)`` registered as ``textvec``,
+    the index built, and examples/train_lm_e2e.py's query run from the
+    planted anchors must return each anchor's twin."""
+    import numpy as np
+    from repro_torch.core import PandaDB
+    from repro_torch.core.aipm import model_embedding_extractor
+
+    rng = np.random.default_rng(7)
+    texts = rng.integers(0, 256, (PHI_DOCS, 64), dtype=np.uint8)
+    twin_of = {}
+    for i in range(PHI_TWINS):
+        j = PHI_DOCS - PHI_TWINS + i
+        texts[j] = texts[i]
+        texts[j, 60] ^= 0x55
+        twin_of[f"doc_{i}"] = f"doc_{j}"
+    db = PandaDB(device="cuda")
+    db.register_extractor("textvec", model_embedding_extractor(model, dim=128),
+                          batch_size=8)
+    for i, t in enumerate(texts):
+        db.graph.create_node("Doc", name=f"doc_{i}", blob=t.tobytes(),
+                             planted=int(i < PHI_TWINS))
+    t0 = time.perf_counter()
+    idx = db.build_index("textvec", "blob")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"[phi] {PHI_DOCS} blobs through the LM (batches of 8) and the "
+        f"textvec index ({idx.n_total} rows, dim {idx.vectors.shape[1]}, on "
+        f"{idx.t_vectors.device}) in {build_s:.1f}s")
+    text = ("MATCH (x:Doc), (y:Doc) WHERE x.planted = 1 AND "
+            "x.blob->textvec ~: y.blob->textvec RETURN x.name, y.name")
+    t0 = time.perf_counter()
+    rows = db.query(text)
+    torch.cuda.synchronize()
+    query_ms = (time.perf_counter() - t0) * 1e3
+    found = {}
+    for r in rows:
+        found.setdefault(r["x.name"], set()).add(r["y.name"])
+    hits = sum(twin_of[a] in found.get(a, ()) for a in twin_of)
+    others = sum(len(v - {a, twin_of[a]}) for a, v in found.items())
+    log(f"[phi] planted twins found {hits} of {PHI_TWINS}; rows={len(rows)} "
+        f"(other matches {others}) in {query_ms:.1f} ms")
+    db.aipm.shutdown()
+    check(hits == PHI_TWINS, f"the phi query found {hits} of {PHI_TWINS} "
+          f"planted twins")
+    return {"index_build_s": build_s, "query_ms": query_ms, "twins": hits,
+            "rows": len(rows), "other_matches": others}
+
+
+def phase_lm_parity(torch):
+    """llama3-8b cut as launch/train.py's smoke config cuts it (2 layers,
+    d_model 128, head_dim 32, float32), the same weights on the card and on
+    the CPU: prefill and 8 greedy decode steps; logits within 1e-4, tokens
+    identical."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.transformer import LM
+
+    cfg = reduced(get_arch(LM_ARCH).model, n_layers=2, d_model=128,
+                  n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
+                  vocab_size=512, dtype="float32", grad_accum=1, fsdp=False)
+    card = LM(cfg, device="cuda",
+              generator=torch.Generator(device="cuda").manual_seed(1))
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    b, s, steps = 2, 37, 8
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(2))
+    runs = []
+    for model in (card, cpu):
+        full, _ = model.forward(toks)
+        last, pre = model.prefill(toks)
+        cache = model.init_cache(b, s + steps)
+        for dst, src in zip(cache["dense"], pre["dense"]):
+            dst[:, :, :s] = src
+        logits, tokens = [last.cpu()], [last.argmax(-1).cpu()]
+        for t in range(steps):
+            lg, cache = model.decode_step(cache, tokens[-1][:, None],
+                                          torch.full((b,), s + t))
+            logits.append(lg.cpu())
+            tokens.append(lg.argmax(-1).cpu())
+        runs.append((full.cpu(), torch.stack(logits), torch.stack(tokens)))
+    err_full = float((runs[0][0] - runs[1][0]).abs().max())
+    err_dec = float((runs[0][1] - runs[1][1]).abs().max())
+    same = bool(torch.equal(runs[0][2], runs[1][2]))
+    log(f"[lm parity] 2-layer float32 {LM_ARCH} card vs cpu: forward "
+        f"max_abs_err={err_full} prefill+decode max_abs_err={err_dec} "
+        f"greedy_tokens_identical={same}")
+    check(err_full <= 1e-4 and err_dec <= 1e-4,
+          f"lm parity logits differ by {max(err_full, err_dec)}")
+    check(same, "lm parity greedy tokens differ")
+    return {"forward_max_abs_err": err_full, "decode_max_abs_err": err_dec,
+            "tokens_identical": same}
+
+
+def phase_lm_parity_bf16(torch):
+    """The LM's bf16 kernels inside the model: llama3-8b cut to 2 layers at
+    full width (bf16, the lm path's kernel shapes), on the card once through
+    the kernels and once with ``chunked_attention`` / ``decode_attention``
+    swapped for their plain versions: a prefill of 2 prompts of 500 tokens
+    and 8 greedy decode steps, the plain run fed the kernel run's tokens.
+    The two runs differ only where the attention's one bf16 rounding falls
+    the other way, which moves a logit by at most an ulp: logits within two
+    bf16 ulps of the largest logit (2^-6 max |logit|), and greedy tokens
+    identical wherever the plain run's top two logits are further apart."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import LM
+
+    cfg = reduced(get_arch(LM_ARCH).model, n_layers=2)
+    dev = torch.device("cuda")
+    model = LM(cfg, device=dev,
+               generator=torch.Generator(device=dev).manual_seed(5))
+    b, s, steps = 2, 500, 8
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+
+    def run(feed=None):
+        last, pre = model.prefill(toks)
+        cache = model.init_cache(b, s + steps)
+        for dst, src in zip(cache["dense"], pre["dense"]):
+            dst[:, :, :s] = src
+        logits = [last]
+        for t in range(steps):
+            nxt = logits[-1].argmax(-1) if feed is None else feed[t]
+            lg, cache = model.decode_step(cache, nxt[:, None],
+                                          torch.full((b,), s + t, device=dev))
+            logits.append(lg)
+        return torch.stack(logits).float()              # [steps + 1, B, V]
+
+    def launched():
+        return (flash_ops.launches.n, decode_ops.launches.n)
+
+    n0 = launched()
+    kern = run()
+    n1 = launched()
+    tokens = kern.argmax(-1)
+    saved = transformer.chunked_attention, transformer.decode_attention
+    transformer.chunked_attention = flash_attention_ref
+    transformer.decode_attention = decode_attention_ref
+    try:
+        plain = run(feed=tokens)
+    finally:
+        transformer.chunked_attention, transformer.decode_attention = saved
+    check(n1[0] - n0[0] == cfg.n_layers and
+          n1[1] - n0[1] == cfg.n_layers * steps and launched() == n1,
+          f"bf16 lm parity launches {n0} -> {n1} -> {launched()}")
+    check(bool(torch.isfinite(kern).all()), "bf16 lm logits not finite")
+    limit = 2.0 ** -6 * float(plain.abs().max())
+    err = float((kern - plain).abs().max())
+    equal = float((kern == plain).float().mean())
+    top2 = plain.topk(2, dim=-1).values
+    apart = top2[..., 0] - top2[..., 1] > limit
+    same = tokens == plain.argmax(-1)
+    log(f"[lm parity] 2-layer bf16 {LM_ARCH} at full width, kernels vs "
+        f"plain on the card: logits max_abs_err={err} limit={limit} "
+        f"bitwise_equal={equal:.6f}; greedy tokens identical "
+        f"{int(same.sum())} of {same.numel()} (near ties "
+        f"{int((~apart).sum())}, differing there {int((~same).sum())})")
+    check(err <= limit, f"bf16 lm logits differ by {err} > {limit}")
+    check(bool((same | ~apart).all()),
+          "bf16 lm greedy tokens differ where the top two logits are apart")
+    del model
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "limit": limit, "bitwise_equal": equal,
+            "tokens_identical": int(same.sum()), "tokens": same.numel(),
+            "near_ties": int((~apart).sum())}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -797,6 +1295,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.ivf_scan import ops as ivf_ops
     from repro_torch.kernels.pq_scan import ops as pq_ops
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.topk_merge import ops as merge_ops
 
     t_start = time.perf_counter()
@@ -809,7 +1309,9 @@ def main() -> int:
     results = {"card": card[0] if card else "", "phases": {}}
     counters = {"ivf_scan": ivf_ops.launches, "pq_scan": pq_ops.launches,
                 "pq_scan_ext": pq_ops.ext_launches,
-                "topk_merge": merge_ops.launches}
+                "topk_merge": merge_ops.launches,
+                "flash_attention": flash_ops.launches,
+                "decode_attention": decode_ops.launches}
     failed = []
     t0 = time.perf_counter()
     build.build_all()
@@ -871,8 +1373,14 @@ def main() -> int:
         "cluster", ("topk_merge", "ivf_scan"),
         ("cluster", phase_cluster, torch, CLUSTER_PERSONS, shared,
          maybe_prof))
-    launches = {name: single[name] + cluster[name] for name in counters}
+    lm = main_path(
+        "lm", ("flash_attention", "decode_attention", "ivf_scan"),
+        ("lm", phase_lm, torch, maybe_prof))
+    launches = {name: single[name] + cluster[name] + lm[name]
+                for name in counters}
     run("parity", phase_parity)
+    run("lm_parity", phase_lm_parity, torch)
+    run("lm_parity_bf16", phase_lm_parity_bf16, torch)
 
     meta = {
         "ivf_scan": ("src/repro_torch/csrc/ivf_scan.cu",
@@ -883,6 +1391,12 @@ def main() -> int:
                         "src/repro/kernels/pq_scan/pq_scan.py:153"),
         "topk_merge": ("src/repro_torch/csrc/topk_merge.cu",
                        "src/repro/kernels/topk_merge/topk_merge.py:57"),
+        "flash_attention": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:73"),
+        "decode_attention": (
+            "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:65"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -896,7 +1410,8 @@ def main() -> int:
                         "library_ms": k.get("library_ms"),
                         "shape": k.get("shape")})
     results["kernels"] = kernels
-    results["launches"] = {"single_node": single, "cluster": cluster}
+    results["launches"] = {"single_node": single, "cluster": cluster,
+                           "lm": lm}
     results["seconds"] = time.perf_counter() - t_start
     results["failed"] = failed
     if args.out:

@@ -1,5 +1,20 @@
-"""The port's deployment configs: PandaDB's own knobs.  The model registry
-of the reference's ``configs`` package comes with the model slice."""
+"""The port's configs: PandaDB's own knobs, the model dataclasses of
+``configs/base.py``, and the architecture registry.
+
+``get_arch("llama3-8b")`` resolves an :class:`ArchSpec`.  The registry
+holds the dense GQA architectures the port's LM runs; the MoE, MLA, GNN
+and recsys architectures of the reference's registry come with their
+modules (ROADMAP Queue A8)."""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.configs.base import (  # noqa: F401 (re-export)
+    ArchSpec,
+    TransformerConfig,
+    reduced,
+)
 from repro_torch.configs.pandadb import (  # noqa: F401 (re-export)
     DEFAULT,
     AIPMConfig,
@@ -13,3 +28,22 @@ from repro_torch.configs.pandadb import (  # noqa: F401 (re-export)
     ServingConfig,
     VectorIndexConfig,
 )
+
+_ARCH_MODULES = {
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "llama3-8b": "repro_torch.configs.llama3_8b",
+}
+
+
+def arch_names() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_arch(name: str) -> ArchSpec:
+    try:
+        mod = importlib.import_module(_ARCH_MODULES[name])
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(_ARCH_MODULES)}") from None
+    return mod.ARCH

@@ -19,6 +19,7 @@ from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.pandadb import AIPMConfig
 
@@ -286,3 +287,26 @@ def label_extractor(labels: Sequence[str], seed: int = 1
 
     return fn
 
+
+def model_embedding_extractor(model, dim: int, max_tokens: int = 64
+                              ) -> Callable[[List[np.ndarray]], np.ndarray]:
+    """Adapter: use an LM (``models.transformer.LM``) as φ.  Each BLOB's
+    first ``max_tokens`` bytes become tokens ``byte % vocab``, zero-padded;
+    φ is the mean of the logits over all positions (padding included, as the
+    reference does), cut or zero-padded to ``dim`` and L2-normalised (floor
+    1e-9), as float32 numpy.  The forward runs on the model's device."""
+    vocab = model.cfg.vocab_size
+
+    def fn(raws: List[np.ndarray]) -> np.ndarray:
+        toks = np.zeros((len(raws), max_tokens), np.int64)
+        for i, raw in enumerate(raws):
+            b = np.asarray(raw, np.uint8).ravel()[:max_tokens]
+            toks[i, :len(b)] = b.astype(np.int64) % vocab
+        logits, _ = model.forward(torch.from_numpy(toks).to(model.device))
+        out = logits.mean(dim=1).float().cpu().numpy()
+        out = out[:, :dim] if out.shape[1] >= dim else np.pad(
+            out, [(0, 0), (0, dim - out.shape[1])])
+        norms = np.linalg.norm(out, axis=1, keepdims=True)
+        return out / np.maximum(norms, 1e-9)
+
+    return fn

@@ -26,7 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 #: kernel library -> its translation unit in ``csrc/``
 SOURCES: Dict[str, str] = {"ivf_scan": "ivf_scan.cu", "pq_scan": "pq_scan.cu",
-                           "topk_merge": "topk_merge.cu"}
+                           "topk_merge": "topk_merge.cu",
+                           "flash_attention": "flash_attention.cu",
+                           "decode_attention": "decode_attention.cu"}
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,0 +1,52 @@
+"""Attention: flash-style causal attention for prefill, grouped decode.
+
+The reference's ``models/attention.py`` with its [B, S, H, D] layout.  On
+the card both functions are the hand-written kernels
+(``kernels/flash_attention``, ``kernels/decode_attention``); on the CPU
+their plain versions, which repeat the reference's arithmetic.
+
+* ``chunked_attention`` -- online softmax over KV blocks; never builds the
+  S x S score matrix.  k and v may hold fewer heads than q (GQA): the
+  kernel reads key head h // (H / KVH), so no ``repeat_kv`` copy is made.
+* ``decode_attention`` -- one query token against the KV cache, masked past
+  ``pos``; the cache is read once for the G query heads of each key head.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention as _decode_kernel,
+)
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, KVH, D] -> [B, S, KVH * n_rep, D] (GQA broadcast)."""
+    if n_rep == 1:
+        return k
+    b, s, kvh, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, kvh, n_rep, d).reshape(
+        b, s, kvh * n_rep, d)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, block_kv: int = 1024,
+                      scale: Optional[float] = None,
+                      bf16_probs: bool = False) -> torch.Tensor:
+    """q [B, S, H, D]; k, v [B, S, KVH, D] -> [B, S, H, D].  fp32
+    accumulation; ``bf16_probs`` rounds the softmax weights to bf16 before
+    P.V.  Sq must equal Skv (the reference right-aligns the query positions,
+    a no-op at equal lengths)."""
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           bf16_probs=bf16_probs, block_kv=block_kv)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, 1, H, D]; caches [B, S, KVH, D]; pos [B] (index of the new
+    token) -> [B, 1, H, D], keys past ``pos`` masked."""
+    return _decode_kernel(q, k_cache, v_cache, pos, scale=scale)

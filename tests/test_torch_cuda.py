@@ -220,3 +220,126 @@ def test_query_on_card_matches_cpu(cuda):
     before = ivf_ops.launches.n
     assert card.query(text) == cpu.query(text)
     assert ivf_ops.launches.n > before
+
+
+# -- the LM's attention kernels ----------------------------------------------
+
+# bf16: the kernel and the plain version round float32 values that differ by
+# float32 noise only, so they land at most one bf16 ulp apart (<= 2^-7 |x|),
+# with float32 noise near zero; float32: the kernel sums in another order.
+# chip_smoke.py holds the kernels to the same limits.
+ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+            torch.bfloat16: dict(rtol=1e-2, atol=1e-4)}
+
+
+def _randn(gen, *shape, dtype, device):
+    return torch.randn(*shape, generator=gen).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,d,causal,bf16_probs", [
+    (2, 128, 4, 4, 64, True, False), (1, 100, 8, 2, 128, True, False),
+    (2, 257, 8, 1, 160, True, False), (1, 64, 16, 2, 128, False, False),
+    (3, 33, 4, 1, 32, True, True), (1, 1, 2, 1, 16, True, False),
+    (2, 190, 8, 8, 128, False, True),
+])
+def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d, causal,
+                                    bf16_probs):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator().manual_seed(s * h + d)
+    q = _randn(gen, b, s, h, d, dtype=dtype, device=cuda)
+    k = _randn(gen, b, s, kvh, d, dtype=dtype, device=cuda)
+    v = _randn(gen, b, s, kvh, d, dtype=dtype, device=cuda)
+    before = flash_ops.launches.n
+    got = flash_ops.flash_attention(q, k, v, causal=causal,
+                                    bf16_probs=bf16_probs)
+    want = flash_attention_ref(q, k, v, causal=causal, bf16_probs=bf16_probs)
+    torch.cuda.synchronize()
+    assert flash_ops.launches.n == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = dict(ATTN_TOL[dtype])
+    if bf16_probs:
+        # each side rounds every weight to bf16 (<= 2^-9 relative), on its
+        # own running max: the outputs differ by <= 2^-8 sum(p |v|) / l
+        tol["atol"] += 2.0 ** -8 * float(v.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,d,n_splits", [
+    (2, 1000, 8, 2, 64, 8), (3, 4096, 32, 8, 128, 8), (2, 77, 16, 2, 160, 3),
+    (1, 300, 8, 1, 128, 4), (4, 513, 4, 4, 32, 5), (2, 10, 4, 2, 16, 8),
+])
+def test_decode_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d, n_splits):
+    """pos = S - 1 (every key), pos = 0 (one key, every split but the first
+    masked out) and random positions in between."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    gen = torch.Generator().manual_seed(s + h + d)
+    q = _randn(gen, b, 1, h, d, dtype=dtype, device=cuda)
+    k = _randn(gen, b, s, kvh, d, dtype=dtype, device=cuda)
+    v = _randn(gen, b, s, kvh, d, dtype=dtype, device=cuda)
+    pos = torch.randint(0, s, (b,), generator=gen, dtype=torch.int32)
+    pos[0] = s - 1
+    pos[-1] = 0
+    pos = pos.to(cuda)
+    before = decode_ops.launches.n
+    got = decode_ops.decode_attention(q, k, v, pos, n_splits=n_splits)
+    want = decode_attention_ref(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert decode_ops.launches.n == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def test_attention_on_card_never_takes_the_plain_version(cuda, monkeypatch):
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    def refuse(*a, **kw):
+        raise AssertionError("a card tensor reached the plain version")
+
+    monkeypatch.setattr(flash_ops, "flash_attention_ref", refuse)
+    monkeypatch.setattr(decode_ops, "decode_attention_ref", refuse)
+    x = torch.randn(1, 8, 2, 64, device=cuda)
+    flash_ops.flash_attention(x, x, x)
+    decode_ops.decode_attention(x[:, :1], x, x,
+                                torch.tensor([3], dtype=torch.int32,
+                                             device=cuda))
+    torch.cuda.synchronize()
+
+
+def test_lm_on_card_matches_cpu(cuda):
+    """A 2-layer float32 LM with the same weights on the card and on the
+    CPU: logits within 1e-4 and the same greedy tokens, with both attention
+    kernels launched on the card."""
+    from repro_torch.configs.base import TransformerConfig
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.transformer import LM
+    cfg = TransformerConfig(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                            head_dim=32, d_ff=256, vocab_size=512,
+                            dtype="float32")
+    card = LM(cfg, device=cuda)
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = torch.randint(0, 512, (2, 37), generator=torch.Generator()
+                         .manual_seed(0))
+    before = (flash_ops.launches.n, decode_ops.launches.n)
+    outs = []
+    for model in (card, cpu):
+        last, pre = model.prefill(toks)
+        cache = model.init_cache(2, 45)
+        for dst, src in zip(cache["dense"], pre["dense"]):
+            dst[:, :, :37] = src
+        logits, tokens = [last.cpu()], [last.argmax(-1).cpu()]
+        for t in range(8):
+            lg, cache = model.decode_step(cache, tokens[-1][:, None],
+                                          torch.full((2,), 37 + t))
+            logits.append(lg.cpu())
+            tokens.append(lg.argmax(-1).cpu())
+        outs.append((torch.stack(logits), torch.stack(tokens)))
+    assert flash_ops.launches.n > before[0]
+    assert decode_ops.launches.n > before[1]
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(outs[0][1], outs[1][1])

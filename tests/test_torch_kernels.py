@@ -441,3 +441,234 @@ def test_topk_merge_on_cpu_never_launches():
     vals, ids = _merge_inputs(2, 3, 4, seed=1)
     _merge_port(vals, ids, 5)
     assert merge_ops.launches.n == before
+
+
+# ---------------------------------------------------------------------------
+# flash_attention / decode_attention (the LM's two attention kernels)
+# ---------------------------------------------------------------------------
+
+from repro.kernels.decode_attention.decode_attention import (  # noqa: E402
+    decode_attention_pallas,
+)
+from repro.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention_pallas,
+)
+from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro.models.attention import chunked_attention as chunked_jax  # noqa: E402
+from repro.models.attention import decode_attention as decode_jax  # noqa: E402
+from repro.models.attention import repeat_kv as repeat_kv_jax  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention,
+)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref,
+)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref,
+)
+
+# float32 attention: the reference test's tolerance for the Pallas kernel
+# against chunked_attention (sums in another order); bf16: test_kernels._tol
+ATTN_F32 = dict(rtol=1e-4, atol=1e-4)
+ATTN_BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+def _attn_inputs(seed, b, s, h, kvh, d, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+
+
+@pytest.mark.parametrize("b,s,h,d,bq,bkv", [
+    (1, 128, 1, 32, 64, 64),
+    (2, 256, 4, 64, 128, 128),
+    (1, 512, 2, 128, 256, 128),
+    (2, 256, 2, 64, 64, 256),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_and_chunked(b, s, h, d, bq, bkv, causal):
+    """The shapes of test_kernels.test_flash_attention_shapes: the port's
+    plain version against the Pallas kernel (interpret mode) and against
+    the reference model's chunked_attention."""
+    q, k, v = _attn_inputs(s + d, b, s, h, h, d)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    pallas = flash_attention_pallas(jq, jk, jv, causal=causal, block_q=bq,
+                                    block_kv=bkv, interpret=True)
+    chunked = chunked_jax(jq, jk, jv, causal=causal, block_kv=bkv)
+    port = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                           causal=causal, block_kv=bkv)
+    np.testing.assert_allclose(port.numpy(), np.asarray(pallas), **ATTN_F32)
+    np.testing.assert_allclose(port.numpy(), np.asarray(chunked), **ATTN_F32)
+
+
+@pytest.mark.parametrize("h,kvh", [(4, 1), (8, 2), (8, 8), (16, 2)])
+@pytest.mark.parametrize("bf16_probs", [False, True])
+def test_flash_plain_gqa_matches_repeat_kv(h, kvh, bf16_probs):
+    """Grouped heads read in place equal the reference's chunked_attention
+    on repeat_kv'd keys and values, with and without bf16 weights."""
+    b, s, d = 2, 96, 32
+    q, k, v = _attn_inputs(h * 10 + kvh, b, s, h, kvh, d)
+    g = h // kvh
+    ref = chunked_jax(jnp.asarray(q), repeat_kv_jax(jnp.asarray(k), g),
+                      repeat_kv_jax(jnp.asarray(v), g), causal=True,
+                      block_kv=32, bf16_probs=bf16_probs)
+    port = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                           bf16_probs=bf16_probs, block_kv=32)
+    # bf16 weights: a one-ulp fp32 difference can round a weight to the
+    # neighbouring bf16 value (2**-8 relative), so the bf16 tolerance holds
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref),
+                               **(ATTN_BF16 if bf16_probs else ATTN_F32))
+
+
+def test_flash_plain_bf16_matches_pallas():
+    q, k, v = _attn_inputs(5, 1, 256, 2, 2, 64)
+    jx = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    ref = flash_attention_pallas(*jx, interpret=True)
+    port = flash_attention(*(torch.from_numpy(np.asarray(x, np.float32))
+                             .to(torch.bfloat16) for x in jx))
+    assert port.dtype == torch.bfloat16
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), **ATTN_BF16)
+
+
+@pytest.mark.parametrize("s,block", [(100, 32), (64, 1024), (97, 97),
+                                     (130, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_any_length_matches_exact(s, block, causal):
+    """A sequence the key block does not divide (the Pallas kernel asserts
+    there) agrees with the reference's materialised-scores oracle."""
+    q, k, v = _attn_inputs(s, 2, s, 2, 2, 32)
+    ref = attention_ref(*(jnp.asarray(x) for x in (q, k, v)), causal=causal)
+    port = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                           causal=causal, block_kv=block)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), **ATTN_F32)
+
+
+def test_flash_rejects_unequal_lengths():
+    q = torch.zeros(1, 8, 2, 16)
+    k = torch.zeros(1, 12, 2, 16)
+    with pytest.raises(ValueError, match="Sq=8"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="KVH must divide H"):
+        flash_attention(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
+
+
+def test_flash_on_cpu_never_launches(monkeypatch):
+    calls = []
+    monkeypatch.setattr(flash_ops, "_launch",
+                        lambda *a: calls.append(a) or pytest.fail("launched"))
+    before = flash_ops.launches.n
+    q, k, v = _attn_inputs(1, 1, 16, 2, 1, 16)
+    flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert flash_ops.launches.n == before and not calls
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,splits,bs", [
+    (1, 512, 4, 4, 64, 1, 512),
+    (2, 2048, 8, 2, 64, 4, 256),
+    (2, 1024, 16, 8, 128, 2, 512),
+    (4, 4096, 8, 1, 64, 8, 512),
+])
+def test_decode_plain_matches_pallas_and_model(b, s, h, kvh, d, splits, bs):
+    """The shapes of test_kernels.test_decode_attention_shapes: the port's
+    plain version against the Pallas kernel (interpret mode) and the
+    reference model's grouped decode_attention."""
+    rng = np.random.default_rng(s + h)
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    pos = rng.integers(1, s, b).astype(np.int32)
+    jx = [jnp.asarray(x) for x in (q, k, v, pos)]
+    pallas = decode_attention_pallas(*jx, n_splits=splits, block_s=bs,
+                                     interpret=True)
+    model = decode_jax(*jx)
+    port = decode_attention(*(torch.from_numpy(x) for x in (q, k, v, pos)),
+                            n_splits=splits)
+    np.testing.assert_allclose(port.numpy(), np.asarray(pallas), **ATTN_F32)
+    np.testing.assert_allclose(port.numpy(), np.asarray(model), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("pos", [[0, 0], [255, 0], [255, 255], [300, 17]])
+def test_decode_plain_edge_positions(pos):
+    """pos = 0 (one key), pos = S - 1 (every key) and pos past S (every key;
+    the model's cache write drops such a row) agree with the reference."""
+    rng = np.random.default_rng(sum(pos))
+    q = rng.standard_normal((2, 1, 8, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 256, 2, 32)).astype(np.float32)
+    v = rng.standard_normal((2, 256, 2, 32)).astype(np.float32)
+    p = np.asarray(pos, np.int32)
+    ref = decode_jax(*(jnp.asarray(x) for x in (q, k, v, p)))
+    port = decode_attention(*(torch.from_numpy(x) for x in (q, k, v, p)))
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    if pos[0] == 0:
+        # one visible key: the output is that key's value row
+        np.testing.assert_allclose(port.numpy()[0, 0, :4], v[0, 0, 0][None]
+                                   .repeat(4, 0), rtol=1e-6, atol=1e-6)
+
+
+def test_decode_plain_bf16_matches_pallas():
+    rng = np.random.default_rng(9)
+    q = jnp.asarray(rng.standard_normal((2, 1, 4, 64)), jnp.bfloat16)
+    k = jnp.asarray(rng.standard_normal((2, 1024, 2, 64)), jnp.bfloat16)
+    v = jnp.asarray(rng.standard_normal((2, 1024, 2, 64)), jnp.bfloat16)
+    pos = jnp.asarray([100, 900], jnp.int32)
+    ref = decode_attention_pallas(q, k, v, pos, n_splits=2, interpret=True)
+    port = decode_attention(*(torch.from_numpy(np.asarray(x, np.float32))
+                              .to(torch.bfloat16) for x in (q, k, v)),
+                            torch.from_numpy(np.array(pos)))
+    assert port.dtype == torch.bfloat16
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), **ATTN_BF16)
+
+
+def test_decode_split_partials_combine_to_plain():
+    """The CUDA design in plain torch: each row's visible keys [0, pos]
+    cut into n_splits splits of ceil((pos + 1) / n_splits) keys, a partial
+    (m, l, acc) per split, a split left without keys giving (-1e30, 0, 0),
+    combined as the reference's epilogue does, equals the plain version,
+    ragged last split and pos past S included."""
+    rng = np.random.default_rng(4)
+    b, s, h, kvh, d, n_splits = 4, 1000, 8, 2, 32, 7
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, s, kvh, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, s, kvh, d)).astype(np.float32))
+    pos = torch.tensor([0, 3, 500, s + 5], dtype=torch.int32)
+    g = h // kvh
+    qg = (q * d ** -0.5).reshape(b, kvh, g, d)
+    m = torch.full((n_splits, b, kvh, g), -1e30)
+    l = torch.zeros(n_splits, b, kvh, g)
+    acc = torch.zeros(n_splits, b, kvh, g, d)
+    for bi in range(b):
+        n_vis = min(s, int(pos[bi]) + 1)
+        split = -(-n_vis // n_splits)
+        for sp in range(n_splits):
+            lo, hi = min(sp * split, n_vis), min((sp + 1) * split, n_vis)
+            if hi <= lo:
+                continue                      # no keys: weight 0
+            sc = torch.einsum("kgd,skd->kgs", qg[bi], k[bi, lo:hi])
+            m[sp, bi] = sc.amax(-1)
+            p = torch.exp(sc - m[sp, bi][..., None])
+            l[sp, bi] = p.sum(-1)
+            acc[sp, bi] = torch.einsum("kgs,skd->kgd", p, v[bi, lo:hi])
+    w = torch.exp(m - m.amax(0))
+    out = (acc * w[..., None]).sum(0) / torch.clamp(
+        (l * w).sum(0), min=1e-30)[..., None]
+    np.testing.assert_allclose(out.reshape(b, 1, h, d).numpy(),
+                               decode_attention_ref(q, k, v, pos).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_decode_on_cpu_never_launches(monkeypatch):
+    monkeypatch.setattr(decode_ops, "_launch",
+                        lambda *a: pytest.fail("launched"))
+    before = decode_ops.launches.n
+    decode_attention(torch.zeros(1, 1, 4, 16), torch.zeros(1, 8, 2, 16),
+                     torch.zeros(1, 8, 2, 16), torch.tensor([3]))
+    assert decode_ops.launches.n == before

@@ -215,6 +215,12 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.kernels.ivf_scan.ops, "
             "repro_torch.kernels.pq_scan.ops, repro_torch.configs\n"
             "import repro_torch.cluster, repro_torch.kernels.topk_merge.ops\n"
+            "import repro_torch.models.transformer, "
+            "repro_torch.models.registry, repro_torch.launch.steps\n"
+            "import repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.decode_attention.ops\n"
+            "from repro_torch.configs import get_arch, arch_names\n"
+            "[get_arch(n) for n in arch_names()]\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
