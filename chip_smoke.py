@@ -9,22 +9,29 @@ per source, all at once), then runs seven phases and fails if any fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
    version on the card, at the main paths' shapes (IVF: Q in {256, 930},
-   N = 200,000, d = 128, k in {10, 64, 20,001}; PQ: Q = 256, N = 1,000,000,
-   M = 16, K = 256, k' in {80, 800}; merge: P in {2, 4, 8} shard windows
-   of K in {10, 100, 10,002} for Q in {1, 256, 4096}), with a ragged
-   ``n_valid``, exact duplicate rows and cross-shard ties, (-inf, -1)
-   padding, an all-padding shard, starved probe masks and int64 ids past
-   2**31.  Integer-valued vectors keep the IVF sums exact, the PQ sums run
-   in the plain version's order and the merge does no arithmetic, so ids
-   must be equal and max |delta| <= 1e-4 (0 for the merge).  The attention
-   kernels run at the LM path's shapes (flash: B=8, S=4,096, 32/8 heads of
-   128, bf16, plus the phi forward's S=64, a ragged S, head width 160 and a
-   float32 case; decode: B=8 over a 32,768-position cache with positions
-   spread over it, at the LM path's positions, head width 160, float32),
-   within rtol=1e-2, atol=1e-4 in bf16 (one bf16 ulp of the output) and
-   1e-4 in float32; in each bf16 case a planted fault, the values of one
-   32-key tile zeroed, must fail that limit on the longest rows.  Prints
-   kernel, plain and library (one PyTorch call of the same function) times.
+   N = 200,000, d = 128, k in {10, 64, 20,001}, and the serving knows
+   request's chunk scan, Q = 800, N = 100,000, k = 10,002, each timed whole
+   and split into scoring, selection and the sort of the k survivors; PQ:
+   Q = 256, N = 1,000,000, M = 16, K = 256, k' in {80, 800}; merge: P in
+   {2, 4, 8} shard windows of K in {10, 100, 10,002} for Q in {1, 256,
+   4096}), with a ragged ``n_valid``, exact duplicate rows and cross-shard
+   ties, (-inf, -1) padding, an all-padding shard, starved probe masks and
+   int64 ids past 2**31.  Integer-valued vectors keep the IVF sums exact,
+   the PQ sums run in the plain version's order and the merge does no
+   arithmetic, so ids must be equal and max |delta| <= 1e-4 (0 for the
+   merge).  The attention kernels run at the LM path's shapes (flash: B=8,
+   S=4,096, 32/8 heads of 128, bf16, plus the phi forward's S=64, a ragged
+   S, head width 160, each with the float32-faithful weights and with
+   ``bf16_probs``, and a float32 case; decode: B=8 over a 32,768-position
+   cache with positions spread over it, at the LM path's positions, head
+   width 160, float32), within rtol=1e-2, atol=1e-4 in bf16 (one bf16 ulp
+   of the output; with ``bf16_probs`` plus the slack of the weights that sit
+   within 2^-12 of a bf16 midpoint and may round the other way on either
+   side) and 1e-4 in float32; in each bf16 case, in both modes, a planted
+   fault, the values of 32 keys zeroed, must fail that limit on the longest
+   rows.  Prints kernel, plain and library (one
+   PyTorch call of the same function) times and the bounds (for flash also
+   the floor of its two-product P.V).
 2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
    persons (100,000 by default) with 128-d faces and the IVF-Flat face
    index; a ``QueryServer`` answers the semantic and structured requests
@@ -195,10 +202,55 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
 # ---------------------------------------------------------------------------
 
 
+def ivf_case(torch, q, corpus, k: int, n_valid: int) -> dict:
+    """One ivf_scan case: ids and values against plain, the wrapper's time,
+    its split into scoring, selection and the final sort of the k
+    survivors, plain, library (``matmul`` + ``topk``) and bound."""
+    from repro_torch.kernels.ivf_scan import ops as ivf_ops
+    from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
+    from repro_torch.kernels.topk import merge_tile_candidates
+
+    qn, d = q.shape
+    n = corpus.shape[0]
+    kv, ki = ivf_ops.ivf_scan_topk(q, corpus, k, n_valid=n_valid)
+    pv, pi = ivf_scan_topk_ref(q, corpus, k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(ki, pi))
+    err = float((kv - pv).abs().max())
+    del kv, ki, pv, pi
+    ms = time_ms(torch, lambda: ivf_ops.ivf_scan_topk(q, corpus, k,
+                                                      n_valid=n_valid))
+    scores = ivf_ops.ivf_scores(q, corpus, True)
+    sv, si = ivf_ops.ivf_select(scores, n_valid, k)
+    score_ms = time_ms(torch, lambda: ivf_ops.ivf_scores(q, corpus, True))
+    select_ms = time_ms(torch, lambda: ivf_ops.ivf_select(scores, n_valid, k))
+    sort_ms = time_ms(torch, lambda: merge_tile_candidates(sv, si, k))
+    del scores, sv, si
+    plain_ms = time_ms(torch, lambda: ivf_scan_topk_ref(q, corpus, k,
+                                                        n_valid=n_valid))
+    c2 = (corpus * corpus).sum(1)
+
+    def library():
+        s = -((q * q).sum(1, keepdim=True) - 2.0 * (q @ corpus.T)
+              + c2[None, :])
+        return torch.topk(s[:, :n_valid], k)
+
+    lib_ms = time_ms(torch, library)
+    b_ms, b_by = bound(4 * (qn * d + n * d) + 8 * qn * k, 2.0 * qn * n * d)
+    log(f"[kernels] ivf_scan Q={qn} N={n} d={d} k={k} n_valid={n_valid}: "
+        f"ids_equal={same} max_abs_err={err} ms={ms:.3f} (score "
+        f"{score_ms:.3f} + select {select_ms:.3f} + sort {sort_ms:.3f}) "
+        f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    check(same, f"ivf_scan ids differ at Q={qn} N={n} k={k}")
+    check(err <= 1e-4, f"ivf_scan max|delta| {err} at Q={qn} N={n} k={k}")
+    return dict(ms=ms, score_ms=score_ms, select_ms=select_ms,
+                sort_ms=sort_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
+
 def phase_kernels(torch, pq_rows: int):
     import numpy as np
-    from repro_torch.kernels.ivf_scan.ops import ivf_scan_topk
-    from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
     from repro_torch.kernels.pq_scan.ops import pq_adc_topk
     from repro_torch.kernels.pq_scan.ref import pq_adc_topk_ref
 
@@ -207,51 +259,31 @@ def phase_kernels(torch, pq_rows: int):
     out = {}
 
     # -- ivf_scan: integer vectors (exact sums); the second half of the
-    # corpus repeats the first (ties); the last 37 rows are padding
-    n, d = 200_000, 128
-    half = rng.integers(-3, 4, (n // 2, d)).astype(np.float32)
-    corpus = torch.from_numpy(np.concatenate([half, half])).to(dev)
-    n_valid = n - 37
+    # corpus repeats the first (ties); the last 37 rows are padding.  The
+    # serving shape (Q = 800, k = 10,002 over 100,000 rows) is the knows
+    # request's chunk scan at 100,000 persons
     worst = 0.0
     main = None
-    for qn in (256, 930):
-        q = torch.from_numpy(rng.integers(-3, 4, (qn, d)).astype(
-            np.float32)).to(dev)
-        for k in (10, 64, 20_001):
-            kv, ki = ivf_scan_topk(q, corpus, k, n_valid=n_valid)
-            pv, pi = ivf_scan_topk_ref(q, corpus, k, n_valid=n_valid)
-            torch.cuda.synchronize()
-            same = bool(torch.equal(ki, pi))
-            err = float((kv - pv).abs().max())
-            worst = max(worst, err)
-            ms = time_ms(torch, lambda: ivf_scan_topk(q, corpus, k,
-                                                      n_valid=n_valid))
-            plain_ms = time_ms(torch, lambda: ivf_scan_topk_ref(
-                q, corpus, k, n_valid=n_valid))
-            c2 = (corpus * corpus).sum(1)
-
-            def library():
-                s = -((q * q).sum(1, keepdim=True) - 2.0 * (q @ corpus.T)
-                      + c2[None, :])
-                return torch.topk(s[:, :n_valid], k)
-
-            lib_ms = time_ms(torch, library)
-            b_ms, b_by = bound(4 * (qn * d + n * d) + 8 * qn * k,
-                               2.0 * qn * n * d)
-            log(f"[kernels] ivf_scan Q={qn} N={n} d={d} k={k} "
-                f"n_valid={n_valid}: ids_equal={same} max_abs_err={err} "
-                f"ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f}"
-                f" bound_ms={b_ms:.4f} ({b_by})")
-            check(same, f"ivf_scan ids differ at Q={qn} k={k}")
-            check(err <= 1e-4, f"ivf_scan max|delta| {err} at Q={qn} k={k}")
-            if qn == 930 and k == 20_001:
-                main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=b_ms, bound_by=b_by,
-                            shape=f"Q={qn} N={n} d={d} k={k}")
-            del kv, ki, pv, pi
-    out["ivf_scan"] = dict(main, max_abs_err=worst)
-    del corpus, half
-    torch.cuda.empty_cache()
+    split = {}
+    for n, qns, ks in ((200_000, (256, 930), (10, 64, 20_001)),
+                       (100_000, (800,), (10_002,))):
+        d = 128
+        half = rng.integers(-3, 4, (n // 2, d)).astype(np.float32)
+        corpus = torch.from_numpy(np.concatenate([half, half])).to(dev)
+        n_valid = n - 37
+        for qn in qns:
+            q = torch.from_numpy(rng.integers(-3, 4, (qn, d)).astype(
+                np.float32)).to(dev)
+            for k in ks:
+                r = ivf_case(torch, q, corpus, k, n_valid)
+                worst = max(worst, r["max_abs_err"])
+                label = f"Q={qn} N={n} d={d} k={k}"
+                split[label] = r
+                if (qn, k) == (930, 20_001):
+                    main = dict(r, shape=label)
+        del corpus, half
+        torch.cuda.empty_cache()
+    out["ivf_scan"] = dict(main, max_abs_err=worst, cases=split)
 
     # -- pq_scan / pq_scan_ext: float LUTs, sums in the plain order
     qn, m, ksub, mb = 256, 16, 256, 10
@@ -410,15 +442,17 @@ def kernel_topk_merge(torch, dev):
 # <= 2^-7 |x| (rtol 1e-2 keeps a margin); atol covers the float32 noise of
 # outputs near zero.  float32: sums in another order than the plain version.
 ATTN_TOL = {"bfloat16": (1e-2, 1e-4), "float32": (1e-4, 1e-4)}
-FAULT_KEYS = 32                 # one key tile of the kernels, for the fault
+FAULT_KEYS = 32                 # keys a planted fault zeroes (<= a key tile)
 
 
-def attn_err(got, want, dtype_name: str):
-    """(max |delta|, every element within atol + rtol * |want|)."""
+def attn_err(got, want, dtype_name: str, slack=0.0):
+    """(max |delta|, every element within atol + rtol * |want| + slack);
+    ``slack`` is a number or a tensor like ``want``."""
     rtol, atol = ATTN_TOL[dtype_name]
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    return float(diff.max()), bool((diff <= atol + rtol * w.abs()).all())
+    return float(diff.max()), bool((diff <= atol + rtol * w.abs() + slack)
+                                   .all())
 
 
 def fault_tile(s: int, last: int) -> slice:
@@ -439,9 +473,14 @@ def sdpa(torch, q, k, v, **kw):
 def kernel_flash_attention(torch, dev):
     """flash_attention at the LM path's shapes: the llama3-8b prefill (B=8,
     S=4,096, 32 query / 8 key heads of 128, bf16), the phi forward (S=64),
-    a ragged S, stablelm's head width 160, and the float32 parity config."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    a ragged S, stablelm's head width 160, and the float32 parity config;
+    the bf16 cases with the float32-faithful weights (the LM's path) and
+    with ``bf16_probs``, held against the plain version rounding on the
+    kernel's key tiles."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         key_tile)
+    from repro_torch.kernels.flash_attention.ref import (bf16_probs_slack,
+                                                         flash_attention_ref)
 
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = [("prefill", 8, 4096, 32, 8, 128, torch.bfloat16),
@@ -454,50 +493,93 @@ def kernel_flash_attention(torch, dev):
         q = torch.randn(b, s, h, d, device=dev, generator=gen).to(dt)
         k = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
         v = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
-        got = flash_attention(q, k, v)
-        want = flash_attention_ref(q, k, v)
-        torch.cuda.synchronize()
         name = str(dt).split(".")[1]
-        err, ok = attn_err(got, want, name)
-        worst = max(worst, err)
-        ms = time_ms(torch, lambda: flash_attention(q, k, v))
-        plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v))
-        lib_ms = time_ms(torch, lambda: sdpa(torch, q, k, v, is_causal=True))
+        kt = key_tile(d, dt)
         # causal: B*H*S(S+1)/2 (query, key) pairs, 2D operations for the
-        # score and 2D for P.V each; q, k, v read once, o written once
+        # score and 2D for P.V each; q, k, v read once, o written once.  The
+        # kernel's float32-faithful P.V is two bf16 products (hi + lo), so
+        # its own floor is 3/2 of the function's.
         n_ops = 2.0 * b * h * d * s * (s + 1)
         n_bytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * q.element_size()
         b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
                            if dt == torch.bfloat16 else FP32_OPS_PER_S)
-        log(f"[kernels] flash_attention {label} B={b} S={s} H={h} KVH={kvh} "
-            f"D={d} {name}: max_abs_err={err} within_tol={ok} ms={ms:.3f} "
-            f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
-        check(ok, f"flash_attention {label} off its plain version by {err}")
-        fault = {}
-        if dt == torch.bfloat16:
-            # the tolerance must fail a kernel that loses one key tile's
-            # values on the longest rows (the last query tile, batch row 0)
-            tile, rows = fault_tile(s, s - 1), slice(max(0, s - 64), s)
-            vf = v[:1].clone()
-            vf[:, tile] = 0
-            bad = flash_attention_ref(q[:1], k[:1], vf)[:, rows]
-            f_err, f_ok = attn_err(bad, want[:1, rows], name)
-            fault = dict(fault_err=f_err, fault_caught=not f_ok,
-                         want_mean_abs=float(want[:1, rows].float().abs()
-                                             .mean()))
-            log(f"[kernels] flash_attention {label}: planted fault (values "
-                f"of keys {tile.start}-{tile.stop - 1} zeroed), last 64 "
-                f"rows: max_abs_err={f_err} caught={not f_ok} "
-                f"(mean |want| there {fault['want_mean_abs']:.4g})")
-            check(not f_ok, f"flash_attention {label}: the tolerance passes "
-                  f"a kernel that drops a key tile")
-            del vf, bad
+        split_ms = bound(n_bytes, 1.5 * n_ops, BF16_OPS_PER_S)[0]
+        lib_ms = time_ms(torch, lambda: sdpa(torch, q, k, v, is_causal=True))
+        modes = (False, True) if dt == torch.bfloat16 else (False,)
+        row = {}
+        for probs in modes:
+            got = flash_attention(q, k, v, bf16_probs=probs)
+            want = flash_attention_ref(q, k, v, bf16_probs=probs,
+                                       block_kv=kt)
+            # with bf16_probs each side rounds every weight to bf16 from its
+            # own float32 value: the weights on a bf16 midpoint may land one
+            # ulp apart, and only they get room beyond one output ulp
+            slack = bf16_probs_slack(q, k, v, block_kv=kt) if probs else 0.0
+            torch.cuda.synchronize()
+            err, ok = attn_err(got, want, name, slack)
+            worst = max(worst, err)
+            ms = time_ms(torch, lambda: flash_attention(q, k, v,
+                                                        bf16_probs=probs))
+            plain_ms = time_ms(torch, lambda: flash_attention_ref(
+                q, k, v, bf16_probs=probs))
+            tag = "bf16_probs" if probs else "f32_probs"
+            extra = f" split_floor_ms={split_ms:.4f}" \
+                if dt == torch.bfloat16 and not probs else ""
+            if probs:
+                # how far past the one-ulp limit the kernel went, and the
+                # most room the midpoint weights gave any element
+                rtol, atol = ATTN_TOL[name]
+                w = want.float()
+                over = float(((got.float() - w).abs() - atol
+                              - rtol * w.abs()).clamp(min=0).max())
+                extra = (f" past_one_ulp={over} slack_max="
+                         f"{float(slack.max())} slack_mean="
+                         f"{float(slack.mean()):.3g}")
+            log(f"[kernels] flash_attention {label} B={b} S={s} H={h} "
+                f"KVH={kvh} D={d} {name} {tag}: max_abs_err={err} "
+                f"within_tol={ok} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                f"library_ms={lib_ms:.3f} bound_ms={b_ms:.4f} ({b_by})"
+                f"{extra}")
+            check(ok, f"flash_attention {label} {tag} off its plain version "
+                  f"by {err}")
+            row[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+            del got
+            fault = {}
+            if dt == torch.bfloat16:
+                # the tolerance must fail a kernel that loses one key tile's
+                # values on the longest rows (the last query tile, batch
+                # row 0), in each mode with that mode's limit
+                tile, rows = fault_tile(s, s - 1), slice(max(0, s - 64), s)
+                vf = v[:1].clone()
+                vf[:, tile] = 0
+                bad = flash_attention_ref(q[:1], k[:1], vf, bf16_probs=probs,
+                                          block_kv=kt)[:, rows]
+                f_err, f_ok = attn_err(bad, want[:1, rows], name,
+                                       slack[:1, rows] if probs else 0.0)
+                fault = dict(fault_err=f_err, fault_caught=not f_ok,
+                             want_mean_abs=float(want[:1, rows].float().abs()
+                                                 .mean()))
+                room = f", slack_max there {float(slack[:1, rows].max()):.4g}" \
+                    if probs else ""
+                log(f"[kernels] flash_attention {label} {tag}: planted fault "
+                    f"(values of keys {tile.start}-{tile.stop - 1} zeroed), "
+                    f"last 64 rows: max_abs_err={f_err} caught={not f_ok} "
+                    f"(mean |want| there {fault['want_mean_abs']:.4g}{room})")
+                check(not f_ok, f"flash_attention {label} {tag}: the "
+                      f"tolerance passes a kernel that drops a key tile")
+                row[tag]["fault_err"] = f_err
+                del vf, bad
+            if label == "prefill" and not probs:
+                main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=b_ms, bound_by=b_by,
+                            split_floor_ms=split_ms, **fault,
+                            shape=f"B={b} S={s} H={h} KVH={kvh} D={d} {name}")
+            del want, slack
         if label == "prefill":
-            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=b_ms, bound_by=b_by, **fault,
-                        shape=f"B={b} S={s} H={h} KVH={kvh} D={d} {name}")
-        del q, k, v, got, want
+            main["bf16_probs_ms"] = row["bf16_probs"]["ms"]
+            main["bf16_probs_max_abs_err"] = row["bf16_probs"]["max_abs_err"]
+            main["bf16_probs_fault_err"] = row["bf16_probs"]["fault_err"]
+        del q, k, v
         torch.cuda.empty_cache()
     return dict(main, max_abs_err=worst)
 

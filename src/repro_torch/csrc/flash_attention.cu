@@ -20,24 +20,38 @@
 // 2 B H S^2 D causal operations on 2 B S (H + 2 KVH) D bytes, so it is bound
 // by operations, at the bf16 tensor-core rate for bf16 inputs.  Two paths:
 //
-// * bfloat16 (the LM's type): tensor-core tiles, mma.sync m16n8k16 with
-//   float32 accumulation.  A block of four warps holds 64 query rows, 16 a
-//   warp, whose q fragments stay in registers; K and V tiles of 32 keys are
-//   copied to shared memory with 16-byte loads (rows padded by 16 bytes so
-//   ldmatrix reads them without bank conflicts; V through ldmatrix.trans).
-//   S = Q K^T and the online softmax stay in registers, and the softmax
-//   weights become the A fragments of P.V directly.  bf16 products of bf16
-//   inputs are exact in float32, so Q K^T is the float32 score.  P is
-//   float32, which the tensor cores do not take: it goes in as two bf16
-//   terms, hi = bf16(p) and lo = bf16(p - hi), so each weight keeps 16 bits
-//   (relative error <= 2^-16); with bf16_probs only hi goes in, which is
-//   exactly the rounding chunked_attention applies.
+// * bfloat16 (the LM's type): Hopper's warpgroup MMA (wgmma, sm_90a) for
+//   both products, fed by the TMA unit.  A block holds 128 query rows, 64
+//   for each of two consumer warpgroups, and a producer warpgroup whose one
+//   thread keeps a ring of K/V tiles (128 keys; 64 at D = 160) in flight,
+//   each completing on an mbarrier and refilled once both consumers release
+//   it; the producer hands its registers to the consumers (setmaxnreg).  S
+//   = Q K^T is one wgmma m64nWKk16 per 16 columns of D, A and B read from
+//   shared memory; O += P V is one m64nDk16 per 16 keys, P from registers
+//   and V read in place as the transposed B operand.  A consumer issues
+//   S_t and P_{t-1} V_{t-1} together, exponentiates S_t as soon as it
+//   completes while P V runs on, then rescales O; the two consumers take
+//   turns to issue (named barriers), so one's softmax runs under the
+//   other's products.  The softmax is in base 2 with the scale folded into
+//   the exponent's FMA; only tiles that cross the diagonal or the end of S
+//   are masked, and no wgmma sits under a run-time branch (the compiler
+//   would serialise them all): a tile wholly above a warpgroup's rows runs
+//   fully masked, its weights exactly 0.  bf16 products of bf16 inputs are
+//   exact in float32, so Q K^T is the float32 score.  P is float32, which
+//   the tensor cores do not take: it goes in as two bf16 terms, hi =
+//   bf16(p) and lo = bf16(p - hi), so each weight keeps 16 bits (relative
+//   error <= 2^-16); with bf16_probs only hi goes in, which is exactly the
+//   rounding chunked_attention applies, on each key tile's running max.
+//   Key tiles past the block's last row are never loaded.
 // * float32 (the parity configs): float32 FMAs on the SIMT cores, since
 //   TF32 tensor cores would change the scores.  Four threads per query row,
 //   each with a quarter of the row's scaled q and accumulator in registers
 //   as float4 chunks; K and V tiles of 32 keys in shared memory; a row's
 //   score is its four threads' partial dots summed by two warp shuffles.
+#include <cuda.h>
+
 #include "attention_dtype.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -54,36 +68,33 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
 }
 
 using bf16 = __nv_bfloat16;
+using pandadb::wgmma_desc;
 
-constexpr int MQ = 64;                // query rows per block, 16 per warp
-constexpr int MK = 32;                // keys per shared tile
-constexpr int MTHREADS = 128;
+constexpr int WQ = 128;               // query rows per block, 64 a warpgroup
+constexpr int CONSUMERS = 256;        // two warpgroups
+constexpr int WTHREADS = CONSUMERS + 128;  // and a producer warpgroup
+constexpr int SMEM_MAX = 232448;      // shared memory a block may use
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+// The tiles of head width D.  D is read in column chunks of W bf16
+// (hopper.cuh): 64 (128-byte rows) where 64 divides D, else 32 or 16; Q, K
+// and V tiles are stored chunk after chunk, each chunk row-major and
+// swizzled.  Key tiles hold WK keys (128; 64 at D = 160, whose O takes 80
+// registers a thread), in a ring of as many stages as fit, up to 4.
+template <int D>
+struct Tile {
+  static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int WK = D > 128 ? 64 : 128;
+  static constexpr uint32_t MODE = pandadb::wgmma_swizzle(2 * W);
+  static constexpr uint32_t SBO = 8 * 2 * W;   // bytes between 8-row groups
+  static constexpr int Q_BYTES = WQ * D * 2;
+  static constexpr int STAGE_BYTES = 2 * WK * D * 2;   // K and V
+  static constexpr int STAGES =
+      (SMEM_MAX - 1024 - Q_BYTES) / STAGE_BYTES < 4
+          ? (SMEM_MAX - 1024 - Q_BYTES) / STAGE_BYTES
+          : 4;
+  static constexpr int SMEM = Q_BYTES + STAGES * STAGE_BYTES;
+  static_assert(STAGES >= 2, "two stages at least");
+};
 
 // two floats as one bf16x2 register, the first in the low half (the lower
 // column of an mma fragment)
@@ -92,169 +103,288 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+// 2^x, flushing results below 2^-126 to zero (weights that small vanish
+// in the float32 sums anyway)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// the two bf16 halves of a packed pair, back as floats
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// S[64 x WK] = Q[64 x D] K^T for one warpgroup: qw its 64 rows of chunk 0
+// of the Q tile, kt chunk 0 of the K tile; 16 columns of D a step.
 template <int D>
-__global__ void __launch_bounds__(MTHREADS)
-flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int seq,
-              int n_heads, int n_kv_heads, float scale, int causal,
-              int bf16_probs) {
-  constexpr int KS = D / 16;          // k-steps of Q K^T
-  constexpr int NT = D / 8;           // n-tiles of the P.V output
-  constexpr int ST = MK / 8;          // n-tiles of a score tile
-  constexpr int LD = D + 8;           // shared row stride in bf16
-  __shared__ __align__(16) bf16 ks[MK * LD];
-  __shared__ __align__(16) bf16 vs[MK * LD];
+__device__ __forceinline__ void qk_mma(float* s, const bf16* qw,
+                                       const bf16* kt) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const int c = k * 16 / T::W, off = k * 16 % T::W;
+    const uint64_t da = wgmma_desc(qw + c * WQ * T::W + off, 16, T::SBO,
+                                   T::MODE);
+    const uint64_t db = wgmma_desc(kt + c * T::WK * T::W + off, 16, T::SBO,
+                                   T::MODE);
+    if constexpr (T::WK == 128) pandadb::wgmma_ss_n128(s, da, db, 1);
+    if constexpr (T::WK == 64) pandadb::wgmma_ss_n64(s, da, db, 1);
+  }
+}
+
+// O[64 x D] += P[64 x 16] V[16 x D] for one warpgroup: P in registers, v16
+// the first of the 16 keys' rows in chunk 0 of the V tile (N-major B, so V
+// is read as stored; LBO steps from chunk to chunk).
+template <int D>
+__device__ __forceinline__ void pv_mma(float* o, const uint32_t* p,
+                                       const bf16* v16) {
+  using T = Tile<D>;
+  const uint64_t desc = wgmma_desc(v16, 2 * T::WK * T::W, T::SBO, T::MODE);
+  if constexpr (D == 16) pandadb::wgmma_rs_n16(o, p, desc, 1);
+  if constexpr (D == 32) pandadb::wgmma_rs_n32(o, p, desc, 1);
+  if constexpr (D == 64) pandadb::wgmma_rs_n64(o, p, desc, 1);
+  if constexpr (D == 128) pandadb::wgmma_rs_n128(o, p, desc, 1);
+  if constexpr (D == 160) pandadb::wgmma_rs_n160(o, p, desc, 1);
+}
+
+// q [B, S, H, D] and k, v [B, S, KVH, D] reach the kernel as TMA tensor
+// maps whose boxes land in the chunked layout: the map's dimensions are
+// (W columns, position, column chunk, head, batch), so a box of
+// (W, rows, D / W, 1, 1) is stored chunk after chunk, swizzled by the TMA
+// unit.  Positions past S are filled with zeros by the TMA unit.
+template <int D, bool HI_ONLY>
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                bf16* __restrict__ o, int seq, int n_heads, int n_kv_heads,
+                float scale_log2, int causal) {
+  using T = Tile<D>;
+  constexpr int WK = T::WK;
+  constexpr int ST = T::STAGES;
+  constexpr int NO = D / 2;           // O accumulator registers a thread
+  constexpr int NS = WK / 2;          // S accumulator registers a thread
+  constexpr int PK = WK / 16;         // k-steps of P V
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[ST], empty[ST], q_full;
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // the 128-row Q tile
+  bf16* ks = qs + WQ * D;                     // ST K tiles
+  bf16* vs = ks + ST * WK * D;                // ST V tiles
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (n_heads / n_kv_heads);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gr = lane / 4;                     // fragment row in 0..7
-  const int t4 = lane % 4;
-  const int q0 = qt * MQ + warp * 16;          // this warp's first row
-  const int r0 = q0 + gr;                      // the two rows this thread
-  const int r1 = r0 + 8;                       // holds in C fragments
+  const int q0 = qt * WQ;
+  const int k_end = causal ? min(seq, q0 + WQ) : seq;
+  const int n_tiles = (k_end + WK - 1) / WK;
 
-  const size_t row_stride = (size_t)n_heads * D;
-  const bf16* qb = q + ((size_t)b * seq * n_heads + h) * D;
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    const int c = s * 16 + t4 * 2;
-    const uint32_t* p0 =
-        reinterpret_cast<const uint32_t*>(qb + (size_t)r0 * row_stride + c);
-    const uint32_t* p1 =
-        reinterpret_cast<const uint32_t*>(qb + (size_t)r1 * row_stride + c);
-    qa[s][0] = r0 < seq ? p0[0] : 0u;
-    qa[s][1] = r1 < seq ? p1[0] : 0u;
-    qa[s][2] = r0 < seq ? p0[4] : 0u;          // columns c + 8, c + 9
-    qa[s][3] = r1 < seq ? p1[4] : 0u;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      pandadb::mbar_init(&full[s], 1);
+      pandadb::mbar_init(&empty[s], CONSUMERS);
+    }
+    pandadb::mbar_init(&q_full, 1);
+    pandadb::mbar_init_fence();
   }
+  __syncthreads();
 
-  float oacc[NT][4];
+  if (threadIdx.x >= CONSUMERS) {
+    // the producer warpgroup gives its registers to the consumers; one
+    // thread keeps ST K/V tiles in flight, each refilled once both
+    // consumer warpgroups have released it
+    pandadb::regs_dec<24>();
+    if (threadIdx.x == CONSUMERS) {
+      pandadb::mbar_expect_tx(&q_full, T::Q_BYTES);
+      pandadb::tma_load_5d(qs, &q_map, &q_full, 0, q0, 0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST;
+        if (t >= ST) pandadb::mbar_wait(&empty[s], (t / ST - 1) & 1);
+        pandadb::mbar_expect_tx(&full[s], T::STAGE_BYTES);
+        pandadb::tma_load_5d(ks + s * WK * D, &k_map, &full[s], 0, t * WK, 0,
+                             kh, b);
+        pandadb::tma_load_5d(vs + s * WK * D, &v_map, &full[s], 0, t * WK, 0,
+                             kh, b);
+      }
+    }
+    return;
+  }
+  pandadb::regs_inc<240>();
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4;
+  const int t4 = lane % 4;
+  const int w0 = q0 + wg * 64;                 // this warpgroup's first row
+  const int r0 = w0 + warp * 16 + gr;          // the two rows this thread
+  const int r1 = r0 + 8;                       // holds in accumulators
+  const bool w_live = w0 < seq;
+  const bf16* qw = qs + wg * 64 * T::W;        // its 64 rows of each chunk
+
+  // ping-pong: the warpgroups take turns to issue their products (named
+  // barrier 1 + wg is this one's turn), so one's softmax runs under the
+  // other's tensor-core work
+  const int my_turn = 1 + wg, other_turn = 2 - wg;
+
+  float oacc[NO];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-    oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
   float m0 = ATTN_NEG, m1 = ATTN_NEG, l0 = 0.f, l1 = 0.f;
+  float sc[NS];
+  uint32_t hi[PK][4], lo[PK][4];    // P of the previous tile, as A operands
 
-  const int k_end = causal ? min(seq, (qt + 1) * MQ) : seq;
-  const size_t pos_stride = (size_t)n_kv_heads * D;
-  const size_t kv_base = ((size_t)b * seq * n_kv_heads + kh) * D;
-  const int mat = lane / 8;                    // ldmatrix: this lane's
-  const int mrow = lane % 8;                   // matrix and row
+  // Every tile of the block runs through both warpgroups, also one wholly
+  // above a warpgroup's rows (at WK = 64) or past S: its scores are masked
+  // to -1e30, whose weights are exactly 0 once a row has seen a real key
+  // (key 0 is in tile 0).  So no product sits under a run-time condition,
+  // which would make the compiler serialise every wgmma.
 
-  for (int k0 = 0; k0 < k_end; k0 += MK) {
-    __syncthreads();                           // the last tile has been read
-    for (int e = threadIdx.x; e < MK * (D / 8); e += MTHREADS) {
-      const int j = e / (D / 8);
-      const int c = (e - j * (D / 8)) * 8;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = kx;
-      if (k0 + j < seq) {
-        const size_t off = kv_base + (size_t)(k0 + j) * pos_stride + c;
-        kx = *reinterpret_cast<const uint4*>(k + off);
-        vx = *reinterpret_cast<const uint4*>(v + off);
+  // scores of tile t -> weights in sc, running max and sums updated;
+  // (a0, a1) rescale O
+  auto softmax = [&](int t, float& a0, float& a1) {
+    const int k0 = t * WK;
+    // a tile that crosses the diagonal or the end of S is scaled and
+    // masked first; any other is scaled inside the exponent's FMA, its max
+    // taken unscaled (scaling by a positive factor keeps the order)
+    float mul = scale_log2;
+    if ((causal && k0 + WK - 1 > w0) || k0 + WK > seq || !(mul > 0.f)) {
+#pragma unroll
+      for (int j = 0; j < WK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + t4 * 2 + (e & 1);
+          const int row = e < 2 ? r0 : r1;
+          sc[4 * j + e] = key >= seq || (causal && key > row)
+                              ? ATTN_NEG
+                              : sc[4 * j + e] * scale_log2;
+        }
       }
-      *reinterpret_cast<uint4*>(ks + j * LD + c) = kx;
-      *reinterpret_cast<uint4*>(vs + j * LD + c) = vx;
+      mul = 1.f;
     }
-    __syncthreads();
-    if (causal && k0 > q0 + 15) continue;      // wholly above this warp's rows
-
-    float sc[ST][4];
-#pragma unroll
-    for (int n = 0; n < ST; ++n)
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-#pragma unroll
-      for (int np = 0; np < ST / 2; ++np) {
-        // matrices: keys +0..7 / +8..15 of this pair, dims s*16 + 0..7 / 8..15
-        uint32_t kb[4];
-        ldmatrix_x4(kb, ks + (np * 16 + (mat / 2) * 8 + mrow) * LD + s * 16 +
-                            (mat % 2) * 8);
-        mma_bf16(sc[2 * np], qa[s], kb[0], kb[1]);
-        mma_bf16(sc[2 * np + 1], qa[s], kb[2], kb[3]);
-      }
-    }
-
     float mx0 = ATTN_NEG, mx1 = ATTN_NEG;
 #pragma unroll
-    for (int n = 0; n < ST; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + t4 * 2 + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const bool ok = key < seq && (!causal || key <= row);
-        sc[n][e] = ok ? sc[n][e] * scale : ATTN_NEG;
-      }
-      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    for (int j = 0; j < WK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
 #pragma unroll
     for (int w = 1; w < 4; w *= 2) {           // the row's four threads
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    const float mn0 = fmaxf(m0, mx0 * mul), mn1 = fmaxf(m1, mx1 * mul);
+    a0 = exp2_ftz(m0 - mn0);
+    a1 = exp2_ftz(m1 - mn1);
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < ST; ++n) {
-      sc[n][0] = expf(sc[n][0] - mn0);
-      sc[n][1] = expf(sc[n][1] - mn0);
-      sc[n][2] = expf(sc[n][2] - mn1);
-      sc[n][3] = expf(sc[n][3] - mn1);
-      ps0 += sc[n][0] + sc[n][1];
-      ps1 += sc[n][2] + sc[n][3];
+    for (int j = 0; j < WK / 8; ++j) {
+      sc[4 * j] = exp2_ftz(fmaf(sc[4 * j], mul, -mn0));
+      sc[4 * j + 1] = exp2_ftz(fmaf(sc[4 * j + 1], mul, -mn0));
+      sc[4 * j + 2] = exp2_ftz(fmaf(sc[4 * j + 2], mul, -mn1));
+      sc[4 * j + 3] = exp2_ftz(fmaf(sc[4 * j + 3], mul, -mn1));
+      ps0 += sc[4 * j] + sc[4 * j + 1];
+      ps1 += sc[4 * j + 2] + sc[4 * j + 3];
     }
     l0 = l0 * a0 + ps0;                        // this thread's columns; the
     l1 = l1 * a1 + ps1;                        // quad sums them at the end
     m0 = mn0;
     m1 = mn1;
+  };
+  // the weights in sc as A operands (keys 16j .. 16j + 15 are the score
+  // columns 8(2j) .. 8(2j + 1) + 7): hi = bf16(p), lo = bf16(p - hi)
+  auto pack = [&]() {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      oacc[n][0] *= a0;
-      oacc[n][1] *= a0;
-      oacc[n][2] *= a1;
-      oacc[n][3] *= a1;
+    for (int j = 0; j < PK; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float* x = sc + 8 * j + 2 * r;
+        hi[j][r] = pack_bf16(x[0], x[1]);
+        if constexpr (!HI_ONLY)
+          lo[j][r] = pack_bf16(x[0] - bf16_lo(hi[j][r]),
+                               x[1] - bf16_hi(hi[j][r]));
+      }
     }
+  };
+  auto pv = [&](const bf16* vt) {
+#pragma unroll
+    for (int j = 0; j < PK; ++j) {             // 16 keys (2 row groups) a step
+      pv_mma<D>(oacc, hi[j], vt + j * 16 * T::W);
+      if constexpr (!HI_ONLY) pv_mma<D>(oacc, lo[j], vt + j * 16 * T::W);
+    }
+  };
+  auto take_turn = [&]() { pandadb::named_bar_sync(my_turn, CONSUMERS); };
+  auto pass_turn = [&](int t) {
+    if (wg == 0 || t + 1 < n_tiles)
+      pandadb::named_bar_arrive(other_turn, CONSUMERS);
+  };
 
+  pandadb::mbar_wait(&q_full, 0);
+  if (wg == 1) pandadb::named_bar_arrive(1, CONSUMERS);   // wg 0 goes first
+
+  // tile 0: S only
+  pandadb::mbar_wait(&full[0], 0);
 #pragma unroll
-    for (int j = 0; j < MK / 16; ++j) {
-      // the score tiles 2j, 2j + 1 are the A fragment of keys 16j..16j+15
-      const float* x = sc[2 * j];
-      const float* y = sc[2 * j + 1];
-      uint32_t hi[4] = {pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
-                        pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3])};
-      uint32_t lo[4] = {0u, 0u, 0u, 0u};
-      if (!bf16_probs) {
-        lo[0] = pack_bf16(x[0] - bf16_round(x[0]), x[1] - bf16_round(x[1]));
-        lo[1] = pack_bf16(x[2] - bf16_round(x[2]), x[3] - bf16_round(x[3]));
-        lo[2] = pack_bf16(y[0] - bf16_round(y[0]), y[1] - bf16_round(y[1]));
-        lo[3] = pack_bf16(y[2] - bf16_round(y[2]), y[3] - bf16_round(y[3]));
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        // matrices: keys 16j + 0..7 / 8..15, dims np*16 + 0..7 / 8..15
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vs + (j * 16 + (mat % 2) * 8 + mrow) * LD +
-                                  np * 16 + (mat / 2) * 8);
-        mma_bf16(oacc[2 * np], hi, vb[0], vb[1]);
-        mma_bf16(oacc[2 * np + 1], hi, vb[2], vb[3]);
-        if (!bf16_probs) {
-          mma_bf16(oacc[2 * np], lo, vb[0], vb[1]);
-          mma_bf16(oacc[2 * np + 1], lo, vb[2], vb[3]);
-        }
-      }
-    }
+  for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+  take_turn();
+  pandadb::wgmma_fence();
+  qk_mma<D>(sc, qw, ks);
+  pandadb::wgmma_commit();
+  pass_turn(0);
+  pandadb::wgmma_wait<0>();
+  pandadb::fence_regs<NS>(sc);
+  {
+    float a0, a1;
+    softmax(0, a0, a1);
   }
+  pack();
 
+  // tile t: S = Q K_t^T and O += P_{t-1} V_{t-1} as two groups; S is
+  // exponentiated once its group completes, P V still running
+  for (int t = 1; t < n_tiles; ++t) {
+    const int s = t % ST;
+    const int sp = (t - 1) % ST;
+    pandadb::mbar_wait(&full[s], (t / ST) & 1);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+    take_turn();
+    pandadb::fence_regs<NO>(oacc);
+    pandadb::wgmma_fence();
+    qk_mma<D>(sc, qw, ks + s * WK * D);
+    pandadb::wgmma_commit();
+    pv(vs + sp * WK * D);
+    pandadb::wgmma_commit();
+    pass_turn(t);
+    pandadb::wgmma_wait<1>();                  // S is done, P V may run on
+    pandadb::fence_regs<NS>(sc);
+    float a0, a1;
+    softmax(t, a0, a1);
+    pandadb::wgmma_wait<0>();                  // P_{t-1} V_{t-1} is in O
+    pandadb::fence_regs<NO>(oacc);
+    pandadb::mbar_arrive(&empty[sp]);          // tile t - 1 is done
+#pragma unroll
+    for (int n = 0; n < NO / 4; ++n) {
+      oacc[4 * n] *= a0;
+      oacc[4 * n + 1] *= a0;
+      oacc[4 * n + 2] *= a1;
+      oacc[4 * n + 3] *= a1;
+    }
+    pack();
+  }
+  // the last tile's P V
+  pandadb::fence_regs<NO>(oacc);
+  pandadb::wgmma_fence();
+  pv(vs + ((n_tiles - 1) % ST) * WK * D);
+  pandadb::wgmma_commit();
+  pandadb::wgmma_wait<0>();
+  pandadb::fence_regs<NO>(oacc);
+
+  if (!w_live) return;
 #pragma unroll
   for (int w = 1; w < 4; w *= 2) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, w);
@@ -262,16 +392,17 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const size_t q_stride = (size_t)n_heads * D;
   bf16* ob = o + ((size_t)b * seq * n_heads + h) * D;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
+  for (int n = 0; n < NO / 4; ++n) {
     const int c = n * 8 + t4 * 2;
     if (r0 < seq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * row_stride + c) =
-          pack_bf16(oacc[n][0] * inv0, oacc[n][1] * inv0);
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * q_stride + c) =
+          pack_bf16(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
     if (r1 < seq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * row_stride + c) =
-          pack_bf16(oacc[n][2] * inv1, oacc[n][3] * inv1);
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * q_stride + c) =
+          pack_bf16(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
   }
 }
 
@@ -414,16 +545,90 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                        int n_b, int seq, int n_heads, int n_kv_heads, int d,
-                        float scale, int causal, int bf16_probs,
-                        cudaStream_t st) {
-  const dim3 grid((seq + MQ - 1) / MQ, n_heads, n_b);
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so
+// the library links no libcuda of its own
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a [n_b, seq, heads, d] bf16 tensor read in boxes of `rows`
+// positions of one head, in chunks of w columns: dimensions (w, seq, d / w,
+// heads, n_b), swizzled over 2 w bytes.
+int make_map(CUtensorMap* map, const bf16* base, int n_b, int seq, int heads,
+             int d, int w, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t dims[5] = {(cuuint64_t)w, (cuuint64_t)seq,
+                              (cuuint64_t)(d / w), (cuuint64_t)heads,
+                              (cuuint64_t)n_b};
+  const cuuint64_t strides[4] = {(cuuint64_t)heads * d * e, w * e,
+                                 (cuuint64_t)d * e,
+                                 (cuuint64_t)seq * heads * d * e};
+  const cuuint32_t box[5] = {(cuuint32_t)w, (cuuint32_t)rows,
+                             (cuuint32_t)(d / w), 1, 1};
+  const CUtensorMapSwizzle swizzle = w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<bf16*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+template <int D, bool HI_ONLY>
+int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                 int n_b, int seq, int n_heads, int n_kv_heads, float scale,
+                 int causal, cudaStream_t st) {
+  using T = Tile<D>;
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, n_b, seq, n_heads, D, T::W, WQ);
+  if (err == 0) err = make_map(&km, k, n_b, seq, n_kv_heads, D, T::W, T::WK);
+  if (err == 0) err = make_map(&vm, v, n_b, seq, n_kv_heads, D, T::W, T::WK);
+  if (err != 0) return err;
+  static bool ready = false;     // shared memory past 48 KB, asked for once
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma<D, HI_ONLY>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const dim3 grid((seq + WQ - 1) / WQ, n_heads, n_b);
+  flash_fwd_wgmma<D, HI_ONLY><<<grid, WTHREADS, T::SMEM, st>>>(
+      qm, km, vm, o, seq, n_heads, n_kv_heads, scale * 1.4426950408889634f,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+// A tensor map the driver refuses returns 10000 + its CUresult.
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n_b,
+                int seq, int n_heads, int n_kv_heads, int d, float scale,
+                int causal, int bf16_probs, cudaStream_t st) {
 #define PANDADB_FLASH(DIM)                                                    \
   case DIM:                                                                   \
-    flash_fwd_mma<DIM><<<grid, MTHREADS, 0, st>>>(                            \
-        q, k, v, o, seq, n_heads, n_kv_heads, scale, causal, bf16_probs);     \
-    break;
+    return bf16_probs                                                         \
+               ? launch_wgmma<DIM, true>(q, k, v, o, n_b, seq, n_heads,       \
+                                         n_kv_heads, scale, causal, st)       \
+               : launch_wgmma<DIM, false>(q, k, v, o, n_b, seq, n_heads,      \
+                                          n_kv_heads, scale, causal, st);
   switch (d) {
     PANDADB_FLASH(16)
     PANDADB_FLASH(32)
@@ -431,10 +636,9 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
     PANDADB_FLASH(128)
     PANDADB_FLASH(160)
     default:
-      return cudaErrorInvalidValue;
+      return (int)cudaErrorInvalidValue;
   }
 #undef PANDADB_FLASH
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -458,10 +662,25 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                            static_cast<float*>(o), n_b, seq, n_heads,
                            n_kv_heads, d, scale, causal, bf16_probs, st);
   if (dtype == pandadb::DTYPE_BF16)
-    return (int)launch_bf16(static_cast<const bf16*>(q),
-                            static_cast<const bf16*>(k),
-                            static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                            n_b, seq, n_heads, n_kv_heads, d, scale, causal,
-                            bf16_probs, st);
+    return launch_bf16(static_cast<const bf16*>(q),
+                       static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v), static_cast<bf16*>(o), n_b,
+                       seq, n_heads, n_kv_heads, d, scale, causal, bf16_probs,
+                       st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Keys per tile of the kernel for dtype at head width d (0 for a width it
+// does not take): with bf16_probs each tile's weights are rounded on its own
+// running max.
+extern "C" int flash_attention_key_tile(int d, int dtype) {
+  if (dtype == pandadb::DTYPE_F32) return BK;
+  switch (d) {
+    case 16: return Tile<16>::WK;
+    case 32: return Tile<32>::WK;
+    case 64: return Tile<64>::WK;
+    case 128: return Tile<128>::WK;
+    case 160: return Tile<160>::WK;
+    default: return 0;
+  }
 }

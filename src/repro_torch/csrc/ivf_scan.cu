@@ -1,123 +1,357 @@
-// ivf_scan: fused similarity scan + per-tile top-L for Hopper.
+// ivf_scan: exact similarity scan + top-k for Hopper.
 //
 // Replaces the Pallas kernel ivf_scan_topk_pallas (body _ivf_kernel) of
-// src/repro/kernels/ivf_scan/ivf_scan.py.  Scores, higher = closer:
+// src/repro/kernels/ivf_scan/ivf_scan.py, which scores a [Q, BN] tile in
+// VMEM and keeps its top-L; its XLA twin (_scan_topk_xla) serves the k the
+// kernel's gate refuses.  Scores, higher = closer:
 //   l2: -(|q|^2 - 2 q.c + |c|^2)     ip: q.c
 // (cosine is ip on rows the wrapper normalised first, as the reference does).
-// Rows >= n_valid are pinned to NEG.  Output: per query and tile of BN rows,
-// the tile's first `topl` (value, row) pairs in lax.top_k order; the wrapper
-// merges them with a stable sort.
+// Rows >= n_valid are never returned.  Ties go to the lower row, as
+// lax.top_k.
 //
 // Bound: at the main path's shapes (Q in the hundreds, d = 128) the scan does
 // 2 Q N d operations on 4 N d bytes, so it is bound by float32 operations, not
 // bytes.  They stay float32 FMAs on the SIMT cores: TF32 tensor cores would
-// change scores, and changed scores change ids.  Each block scores QB queries
-// against one tile of BN rows; the tile is staged through shared memory DK
-// columns at a time, so each corpus value read from device memory feeds QB
-// FMAs, and |c|^2 and |q|^2 come out of the same pass.  The tile top-L then
-// sorts the QB x BN scores in shared memory (tile_topk.cuh).
-#include "tile_topk.cuh"
+// change scores, and changed scores change ids.
+//
+// ivf_score is a register-tiled product: a block scores 128 queries against
+// 128 rows, each thread an 8 x 8 micro-tile, so each value read from shared
+// memory feeds 8 FMAs; slices of 16 features of both tiles are
+// double-buffered with cp.async.  The l2 norms come from ivf_norms, one
+// warp a row.  The scores go to a [Q, N] scratch matrix.
+//
+// ivf_select then finds, per query, the k-th largest score by a radix
+// select over an order-preserving uint32 key: three digit passes of 11, 11
+// and 10 bits, each a histogram (four in shared memory, one per four warps,
+// summed after) of the rows that still match the digits chosen so far,
+// stopping early once a digit's bin holds exactly the rows still needed.  It then
+// compacts, in row order, every row above that threshold and the first rows
+// equal to it: k survivors, which a stable sort by value (the wrapper's,
+// over [Q, k] only) puts in lax.top_k order.  The Pallas kernel's per-tile
+// top-L has no counterpart: the selection costs the same for every k, where
+// a tile sort grows with it, and measured faster at every k on the card.
+#include "hopper.cuh"
 
 namespace {
 
-using pandadb::NEG;
+// masked score: below every real score
+constexpr float NEG = -3.0e38f;
 
-constexpr int BN = 256;  // corpus rows per tile == threads per block
-constexpr int QB = 8;    // queries per block
-constexpr int DK = 16;   // feature columns staged per step
 constexpr int MAX_GRID_Y = 65535;
 
-__global__ void __launch_bounds__(BN)
-ivf_tile_topk(const float* __restrict__ q, const float* __restrict__ c,
-              float* __restrict__ cand_v, int* __restrict__ cand_i, int n_q,
-              int n_rows, int d, int n_valid, int topl, int l2) {
-  __shared__ float qs[QB][DK];
-  __shared__ float cs[BN][DK + 1];  // +1: row-per-thread reads skip bank conflicts
-  __shared__ float q2s[QB];
-  __shared__ float sv[QB * BN];
-  __shared__ int si[QB * BN];
+constexpr int SQ = 128;          // queries per scoring block
+constexpr int SN = 128;          // corpus rows per scoring block
+constexpr int SK = 16;           // features per stage
+constexpr int SLD = SK + 4;      // shared row stride: float4 reads of 8
+                                 // rows 80 bytes apart miss no bank twice
+constexpr int STHREADS = 256;    // 16 x 16 threads, 8 x 8 scores each
 
-  const int t = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int q0 = blockIdx.y * QB;
-  const int row0 = tile * BN;
-
-  float acc[QB];
+// Starts the copy of a 128-row x 16-feature slice (rows row0.., features
+// k0..) of a [n, d] float32 matrix into dst [128][SLD]; zeros outside.
+__device__ __forceinline__ void load_slice(float* dst, const float* src,
+                                           int row0, int n, int d, int k0,
+                                           bool vec) {
 #pragma unroll
-  for (int i = 0; i < QB; ++i) acc[i] = 0.f;
-  float c2 = 0.f;
-  float q2 = 0.f;  // thread t < QB: |q|^2 of query q0 + t
-
-  for (int k0 = 0; k0 < d; k0 += DK) {
-    for (int e = t; e < BN * DK; e += BN) {
-      const int r = e / DK, j = e - r * DK;
-      const int gr = row0 + r, gj = k0 + j;
-      cs[r][j] = (gr < n_rows && gj < d) ? c[(size_t)gr * d + gj] : 0.f;
+  for (int e = threadIdx.x; e < 128 * SK / 4; e += STHREADS) {
+    const int r = e / (SK / 4);
+    const int col = (e % (SK / 4)) * 4;
+    const int row = row0 + r;
+    float* to = dst + r * SLD + col;
+    if (vec) {                                 // d % 4 == 0: whole chunks
+      const bool ok = row < n && k0 + col < d;
+      pandadb::cp_async16(to, src + (ok ? (size_t)row * d + k0 + col : 0),
+                          ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool ok = row < n && k0 + col + u < d;
+        pandadb::cp_async4(to + u,
+                           src + (ok ? (size_t)row * d + k0 + col + u : 0),
+                           ok ? 4 : 0);
+      }
     }
-    if (t < QB * DK) {
-      const int i = t / DK, j = t - i * DK;
-      const int gq = q0 + i, gj = k0 + j;
-      qs[i][j] = (gq < n_q && gj < d) ? q[(size_t)gq * d + gj] : 0.f;
+  }
+}
+
+// |x|^2 of each row of x [n, d], one warp a row
+__global__ void __launch_bounds__(256)
+ivf_norms(const float* __restrict__ x, float* __restrict__ out, int n, int d) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n) return;
+  const float* r = x + (size_t)row * d;
+  float s = 0.f;
+  for (int j = lane; j < d; j += 32) s = fmaf(r[j], r[j], s);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+  if (lane == 0) out[row] = s;
+}
+
+// q2 [n_q] and c2 [n_rows] are the rows' |x|^2 (read for l2 only)
+__global__ void __launch_bounds__(STHREADS, 2)
+ivf_score(const float* __restrict__ q, const float* __restrict__ c,
+          const float* __restrict__ q2, const float* __restrict__ c2,
+          float* __restrict__ scores, int n_q, int n_rows, int d, size_t ld,
+          int l2) {
+  __shared__ __align__(16) float qs[2][SQ * SLD];
+  __shared__ __align__(16) float cs[2][SN * SLD];
+  const int tx = threadIdx.x % 16;             // rows tx + 16 j
+  const int ty = threadIdx.x / 16;             // queries ty + 16 i
+  const int q0 = blockIdx.y * SQ;
+  const int r0 = blockIdx.x * SN;
+  const bool vec = d % 4 == 0;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  const int n_k = (d + SK - 1) / SK;
+  load_slice(qs[0], q, q0, n_q, d, 0, vec);
+  load_slice(cs[0], c, r0, n_rows, d, 0, vec);
+  pandadb::cp_async_commit();
+  for (int kt = 0; kt < n_k; ++kt) {
+    if (kt + 1 < n_k) {                        // the next slice, under this one
+      load_slice(qs[(kt + 1) & 1], q, q0, n_q, d, (kt + 1) * SK, vec);
+      load_slice(cs[(kt + 1) & 1], c, r0, n_rows, d, (kt + 1) * SK, vec);
+      pandadb::cp_async_commit();
+      pandadb::cp_async_wait<1>();
+    } else {
+      pandadb::cp_async_wait<0>();
     }
     __syncthreads();
-    if (t < QB) {
-      for (int j = 0; j < DK; ++j) q2 = fmaf(qs[t][j], qs[t][j], q2);
+    const float* qt = qs[kt & 1];
+    const float* ct = cs[kt & 1];
+#pragma unroll
+    for (int kk = 0; kk < SK; kk += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qt + (ty + 16 * i) * SLD + kk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(ct + (tx + 16 * j) * SLD + kk);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+        }
+      }
     }
+    __syncthreads();                           // the stage may be refilled
+  }
+
 #pragma unroll
-    for (int j = 0; j < DK; ++j) {
-      const float cv = cs[t][j];
-      c2 = fmaf(cv, cv, c2);
+  for (int i = 0; i < 8; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= n_q) continue;
+    const float qn = l2 ? q2[qi] : 0.f;
+    float* out = scores + (size_t)qi * ld;
 #pragma unroll
-      for (int i = 0; i < QB; ++i) acc[i] = fmaf(qs[i][j], cv, acc[i]);
+    for (int j = 0; j < 8; ++j) {
+      const int row = r0 + tx + 16 * j;
+      if (row >= n_rows) continue;
+      float s = acc[i][j];
+      if (l2) {
+        // the reference's -(q2 - 2 s + c2), rounded step by step (no FMA)
+        s = -__fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, s)), c2[row]);
+      }
+      out[row] = s;
+    }
+  }
+}
+
+constexpr int SEL_THREADS = 512;
+constexpr int SEL_WARPS = SEL_THREADS / 32;
+constexpr int PER = 8;                 // scores a thread takes a step
+constexpr int STEP = PER * SEL_THREADS;
+constexpr int BINS = 2048;             // 11-bit digits: 11 + 11 + 10 bits
+constexpr int SUBS = 4;                // histograms, one per 4 warps
+static_assert(BINS == 4 * SEL_THREADS && SUBS == 4, "four bins a thread");
+
+// uint32 key in the order of the float's value; -0 and +0 get one key
+__device__ __forceinline__ uint32_t order_key(float f) {
+  uint32_t u = __float_as_uint(f);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The PER scores at i0 .. (i0 % 4 == 0, rows 16-byte aligned); those at
+// or past n as NEG.
+__device__ __forceinline__ void load_scores(const float* row, int i0, int n,
+                                            float (&x)[PER]) {
+#pragma unroll
+  for (int h = 0; h < PER; h += 4) {
+    const int j = i0 + h;
+    if (j + 3 < n) {
+      const float4 v = *reinterpret_cast<const float4*>(row + j);
+      x[h] = v.x; x[h + 1] = v.y; x[h + 2] = v.z; x[h + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) x[h + u] = j + u < n ? row[j + u] : NEG;
+    }
+  }
+}
+
+// Exclusive prefix sum of one int a thread over the block, with the total.
+__device__ __forceinline__ int block_scan(int x, int* warp_tot, int* total) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < SEL_WARPS; ++w) {
+    const int t = warp_tot[w];
+    before += w < warp ? t : 0;
+    all += t;
+  }
+  __syncthreads();                             // warp_tot is reused
+  *total = all;
+  return before + incl - x;
+}
+
+// One block per query: the k rows of its top-k among the first n_valid
+// scores, in row order, to out_v / out_i [k].
+__global__ void __launch_bounds__(SEL_THREADS)
+ivf_select(const float* __restrict__ scores, size_t ld, int n_valid, int k,
+           float* __restrict__ out_v, int* __restrict__ out_i) {
+  __shared__ unsigned hist[SUBS][BINS];
+  __shared__ int warp_tot[SEL_WARPS];
+  __shared__ uint32_t s_digit;
+  __shared__ int s_need, s_exact;
+  const float* row = scores + (size_t)blockIdx.x * ld;
+  unsigned* my_hist = hist[threadIdx.x / 32 / (SEL_WARPS / SUBS)];
+
+  // the rows whose key, under mask, equals prefix hold the k-th largest;
+  // `need` of them belong to the top-k, every row above them does too
+  uint32_t prefix = 0u, mask = 0u;
+  int need = k;
+  for (int pass = 0; pass < 3; ++pass) {
+    const int shift = pass == 0 ? 21 : pass == 1 ? 10 : 0;
+    const uint32_t digits = pass == 2 ? 0x3FFu : 0x7FFu;
+    for (int e = threadIdx.x; e < SUBS * BINS; e += SEL_THREADS)
+      (&hist[0][0])[e] = 0u;
+    __syncthreads();
+    for (int base = 0; base < n_valid; base += STEP) {
+      const int i0 = base + PER * threadIdx.x;
+      float x[PER];
+      load_scores(row, i0, n_valid, x);
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const uint32_t key = order_key(x[u]);
+        if (i0 + u < n_valid && (key & mask) == prefix)
+          atomicAdd(&my_hist[(key >> shift) & digits], 1u);
+      }
     }
     __syncthreads();
-  }
-  if (t < QB) q2s[t] = q2;
-  __syncthreads();
-
-  const int row = row0 + t;
+    // thread t holds digits BINS - 1 - 4t .. BINS - 4 - 4t, largest first
+    unsigned cnt[4], sum = 0u;
 #pragma unroll
-  for (int i = 0; i < QB; ++i) {
-    float s = acc[i];
-    if (l2) {
-      // the reference's -(q2 - 2 s + c2), rounded step by step (no FMA)
-      s = -__fadd_rn(__fsub_rn(q2s[i], __fmul_rn(2.0f, s)), c2);
+    for (int j = 0; j < 4; ++j) {
+      const int d = BINS - 1 - 4 * threadIdx.x - j;
+      cnt[j] = hist[0][d] + hist[1][d] + hist[2][d] + hist[3][d];
+      sum += cnt[j];
     }
-    sv[i * BN + t] = row < n_valid ? s : NEG;
-    si[i * BN + t] = row;
+    int tot;
+    unsigned run = (unsigned)block_scan((int)sum, warp_tot, &tot);
+    const unsigned want = (unsigned)need;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (run < want && want <= run + cnt[j]) {
+        s_digit = BINS - 1 - 4 * threadIdx.x - j;
+        s_need = (int)(want - run);
+        s_exact = cnt[j] == want - run;
+      }
+      run += cnt[j];
+    }
+    __syncthreads();
+    prefix |= s_digit << shift;
+    mask |= digits << shift;
+    need = s_need;
+    if (s_exact) break;                        // the bin is all taken
   }
-  __syncthreads();
-  if (topl < BN) pandadb::sort_runs(sv, si, QB, BN);
-  const int n_seg = min(QB, n_q - q0);
-  pandadb::write_candidates(sv, si, n_seg, BN, topl, q0, tile, gridDim.x,
-                            cand_v, cand_i);
+
+  // compaction in row order: above the threshold, and the first `need`
+  // rows at it (lax.top_k's tie rule)
+  float* ov = out_v + (size_t)blockIdx.x * k;
+  int* oi = out_i + (size_t)blockIdx.x * k;
+  int taken = 0, eq_seen = 0;
+  for (int base = 0; base < n_valid && taken < k; base += STEP) {
+    const int i0 = base + PER * threadIdx.x;
+    float x[PER];
+    load_scores(row, i0, n_valid, x);
+    bool gt[PER], eq[PER];
+    int n_gt = 0, n_eq = 0;
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const uint32_t km = order_key(x[u]) & mask;
+      const bool in = i0 + u < n_valid;
+      gt[u] = in && km > prefix;
+      eq[u] = in && km == prefix;
+      n_gt += gt[u];
+      n_eq += eq[u];
+    }
+    int tot;                                   // counts < 2^16 a step
+    const int before = block_scan((n_eq << 16) | n_gt, warp_tot, &tot);
+    int eq_rank = eq_seen + (before >> 16);    // rows at the threshold before
+    int pos = taken + (before & 0xFFFF) +
+              min(max(need - eq_seen, 0), before >> 16);
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      if (gt[u] || (eq[u] && eq_rank < need)) {
+        ov[pos] = x[u];
+        oi[pos] = i0 + u;
+        ++pos;
+      }
+      eq_rank += eq[u];
+    }
+    taken += (tot & 0xFFFF) + min(max(need - eq_seen, 0), tot >> 16);
+    eq_seen += tot >> 16;
+  }
 }
 
 }  // namespace
 
-// q [n_q, d] f32, c [n_rows, d] f32 -> cand_v f32 / cand_i int32
-// [n_q, ceil(n_rows / 256) * topl]; topl in [1, 256].  Returns cudaError_t.
-extern "C" int ivf_scan_tile_topk(const float* q, const float* c,
-                                  float* cand_v, int* cand_i, int n_q,
-                                  int n_rows, int d, int n_valid, int topl,
-                                  int l2, void* stream) {
+// q [n_q, d] f32, c [n_rows, d] f32 -> scores [n_q, ld] f32 (columns
+// < n_rows written), ld >= n_rows; norms [n_q + n_rows] f32 is scratch
+// for the rows' |x|^2 (l2 only).  Returns cudaError_t.
+extern "C" int ivf_scan_scores(const float* q, const float* c, float* scores,
+                               float* norms, int n_q, int n_rows, int d,
+                               long long ld, int l2, void* stream) {
   if (n_q <= 0 || n_rows <= 0) return 0;
-  if (topl < 1 || topl > BN || d <= 0 || n_valid > n_rows)
+  if (d <= 0 || ld < n_rows || (n_q + SQ - 1) / SQ > MAX_GRID_Y)
     return (int)cudaErrorInvalidValue;
-  const int n_tiles = (n_rows + BN - 1) / BN;
-  const size_t width = (size_t)n_tiles * topl;
-  const int q_step = MAX_GRID_Y * QB;
-  for (int qa = 0; qa < n_q; qa += q_step) {
-    const int nq = min(q_step, n_q - qa);
-    dim3 grid(n_tiles, (nq + QB - 1) / QB);
-    ivf_tile_topk<<<grid, BN, 0, (cudaStream_t)stream>>>(
-        q + (size_t)qa * d, c, cand_v + (size_t)qa * width,
-        cand_i + (size_t)qa * width, nq, n_rows, d, n_valid, topl, l2);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (l2) {
+    ivf_norms<<<(n_q + 7) / 8, 256, 0, st>>>(q, norms, n_q, d);
+    ivf_norms<<<(n_rows + 7) / 8, 256, 0, st>>>(c, norms + n_q, n_rows, d);
   }
-  return 0;
+  const dim3 grid((n_rows + SN - 1) / SN, (n_q + SQ - 1) / SQ);
+  ivf_score<<<grid, STHREADS, 0, st>>>(q, c, norms, norms + n_q, scores, n_q,
+                                       n_rows, d, (size_t)ld, l2);
+  return (int)cudaGetLastError();
 }
 
-// The tile width the candidates are laid out in.
-extern "C" int ivf_scan_tile_rows() { return BN; }
+// scores [n_q, ld] f32 (ld % 4 == 0, 16-byte aligned) -> the top-k rows
+// among the first n_valid columns of each, in row order: out_v f32 / out_i
+// int32 [n_q, k]; 1 <= k <= n_valid <= ld.  Returns cudaError_t.
+extern "C" int ivf_scan_select(const float* scores, long long ld, int n_q,
+                               int n_valid, int k, float* out_v, int* out_i,
+                               void* stream) {
+  if (n_q <= 0) return 0;
+  if (k < 1 || k > n_valid || n_valid > ld || ld % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  ivf_select<<<n_q, SEL_THREADS, 0, (cudaStream_t)stream>>>(
+      scores, (size_t)ld, n_valid, k, out_v, out_i);
+  return (int)cudaGetLastError();
+}

@@ -1,4 +1,4 @@
-// Shared tile top-L of the scan kernels (ivf_scan.cu, pq_scan.cu).
+// Tile top-L of the PQ scan and merge kernels (pq_scan.cu, topk_merge.cu).
 //
 // The Pallas kernels keep each tile's top-L by L max/mask sweeps over a
 // [Q, BN] score tile in VMEM, and merge the [Q, n_tiles * L] partials with

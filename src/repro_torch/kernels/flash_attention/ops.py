@@ -22,9 +22,22 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter("flash_attention")
 
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _F, _I, _I, _P]}
+                                   _F, _I, _I, _P],
+               "flash_attention_key_tile": [_I, _I]}
+
+
+def key_tile(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Keys per tile of the kernel for ``dtype`` at head width ``d`` (the
+    CUDA library's own number, so the card must be there).  With
+    ``bf16_probs`` each tile's weights are rounded to bf16 on that tile's
+    running max, so the plain version rounds alike at
+    ``block_kv=key_tile(d, dtype)`` (both are the reference's chunked
+    rounding, at another block)."""
+    return load("flash_attention", _SIGNATURES).flash_attention_key_tile(
+        d, DTYPES[dtype])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

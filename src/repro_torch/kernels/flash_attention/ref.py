@@ -11,7 +11,9 @@ head h // (H / KVH), as ``repeat_kv`` would lay it out.  Any S runs: the
 last block is shorter when S is not a multiple of ``block_kv``.
 
 The CPU path and the tests use it; a tensor on the card goes to the CUDA
-kernel instead."""
+kernel instead.  ``bf16_probs_slack`` gives the checks of the kernel (the
+card tests, ``chip_smoke.py``) the room that ``bf16_probs`` rounding needs
+where a weight sits on a midpoint between two bf16 values."""
 from __future__ import annotations
 
 from typing import Optional
@@ -21,15 +23,13 @@ import torch
 NEG = -1.0e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, scale: Optional[float] = None,
-                        bf16_probs: bool = False, block_kv: int = 1024
-                        ) -> torch.Tensor:
-    """q [B, S, H, D]; k, v [B, S, KVH, D] with KVH dividing H ->
-    [B, S, H, D] in q's dtype."""
+def _weights(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, scale: Optional[float], block_kv: int):
+    """The online softmax's key blocks: yields (p, alpha, v block) for each,
+    p = exp(score - running max) [B, H, S, block] float32 and alpha [B, H,
+    S] the factor that carries what came before onto the new max."""
     b, s, h, d = q.shape
-    kvh = k.shape[2]
-    g = h // kvh
+    g = h // k.shape[2]
     scale = scale if scale is not None else d ** -0.5
     block_kv = max(1, min(block_kv, s))
     qf = (q.float() * scale).permute(0, 2, 1, 3)              # [B,H,S,D]
@@ -37,8 +37,6 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
     q_pos = torch.arange(s, device=q.device)
     m = torch.full((b, h, s), NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
     for start in range(0, s, block_kv):
         stop = min(start + block_kv, s)
         sc = torch.matmul(qf, kf[:, :, start:stop].transpose(-1, -2))
@@ -48,11 +46,53 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m_new = torch.maximum(m, sc.amax(dim=-1))
         p = torch.exp(sc - m_new[..., None])
         alpha = torch.exp(m - m_new)
+        m = m_new
+        yield p, alpha, vf[:, :, start:stop]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, scale: Optional[float] = None,
+                        bf16_probs: bool = False, block_kv: int = 1024
+                        ) -> torch.Tensor:
+    """q [B, S, H, D]; k, v [B, S, KVH, D] with KVH dividing H ->
+    [B, S, H, D] in q's dtype."""
+    b, s, h, d = q.shape
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    for p, alpha, vb in _weights(q, k, v, causal, scale, block_kv):
         l = l * alpha + p.sum(dim=-1)
         if bf16_probs:
             # softmax weights rounded to bf16; products and sums stay fp32
             p = p.to(torch.bfloat16).float()
-        acc = acc * alpha[..., None] + torch.matmul(p, vf[:, :, start:stop])
-        m = m_new
+        acc = acc * alpha[..., None] + torch.matmul(p, vb)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def bf16_probs_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = True, scale: Optional[float] = None,
+                     block_kv: int = 1024, rel: float = 2.0 ** -12
+                     ) -> torch.Tensor:
+    """How far a kernel's ``bf16_probs`` output may lie from
+    ``flash_attention_ref(..., bf16_probs=True, block_kv=block_kv)`` when
+    its float32 weights differ from the plain version's by at most ``rel``
+    of themselves (float32 noise: scores summed in another order, the scale
+    folded into an exp2): [B, S, H, D] float32.
+
+    Only a weight p within ``rel * p`` of a midpoint between two bf16 values
+    can round to the other neighbour, one bf16 ulp away; it moves the output
+    by ulp * |v| / l.  The slack is the sum of those moves over every such
+    weight, so a limit of atol + rtol |want| + slack still fails a kernel
+    that drops a key tile on long rows, where l is large."""
+    b, s, h, d = q.shape
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    slack = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    for p, alpha, vb in _weights(q, k, v, causal, scale, block_kv):
+        l = l * alpha + p.sum(dim=-1)
+        mant, ex = torch.frexp(p)          # p = mant 2^ex, mant in [0.5, 1)
+        ulp = torch.ldexp(torch.ones_like(p), ex - 8)   # bf16 keeps 8 bits
+        off = ((mant * 256.0).frac() - 0.5).abs() * ulp  # to the midpoint
+        flip = torch.where((p > 0) & (off <= rel * p), ulp, 0.0)
+        slack = slack * alpha[..., None] + torch.matmul(flip, vb.abs())
+    out = slack / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3)

@@ -1,13 +1,17 @@
-"""IVF scan wrapper: the CUDA kernel for tensors on the card, the plain
+"""IVF scan wrapper: the CUDA kernels for tensors on the card, the plain
 version for tensors on the CPU.
 
-The kernel (``csrc/ivf_scan.cu``) scores tiles of 256 rows and keeps each
-tile's top-L (L = min(k, 256)) in ``lax.top_k`` order; a stable sort over
-the [Q, n_tiles * L] candidates merges them.  Any k up to ``n_valid`` runs
-the kernel: the reference's k <= 64 gate, which sent larger k to its XLA
-twin, has no counterpart here.  The kernel masks its own ragged last tile,
-so the corpus is never padded or copied; rows at or past ``n_valid`` never
-reach the result.
+``csrc/ivf_scan.cu`` scores every row (``ivf_score``, the [Q, N] scores in
+scratch memory) and keeps each query's k rows (``ivf_select``: a radix
+select of the k-th largest score, then the rows above it and the first rows
+equal to it, in row order); a stable sort over those [Q, k] survivors puts
+them in ``lax.top_k`` order.  No sort or top-k runs over all N columns.
+Past ``SCRATCH_BYTES`` of scores the queries go in chunks.
+
+Any k up to ``n_valid`` runs the kernels: the reference's k <= 64 gate,
+which sent larger k to its XLA twin, has no counterpart here.  The kernels
+mask the ragged last tile, so the corpus is never padded or copied; rows at
+or past ``n_valid`` never reach the result.
 """
 from __future__ import annotations
 
@@ -24,10 +28,13 @@ METRICS = ("l2", "ip", "cosine")
 
 launches = LaunchCounter("ivf_scan")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+#: most bytes of [Q, N] scores held at once; more queries go in chunks
+SCRATCH_BYTES = 1 << 30
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "ivf_scan_tile_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ivf_scan_tile_rows": [],
+    "ivf_scan_scores": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P],
+    "ivf_scan_select": [_P, _L, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -68,24 +75,59 @@ def _check(q: torch.Tensor, corpus: torch.Tensor) -> None:
                          f"d={corpus.shape[1]}")
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ivf_scores(q: torch.Tensor, corpus: torch.Tensor, l2: bool
+               ) -> torch.Tensor:
+    """Kernel ``ivf_score``: [Q, d] x [N, d] -> scores [Q, ld] float32, ld
+    = N rounded up to 4 (columns past N unset)."""
+    qn, d = q.shape
+    n = corpus.shape[0]
+    ld = -(-n // 4) * 4
+    scores = torch.empty((qn, ld), dtype=torch.float32, device=q.device)
+    norms = torch.empty(qn + n, dtype=torch.float32, device=q.device)
+    lib = load("ivf_scan", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.ivf_scan_scores(q.data_ptr(), corpus.data_ptr(),
+                                  scores.data_ptr(), norms.data_ptr(), qn, n,
+                                  d, ld, int(l2), _stream(q))
+    check_launch("ivf_scan scores", err)
+    launches.add()
+    return scores
+
+
+def ivf_select(scores: torch.Tensor, n_valid: int, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``ivf_select``: scores [Q, ld] -> each row's top-k among its
+    first ``n_valid`` columns, in column order: (vals [Q, k] f32, cols
+    [Q, k] int32)."""
+    qn, ld = scores.shape
+    vals = torch.empty((qn, k), dtype=torch.float32, device=scores.device)
+    cols = torch.empty((qn, k), dtype=torch.int32, device=scores.device)
+    lib = load("ivf_scan", _SIGNATURES)
+    with torch.cuda.device(scores.device):
+        err = lib.ivf_scan_select(scores.data_ptr(), ld, qn, n_valid, k,
+                                  vals.data_ptr(), cols.data_ptr(),
+                                  _stream(scores))
+    check_launch("ivf_scan select", err)
+    return vals, cols
+
+
 def _launch(q: torch.Tensor, corpus: torch.Tensor, k: int, metric: str,
             n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(q, corpus)
     if metric == "cosine":
         q, corpus = normalize_rows(q), normalize_rows(corpus)
-    qn, d = q.shape
-    n = corpus.shape[0]
-    lib = load("ivf_scan", _SIGNATURES)
-    tile = lib.ivf_scan_tile_rows()
-    topl = min(k, tile)
-    width = -(-n // tile) * topl
-    cand_v = torch.empty((qn, width), dtype=torch.float32, device=q.device)
-    cand_i = torch.empty((qn, width), dtype=torch.int32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.ivf_scan_tile_topk(
-            q.data_ptr(), corpus.data_ptr(), cand_v.data_ptr(),
-            cand_i.data_ptr(), qn, n, d, n_valid, topl, int(metric == "l2"),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch("ivf_scan", err)
-    launches.add()
-    return merge_tile_candidates(cand_v, cand_i, k)
+    l2 = metric == "l2"
+    step = max(1, SCRATCH_BYTES // (4 * (-(-corpus.shape[0] // 4) * 4)))
+    parts = []
+    for q0 in range(0, q.shape[0], step):
+        scores = ivf_scores(q[q0:q0 + step], corpus, l2)
+        parts.append(merge_tile_candidates(*ivf_select(scores, n_valid, k),
+                                           k))
+        del scores
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts]))

@@ -236,6 +236,17 @@ def _randn(gen, *shape, dtype, device):
     return torch.randn(*shape, generator=gen).to(device=device, dtype=dtype)
 
 
+def _assert_attn_close(got, want, tol, slack=0.0):
+    """Every element within atol + rtol |want| + slack (a number or a
+    tensor like ``want``)."""
+    assert got.shape == want.shape
+    g, w = got.float(), want.float()
+    over = (g - w).abs() - (tol["atol"] + tol["rtol"] * w.abs() + slack)
+    assert float(over.max()) <= 0.0, (
+        f"max |delta| {float((g - w).abs().max())}, past the limit by "
+        f"{float(over.max())}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kvh,d,causal,bf16_probs", [
     (2, 128, 4, 4, 64, True, False), (1, 100, 8, 2, 128, True, False),
@@ -246,7 +257,8 @@ def _randn(gen, *shape, dtype, device):
 def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d, causal,
                                     bf16_probs):
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (bf16_probs_slack,
+                                                         flash_attention_ref)
     gen = torch.Generator().manual_seed(s * h + d)
     q = _randn(gen, b, s, h, d, dtype=dtype, device=cuda)
     k = _randn(gen, b, s, kvh, d, dtype=dtype, device=cuda)
@@ -254,16 +266,110 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d, causal,
     before = flash_ops.launches.n
     got = flash_ops.flash_attention(q, k, v, causal=causal,
                                     bf16_probs=bf16_probs)
-    want = flash_attention_ref(q, k, v, causal=causal, bf16_probs=bf16_probs)
+    # with bf16_probs both sides round each key tile's weights on that
+    # tile's running max; a weight on a bf16 midpoint may round either way
+    kt = flash_ops.key_tile(d, dtype)
+    want = flash_attention_ref(q, k, v, causal=causal, bf16_probs=bf16_probs,
+                               block_kv=kt)
+    slack = bf16_probs_slack(q, k, v, causal=causal, block_kv=kt) \
+        if bf16_probs else 0.0
     torch.cuda.synchronize()
     assert flash_ops.launches.n == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    tol = dict(ATTN_TOL[dtype])
-    if bf16_probs:
-        # each side rounds every weight to bf16 (<= 2^-9 relative), on its
-        # own running max: the outputs differ by <= 2^-8 sum(p |v|) / l
-        tol["atol"] += 2.0 ** -8 * float(v.float().abs().max())
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    _assert_attn_close(got, want, ATTN_TOL[dtype], slack)
+
+
+@pytest.mark.parametrize("s", [1, 33, 64, 257, 1000])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("h,kvh", [(8, 2), (4, 4)])
+@pytest.mark.parametrize("bf16_probs", [False, True])
+def test_flash_wgmma_kernel_every_width(cuda, s, d, h, kvh, bf16_probs):
+    """The bf16 wgmma kernel at every head width of HEAD_DIMS, short and
+    ragged S, GQA and MHA, causal and not, against the plain version
+    rounding on the kernel's key tiles."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (bf16_probs_slack,
+                                                         flash_attention_ref)
+    assert d in flash_ops.HEAD_DIMS
+    gen = torch.Generator().manual_seed(s * 1000 + d + h)
+    q = _randn(gen, 2, s, h, d, dtype=torch.bfloat16, device=cuda)
+    k = _randn(gen, 2, s, kvh, d, dtype=torch.bfloat16, device=cuda)
+    v = _randn(gen, 2, s, kvh, d, dtype=torch.bfloat16, device=cuda)
+    kt = flash_ops.key_tile(d)
+    for causal in (True, False):
+        before = flash_ops.launches.n
+        got = flash_ops.flash_attention(q, k, v, causal=causal,
+                                        bf16_probs=bf16_probs)
+        want = flash_attention_ref(q, k, v, causal=causal,
+                                   bf16_probs=bf16_probs, block_kv=kt)
+        # a weight on a bf16 midpoint may round either way on either side
+        slack = bf16_probs_slack(q, k, v, causal=causal, block_kv=kt) \
+            if bf16_probs else 0.0
+        torch.cuda.synchronize()
+        assert flash_ops.launches.n == before + 1
+        _assert_attn_close(got, want, ATTN_TOL[torch.bfloat16], slack)
+
+
+def _select_inputs(case):
+    """(q, corpus, k, n_valid) of the selection's tie cases on the card."""
+    rng = np.random.default_rng(len(case))
+    if case == "ties_across_tiles":
+        base = _int(rng, 40, 8, lo=-1, hi=2)
+        return _int(rng, 6, 8, lo=-1, hi=2), base.repeat(60, 1), 777, 2400
+    if case == "all_equal_rows":
+        return _int(rng, 5, 16), torch.zeros(3000, 16), 1234, 3000
+    if case == "k_one":
+        return _int(rng, 9, 32), _int(rng, 5000, 32), 1, 4999
+    if case == "k_is_n_valid":
+        return _int(rng, 4, 16), _int(rng, 2000, 16), 1990, 1990
+    if case == "k_past_256_tiles":
+        return _int(rng, 3, 4, lo=-1, hi=2), _int(rng, 70_000, 4, lo=-1,
+                                                  hi=2), 65_600, 70_000
+    if case == "padding_rows":
+        q = _int(rng, 3, 16)
+        return q, torch.cat([_int(rng, 777, 16), q.repeat(90, 1)]), 700, 777
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", ["ties_across_tiles", "all_equal_rows",
+                                  "k_one", "k_is_n_valid", "k_past_256_tiles",
+                                  "padding_rows"])
+def test_ivf_select_kernel_ties(cuda, case):
+    """ivf_select against the plain radix selection and the full stable
+    sort: ids identical, values equal (integer scores are exact)."""
+    from repro_torch.kernels.ivf_scan.ref import (ivf_scan_select_ref,
+                                                  radix_select_ref)
+    q, c, k, n_valid = _select_inputs(case)
+    q, c = q.to(cuda), c.to(cuda)
+    scores = ivf_ops.ivf_scores(q, c, True)
+    kv, ki = ivf_ops.ivf_select(scores, n_valid, k)
+    rv, ri = radix_select_ref(scores[:, :c.shape[0]], n_valid, k)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, ri) and torch.equal(kv, rv)   # row order
+    got = ivf_scan_topk(q, c, k, n_valid=n_valid)
+    want = ivf_scan_topk_ref(q, c, k, n_valid=n_valid)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert torch.equal(got[1], ivf_scan_select_ref(q, c, k,
+                                                   n_valid=n_valid)[1])
+    assert int(got[1].max()) < n_valid
+
+
+@pytest.mark.parametrize("k", [10, 300])
+def test_ivf_kernel_query_chunks(cuda, monkeypatch, k):
+    """Past SCRATCH_BYTES of scores the queries go in chunks: one scoring
+    launch a chunk, results joined in query order, equal to the plain
+    version."""
+    rng = np.random.default_rng(k)
+    qn, n, d, n_valid = 30, 2001, 32, 1990
+    q, c = _int(rng, qn, d).to(cuda), _int(rng, n, d).to(cuda)
+    ld = -(-n // 4) * 4                       # the scores' padded row
+    monkeypatch.setattr(ivf_ops, "SCRATCH_BYTES", 4 * ld * 7)   # 7 queries
+    before = ivf_ops.launches.n
+    kv, ki = ivf_scan_topk(q, c, k, n_valid=n_valid)
+    pv, pi = ivf_scan_topk_ref(q, c, k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert ivf_ops.launches.n == before + 5    # ceil(30 / 7) chunks
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

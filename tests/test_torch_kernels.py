@@ -24,7 +24,9 @@ from repro.kernels.topk_merge.ops import merge_topk_dev as merge_ref_jax
 from repro.kernels.topk_merge.ref import merge_topk_ref as merge_ref_np
 from repro_torch.kernels.ivf_scan import ops as ivf_ops
 from repro_torch.kernels.ivf_scan.ops import ivf_scan_topk
-from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
+from repro_torch.kernels.ivf_scan.ref import (ivf_scan_select_ref,
+                                              ivf_scan_topk_ref, order_keys,
+                                              radix_select_ref)
 from repro_torch.kernels.pq_scan import ops as pq_ops
 from repro_torch.kernels.pq_scan.ops import pq_adc_topk
 from repro_torch.kernels.pq_scan.ref import pq_adc_topk_ref
@@ -146,6 +148,82 @@ def test_ivf_scan_on_cpu_never_launches():
     ivf_scan_topk(torch.from_numpy(_int_mat(rng, 2, 8)),
                   torch.from_numpy(_int_mat(rng, 50, 8)), 5)
     assert ivf_ops.launches.n == before
+
+
+def _select_case(name):
+    """(q, corpus, k, n_valid, metric) of one selection case."""
+    rng = np.random.default_rng(len(name))
+    if name == "ties_across_tiles":
+        # 40 rows repeated 40 times: every score ties 40 ways, the copies
+        # 40 rows apart across the 256-row tiles; k cuts inside a tie group
+        base = _int_mat(rng, 40, 4, lo=-1, hi=2)
+        return _int_mat(rng, 4, 4, lo=-1, hi=2), np.tile(base, (40, 1)), \
+            333, -1, "l2"
+    if name == "all_equal_rows":
+        return _int_mat(rng, 3, 8), np.zeros((600, 8), np.float32), 250, \
+            -1, "l2"
+    if name == "k_one":
+        return _int_mat(rng, 5, 8), _int_mat(rng, 2000, 8), 1, -1, "l2"
+    if name == "k_is_n_valid":
+        return _int_mat(rng, 3, 8), _int_mat(rng, 1537, 8), 1500, 1500, "l2"
+    if name == "k_past_256_tiles":
+        # survivors spread over more than 256 tiles of 256 rows
+        return _int_mat(rng, 2, 4, lo=-1, hi=2), \
+            _int_mat(rng, 70_000, 4, lo=-1, hi=2), 65_600, -1, "l2"
+    if name == "padding_rows":
+        # the rows past n_valid copy the queries: they would score best
+        q = _int_mat(rng, 3, 8)
+        c = np.concatenate([_int_mat(rng, 777, 8), np.repeat(q, 80, 0)])
+        return q, c, 700, 777, "l2"
+    if name == "integer_ip":
+        return _int_mat(rng, 4, 16, lo=-9, hi=10), \
+            _int_mat(rng, 3000, 16, lo=-9, hi=10), 900, -1, "ip"
+    raise KeyError(name)
+
+
+SELECT_CASES = ["ties_across_tiles", "all_equal_rows", "k_one",
+                "k_is_n_valid", "k_past_256_tiles", "padding_rows",
+                "integer_ip"]
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_radix_select_matches_stable_topk(case):
+    """The CUDA route's selection (threshold by radix select, then the
+    rows above it and the first rows at it) in plain torch, against the
+    full stable sort."""
+    q, c, k, n_valid, metric = _select_case(case)
+    q, c = torch.from_numpy(q), torch.from_numpy(c)
+    got = ivf_scan_select_ref(q, c, k, metric=metric, n_valid=n_valid)
+    want = ivf_scan_topk_ref(q, c, k, metric=metric, n_valid=n_valid)
+    _assert_same(got, want)
+    assert got[1].dtype == torch.int32
+    assert int(got[1].max()) < (n_valid if n_valid >= 0 else c.shape[0])
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_radix_select_matches_reference(case):
+    """The same selection against the JAX package's ivf_scan_topk (its
+    Pallas kernel in interpret mode where k <= 64, else its XLA twin)."""
+    q, c, k, n_valid, metric = _select_case(case)
+    ref = ivf_ref_jax(jnp.asarray(q), jnp.asarray(c), k, metric=metric,
+                      n_valid=n_valid, force_pallas=k <= 64)
+    got = ivf_scan_select_ref(torch.from_numpy(q), torch.from_numpy(c), k,
+                              metric=metric, n_valid=n_valid)
+    _assert_same(got, ref)
+
+
+def test_radix_select_keeps_row_order_and_signed_zeros():
+    """Survivors come out in column order; -0 and +0 tie (the first in
+    column order wins), and -inf / huge values sort where they belong."""
+    s = torch.tensor([[0.0, -0.0, 5.0, -1.0, -np.inf, 2.0 ** 120, -0.0, 0.0]])
+    vals, cols = radix_select_ref(s, 8, 4)
+    assert cols.tolist() == [[0, 1, 2, 5]]
+    assert vals.tolist() == [[0.0, -0.0, 5.0, 2.0 ** 120]]
+    vals, cols = radix_select_ref(s, 7, 6)
+    assert cols.tolist() == [[0, 1, 2, 3, 5, 6]]
+    keys = order_keys(torch.tensor([-np.inf, -1.0, -0.0, 0.0, 1e-30, 2.0]))
+    assert keys.tolist() == sorted(keys.tolist())
+    assert keys[2] == keys[3]
 
 
 def test_stable_topk_breaks_ties_by_index():
@@ -469,6 +547,7 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention,
 )
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    bf16_probs_slack,
     flash_attention_ref,
 )
 
@@ -547,6 +626,54 @@ def test_flash_plain_any_length_matches_exact(s, block, causal):
     port = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
                            causal=causal, block_kv=block)
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), **ATTN_F32)
+
+
+def _within(got, want, slack, rtol=1e-4, atol=1e-4):
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= atol + rtol * want.float().abs() + slack).all())
+
+
+def test_flash_bf16_probs_slack_covers_weight_noise():
+    """Weights that differ by float32 noise round to bf16 alike except on a
+    bf16 midpoint: the slack covers the port against the reference's
+    chunked_attention (XLA's exp) and against weights scaled by 1 + 2^-18,
+    and without it those outputs fail the float32 limit."""
+    b, s, h, kvh, d, blk = 2, 192, 4, 2, 32, 32
+    q, k, v = _attn_inputs(11, b, s, h, kvh, d)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    want = flash_attention_ref(tq, tk, tv, bf16_probs=True, block_kv=blk)
+    slack = bf16_probs_slack(tq, tk, tv, block_kv=blk)
+    g = h // kvh
+    jax_out = torch.from_numpy(np.array(chunked_jax(
+        jnp.asarray(q), repeat_kv_jax(jnp.asarray(k), g),
+        repeat_kv_jax(jnp.asarray(v), g), causal=True, block_kv=blk,
+        bf16_probs=True)))
+    noisy = flash_attention_ref(tq, tk, tv, scale=d ** -0.5 * (1 + 2 ** -18),
+                                bf16_probs=True, block_kv=blk)
+    for other in (jax_out, noisy):
+        assert _within(other, want, slack)
+    assert not _within(noisy, want, 0.0)
+    assert float(slack.max()) < 2.0 ** -8 * float(np.abs(v).max())
+
+
+@pytest.mark.parametrize("bf16_probs", [False, True])
+def test_flash_limit_fails_a_dropped_key_tile(bf16_probs):
+    """The card checks' limit (rtol 1e-2, atol 1e-4, plus the slack with
+    bf16 weights) fails an output that lost 32 keys' values on the longest
+    rows, as chip_smoke.py's planted fault does at full size."""
+    b, s, h, kvh, d, blk = 1, 512, 4, 2, 64, 128
+    q, k, v = _attn_inputs(12, b, s, h, kvh, d)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    want = flash_attention_ref(tq, tk, tv, bf16_probs=bf16_probs,
+                               block_kv=blk)
+    slack = bf16_probs_slack(tq, tk, tv, block_kv=blk) if bf16_probs else 0.0
+    vf = tv.clone()
+    vf[:, s // 2:s // 2 + 32] = 0
+    bad = flash_attention_ref(tq, tk, vf, bf16_probs=bf16_probs, block_kv=blk)
+    rows = slice(s - 64, s)
+    sl = slack[:, rows] if bf16_probs else 0.0
+    assert _within(want[:, rows], want[:, rows], sl, rtol=1e-2)
+    assert not _within(bad[:, rows], want[:, rows], sl, rtol=1e-2)
 
 
 def test_flash_rejects_unequal_lengths():
