@@ -8,30 +8,33 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once), then runs seven phases and fails if any fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
-   version on the card, at the main paths' shapes (IVF: Q in {256, 930},
-   N = 200,000, d = 128, k in {10, 64, 20,001}, and the serving knows
-   request's chunk scan, Q = 800, N = 100,000, k = 10,002, each timed whole
-   and split into scoring, selection and the sort of the k survivors; PQ:
-   Q = 256, N = 1,000,000, M = 16, K = 256, k' in {80, 800}; merge: P in
-   {2, 4, 8} shard windows of K in {10, 100, 10,002} for Q in {1, 256,
-   4096}), with a ragged ``n_valid``, exact duplicate rows and cross-shard
-   ties, (-inf, -1) padding, an all-padding shard, starved probe masks and
-   int64 ids past 2**31.  Integer-valued vectors keep the IVF sums exact,
-   the PQ sums run in the plain version's order and the merge does no
+   version on the card, at the main paths' shapes (IVF: Q in {256, 930}, N =
+   200,000, d = 128, k in {10, 64, 20,001}, and the serving knows request's
+   chunk scan, Q = 800, N = 100,000, k = 10,002, each timed whole and split
+   into scoring, selection and the sort of the k survivors; PQ, both forms:
+   Q = 256, N = 1,000,000, M = 16, K = 256, k' in {80, 800}, and the adc
+   path's probe groups, Q in {1, 6, 20} over 800,000 rows, k' in {80, 800},
+   split the same way, the scoring also timed at each query-slot count;
+   merge: P in {2, 4, 8} shard windows of K in {10, 100, 10,002} for Q in
+   {1, 256, 4096}, the windows past the one-launch path split into
+   selection, sort and epilogue), with a ragged ``n_valid``, exact duplicate rows and
+   cross-shard ties, (-inf, -1) padding, an all-padding shard, starved probe
+   masks and int64 ids past 2**31.  Integer-valued vectors keep the IVF sums
+   exact, the PQ sums run in the plain version's order and the merge does no
    arithmetic, so ids must be equal and max |delta| <= 1e-4 (0 for the
    merge).  The attention kernels run at the LM path's shapes (flash: B=8,
    S=4,096, 32/8 heads of 128, bf16, plus the phi forward's S=64, a ragged
    S, head width 160, each with the float32-faithful weights and with
    ``bf16_probs``, and a float32 case; decode: B=8 over a 32,768-position
    cache with positions spread over it, at the LM path's positions, head
-   width 160, float32), within rtol=1e-2, atol=1e-4 in bf16 (one bf16 ulp
-   of the output; with ``bf16_probs`` plus the slack of the weights that sit
+   width 160, float32), within rtol=1e-2, atol=1e-4 in bf16 (one bf16 ulp of
+   the output; with ``bf16_probs`` plus the slack of the weights that sit
    within 2^-12 of a bf16 midpoint and may round the other way on either
    side) and 1e-4 in float32; in each bf16 case, in both modes, a planted
    fault, the values of 32 keys zeroed, must fail that limit on the longest
-   rows.  Prints kernel, plain and library (one
-   PyTorch call of the same function) times and the bounds (for flash also
-   the floor of its two-product P.V).
+   rows.  Prints kernel, plain and library (one PyTorch call of the same
+   function) times and the bounds (for flash also the floor of its
+   two-product P.V, for PQ the shared-memory floor of its gathers).
 2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
    persons (100,000 by default) with 128-d faces and the IVF-Flat face
    index; a ``QueryServer`` answers the semantic and structured requests
@@ -39,7 +42,10 @@ per source, all at once), then runs seven phases and fails if any fails:
 3. PQ: ``IVFIndex.search_many`` on 1,000,000 SIFT-like vectors (pq_m=16),
    Q = 256, k in {10, 100}, in ``adc``, residual ``adc`` and ``fused`` mode,
    each held against the float ``search_exact`` by recall (>= 0.90; the
-   card reads 0.94 at k=10 and 0.98 at k=100 on this data).
+   card reads 0.94 at k=10 and 0.98 at k=100 on this data).  Then one adc
+   and one fused search at k=100 with every ``pq_adc_topk`` call (each probe
+   group's in adc) held against the plain version on the same inputs: ids
+   equal, max |delta| <= 1e-4.
 4. cluster: ``ShardedPandaDB(n_shards=4, device="cuda")`` over 100,000
    persons written through the coordinator as ``launch/serve.py::
    build_cluster`` does, 128-d faces, four IVF-Flat pieces on the card.  A
@@ -95,6 +101,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+# H100 SXM shared memory: 32 banks x 4 bytes a clock on each of 132 SMs at
+# the 1,980 MHz boost clock (the floor of gathers without bank conflicts)
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 peak outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 SIM_THRESHOLD = 0.80           # the executor's similarity threshold
@@ -208,7 +217,7 @@ def ivf_case(torch, q, corpus, k: int, n_valid: int) -> dict:
     survivors, plain, library (``matmul`` + ``topk``) and bound."""
     from repro_torch.kernels.ivf_scan import ops as ivf_ops
     from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
-    from repro_torch.kernels.topk import merge_tile_candidates
+    from repro_torch.kernels.topk import sort_survivors
 
     qn, d = q.shape
     n = corpus.shape[0]
@@ -224,7 +233,7 @@ def ivf_case(torch, q, corpus, k: int, n_valid: int) -> dict:
     sv, si = ivf_ops.ivf_select(scores, n_valid, k)
     score_ms = time_ms(torch, lambda: ivf_ops.ivf_scores(q, corpus, True))
     select_ms = time_ms(torch, lambda: ivf_ops.ivf_select(scores, n_valid, k))
-    sort_ms = time_ms(torch, lambda: merge_tile_candidates(sv, si, k))
+    sort_ms = time_ms(torch, lambda: sort_survivors(sv, si, k))
     del scores, sv, si
     plain_ms = time_ms(torch, lambda: ivf_scan_topk_ref(q, corpus, k,
                                                         n_valid=n_valid))
@@ -249,10 +258,104 @@ def ivf_case(torch, q, corpus, k: int, n_valid: int) -> dict:
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
 
 
+def pq_case(torch, name: str, luts, codes, k: int, nv: int, kw: dict
+            ) -> dict:
+    """One pq_scan case (``kw`` holds the extended form's terms): ids,
+    values and padding against plain, the wrapper's time, its split into
+    scoring, selection and the sort of the survivors, the scoring's time at
+    every query-slot count that fits, plain, library (``embedding_bag`` +
+    ``topk``), bound and the shared-memory floor of the gathers."""
+    from repro_torch.kernels.pq_scan import ops as pq_ops
+    from repro_torch.kernels.pq_scan.ref import pq_adc_topk_ref
+    from repro_torch.kernels.topk import sort_survivors
+
+    qn, m, ksub = luts.shape
+    pm = kw.get("probe_mask")
+    reps = 3 if qn >= 256 else 10       # a probe group's scan is short
+    kv, ki = pq_ops.pq_adc_topk(luts, codes, k, n_valid=nv, **kw)
+    pv, pi = pq_adc_topk_ref(luts, codes, k, n_valid=nv, **kw)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(ki, pi))
+    fin = torch.isfinite(pv)
+    same_inf = bool(torch.equal(fin, torch.isfinite(kv)))
+    err = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
+    starved = ""
+    if pm is not None:
+        check(bool((ki[0] == -1).all()), "starved query not padded")
+        starved = " starved_pad_ok=True"
+    del kv, ki, pv, pi
+    ms = time_ms(torch, lambda: pq_ops.pq_adc_topk(luts, codes, k,
+                                                   n_valid=nv, **kw), reps)
+    # the wrapper's kernels alone (it passes the mask as uint8)
+    split_kw = dict(kw, probe_mask=None if pm is None
+                    else pm.view(torch.uint8))
+    scores = pq_ops.pq_scores(luts, codes, nv, **split_kw)
+    sv, si = pq_ops.pq_select(scores, nv, k)
+    score_ms = time_ms(torch, lambda: pq_ops.pq_scores(luts, codes, nv,
+                                                       **split_kw), reps)
+    select_ms = time_ms(torch, lambda: pq_ops.pq_select(scores, nv, k),
+                        reps)
+    sort_ms = time_ms(torch, lambda: sort_survivors(sv, si, k), reps)
+    del scores, sv, si
+    policy = pq_ops.query_slots
+    slots = policy(qn, m, ksub)
+    slot_ms = {}
+    try:
+        for s in (4, 1):              # each form, the policy swapped out
+            if s * 4 * m * ksub <= pq_ops.SMEM_MAX:
+                pq_ops.query_slots = lambda *_, s=s: s
+                slot_ms[s] = time_ms(torch, lambda: pq_ops.pq_scores(
+                    luts, codes, nv, **split_kw), reps)
+    finally:
+        pq_ops.query_slots = policy
+    plain_ms = time_ms(torch, lambda: pq_adc_topk_ref(luts, codes, k,
+                                                      n_valid=nv, **kw))
+    table = luts.reshape(qn, m * ksub).T.contiguous()          # [M*K, Q]
+    flat_codes = codes[:nv].long() + torch.arange(
+        m, device=codes.device) * ksub
+
+    def library():
+        # one embedding_bag gathers and sums every row's M entries
+        s = torch.nn.functional.embedding_bag(flat_codes, table,
+                                              mode="sum").T
+        if kw:
+            rbl = kw["row_bucket"][:nv].long()
+            s = s + kw["bias"][None, :nv] + kw["cscores"][:, rbl]
+            if pm is not None:
+                s = s.masked_fill(~pm[:, rbl], -torch.inf)
+        return torch.topk(s, k)
+
+    lib_ms = time_ms(torch, library, reps)
+    del table, flat_codes
+    n_bytes = 4 * qn * m * ksub + nv * m + 8 * qn * k
+    n_ops = float(qn) * nv * m
+    if kw:
+        # bias and bucket a row; each query's bucket terms (and mask bytes)
+        n_bytes += 8 * nv + qn * kw["cscores"].shape[1] * (
+            4 if pm is None else 5)
+        n_ops += 2.0 * qn * nv
+    b_ms, b_by = bound(n_bytes, n_ops)
+    smem_ms = 4.0 * qn * nv * m / SMEM_BYTES_PER_S * 1e3
+    log(f"[kernels] {name} Q={qn} N={nv} M={m} K={ksub} k'={k}: "
+        f"ids_equal={same} max_abs_err={err}{starved} ms={ms:.3f} "
+        f"(score {score_ms:.3f} + select {select_ms:.3f} + sort "
+        f"{sort_ms:.3f}; segments "
+        f"{pq_ops.select_segments(qn, nv, k)}; scoring at "
+        + ", ".join(f"{s}{'*' if s == slots else ''} slots {t:.3f}"
+                    for s, t in slot_ms.items())
+        + f") plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+        f"bound_ms={b_ms:.4f} ({b_by}; shared-memory floor of the gathers "
+        f"{smem_ms:.4f})")
+    check(same and same_inf, f"{name} ids differ at Q={qn} N={nv} k'={k}")
+    check(err <= 1e-4, f"{name} max|delta| {err} at Q={qn} N={nv} k'={k}")
+    return dict(ms=ms, score_ms=score_ms, select_ms=select_ms,
+                sort_ms=sort_ms, slot_score_ms=slot_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                smem_floor_ms=smem_ms, max_abs_err=err)
+
+
 def phase_kernels(torch, pq_rows: int):
     import numpy as np
-    from repro_torch.kernels.pq_scan.ops import pq_adc_topk
-    from repro_torch.kernels.pq_scan.ref import pq_adc_topk_ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -285,74 +388,47 @@ def phase_kernels(torch, pq_rows: int):
         torch.cuda.empty_cache()
     out["ivf_scan"] = dict(main, max_abs_err=worst, cases=split)
 
-    # -- pq_scan / pq_scan_ext: float LUTs, sums in the plain order
-    qn, m, ksub, mb = 256, 16, 256, 10
+    # -- pq_scan / pq_scan_ext: float LUTs, sums in the plain order.  The
+    # whole table at Q = 256 (the fused scan; pq_scan's k' = 80 and 800),
+    # then the adc path's probe groups: a few queries over the 8 of 10
+    # buckets they probe (~800,000 rows), a query alone, and a larger group
+    m, ksub, mb = 16, 256, 10
     n = pq_rows
     gen = torch.Generator(device=dev).manual_seed(1)
-    luts = torch.randn(qn, m, ksub, device=dev, generator=gen)
     codes = torch.randint(0, ksub, (n, m), device=dev, generator=gen,
                           dtype=torch.uint8)
     rb = torch.sort(torch.randint(0, mb, (n,), device=dev, generator=gen,
                                   dtype=torch.int32)).values
     bias = torch.randn(n, device=dev, generator=gen)
-    cs = torch.randn(qn, mb, device=dev, generator=gen)
-    pm = torch.rand(qn, mb, device=dev, generator=gen) < 0.4
-    pm[0] = False                     # a query that probes nothing
-    pm[1] = False
-    pm[1, 3] = True                   # a query that probes one bucket
-    ext_kw = dict(bias=bias, row_bucket=rb, cscores=cs, probe_mask=pm)
-    table = luts.reshape(qn, m * ksub).T.contiguous()     # [M*K, Q]
-    flat_codes = codes.long() + torch.arange(m, device=dev) * ksub
-    for name, kw in (("pq_scan", {}), ("pq_scan_ext", ext_kw)):
-        worst = 0.0
-        for k in (80, 800):
-            nv = n - 5 if not kw else n
-            kv, ki = pq_adc_topk(luts, codes, k, n_valid=nv, **kw)
-            pv, pi = pq_adc_topk_ref(luts, codes, k, n_valid=nv, **kw)
-            torch.cuda.synchronize()
-            same = bool(torch.equal(ki, pi))
-            fin = torch.isfinite(pv)
-            same_inf = bool(torch.equal(fin, torch.isfinite(kv)))
-            err = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
-            worst = max(worst, err)
-            ms = time_ms(torch, lambda: pq_adc_topk(luts, codes, k,
-                                                    n_valid=nv, **kw))
-            plain_ms = time_ms(torch, lambda: pq_adc_topk_ref(
-                luts, codes, k, n_valid=nv, **kw))
-
-            def library():
-                # one embedding_bag gathers and sums every row's M entries
-                s = torch.nn.functional.embedding_bag(
-                    flat_codes, table, mode="sum").T
-                if kw:
-                    s = s + bias[None, :] + cs[:, rb.long()]
-                    s = s.masked_fill(~pm[:, rb.long()], -torch.inf)
-                return torch.topk(s[:, :nv], k)
-
-            lib_ms = time_ms(torch, library)
-            n_bytes = 4 * qn * m * ksub + n * m + 8 * qn * k
-            n_ops = float(qn) * n * m
-            if kw:
-                n_bytes += 8 * n + 5 * qn * mb
-                n_ops += 2.0 * qn * n
-            b_ms, b_by = bound(n_bytes, n_ops)
-            starved = ""
-            if kw:
-                check(bool((ki[0] == -1).all()), "starved query not padded")
-                starved = f" starved_pad_ok=True"
-            log(f"[kernels] {name} Q={qn} N={n} M={m} K={ksub} k'={k}: "
-                f"ids_equal={same} max_abs_err={err}{starved} ms={ms:.3f} "
-                f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-                f"bound_ms={b_ms:.4f} ({b_by})")
-            check(same and same_inf, f"{name} ids differ at k'={k}")
-            check(err <= 1e-4, f"{name} max|delta| {err} at k'={k}")
-            if k == 800:
-                main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=b_ms, bound_by=b_by,
-                            shape=f"Q={qn} N={n} M={m} K={ksub} k'={k}")
-            del kv, ki, pv, pi
-        out[name] = dict(main, max_abs_err=worst)
-    del luts, codes, rb, bias, cs, pm, table, flat_codes
+    shapes = [(256, n, k) for k in (80, 800)]
+    shapes += [(qg, n * 4 // 5, k) for qg, k in ((1, 80), (6, 80), (6, 800),
+                                                  (20, 800))]
+    for name, ext in (("pq_scan", False), ("pq_scan_ext", True)):
+        worst, cases = 0.0, {}
+        for qn, nv, k in shapes:
+            luts = torch.randn(qn, m, ksub, device=dev, generator=gen)
+            kw = {}
+            if ext:        # residual terms; the whole-table scan's mask
+                kw = dict(bias=bias, row_bucket=rb,
+                          cscores=torch.randn(qn, mb, device=dev,
+                                              generator=gen))
+                if qn == 256:
+                    pm = torch.rand(qn, mb, device=dev, generator=gen) < 0.4
+                    pm[0] = False              # a query that probes nothing
+                    pm[1] = False
+                    pm[1, 3] = True            # one that probes one bucket
+                    kw["probe_mask"] = pm
+            elif qn == 256:
+                nv = n - 5                     # ragged n_valid
+            r = pq_case(torch, name, luts, codes, k, nv, kw)
+            worst = max(worst, r["max_abs_err"])
+            label = f"Q={qn} N={nv} M={m} K={ksub} k'={k}"
+            cases[label] = r
+            if (qn, k) == (256, 800):
+                main = dict(r, shape=label)
+            del luts, kw
+        out[name] = dict(main, max_abs_err=worst, cases=cases)
+    del codes, rb, bias
     torch.cuda.empty_cache()
     out["topk_merge"] = kernel_topk_merge(torch, dev)
     out["flash_attention"] = kernel_flash_attention(torch, dev)
@@ -380,11 +456,12 @@ def merge_windows(torch, dev, p: int, qn: int, kk: int, gen):
 
 
 def kernel_topk_merge(torch, dev):
+    from repro_torch.kernels.topk_merge import ops as merge_ops
     from repro_torch.kernels.topk_merge.ops import merge_topk_dev
     from repro_torch.kernels.topk_merge.ref import merge_topk_ref
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    worst, main = 0.0, None
+    worst, main, cases = 0.0, None, {}
     for p in (2, 4, 8):
         for qn in (1, 256, 4096):
             for kk in (10, 100, 10_002):
@@ -419,21 +496,39 @@ def kernel_topk_merge(torch, dev):
                 # the k chosen columns only
                 b_ms, b_by = bound(4.0 * qn * c + 8.0 * qn * k
                                    + 12.0 * qn * k, 0.0)
+                r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                split = ""
+                if c > merge_ops.SMALL_COLS:     # the selection's steps
+                    sel_v, sel_c = merge_ops.merge_select(vals, k, nv)
+                    sv, pos = torch.sort(sel_v, dim=1, descending=True,
+                                         stable=True)
+                    out_i = torch.empty_like(kv, dtype=ids.dtype)
+                    r["select_ms"] = time_ms(
+                        torch, lambda: merge_ops.merge_select(vals, k, nv))
+                    r["sort_ms"] = time_ms(torch, lambda: torch.sort(
+                        sel_v, dim=1, descending=True, stable=True))
+                    r["epilogue_ms"] = time_ms(
+                        torch, lambda: merge_ops.merge_epilogue(
+                            sv, pos, sel_c, ids, out_i))
+                    split = (f" (select {r['select_ms']:.3f} + sort "
+                             f"{r['sort_ms']:.3f} + epilogue "
+                             f"{r['epilogue_ms']:.3f})")
+                    del sel_v, sel_c, sv, pos, out_i
+                cases[f"P={p} Q={qn} K={kk}"] = r
                 log(f"[kernels] topk_merge P={p} Q={qn} K={kk} k={k} "
                     f"n_valid={nv}: ids_equal={same} max_abs_err={err} "
-                    f"ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                    f"ms={ms:.3f}{split} plain_ms={plain_ms:.3f} "
                     f"library_ms={lib_ms:.3f} bound_ms={b_ms:.4f} ({b_by})")
                 check(same and same_inf,
                       f"topk_merge ids differ at P={p} Q={qn} K={kk}")
                 check(err == 0.0, f"topk_merge max|delta| {err} at P={p} "
                       f"Q={qn} K={kk}")
                 if (p, qn, kk) == (4, 256, 10):    # the cluster kNN's merge
-                    main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                shape=f"P={p} Q={qn} K={kk} k={k}")
+                    main = dict(r, shape=f"P={p} Q={qn} K={kk} k={k}")
                 del vals, ids, kv, ki, pv, pi
         torch.cuda.empty_cache()
-    return dict(main, max_abs_err=worst)
+    return dict(main, max_abs_err=worst, cases=cases)
 
 
 # the attention kernels' tolerances.  bf16: the kernel and the plain version
@@ -1044,6 +1139,18 @@ def phase_pq(torch, n_rows: int, shared: dict, prof=None):
                 check(bool(np.isfinite(v).all()), f"{label} non-finite")
                 check(recall >= 0.90, f"{label} recall@{k} {recall}")
                 out[f"{label}_k{k}"] = {"recall": recall, "ms": ms}
+        label = "residual" if residual else "plain"
+        calls = check_pq_calls(torch, idx, queries, 100)
+        bad = [c for c in calls if not c["ok"]]
+        qs = [c["Q"] for c in calls]
+        ns = [c["N"] for c in calls]
+        log(f"[pq] {label} adc + fused at k=100: {len(calls)} pq_adc_topk "
+            f"calls (Q {min(qs)}-{max(qs)}, N {min(ns)}-{max(ns)}, k' "
+            f"{sorted({c['k'] for c in calls})}) against plain: "
+            f"{len(calls) - len(bad)} equal, max_abs_err "
+            f"{max(c['err'] for c in calls)}")
+        check(not bad, f"pq {label} scans differ from plain: {bad[:3]}")
+        out[f"{label}_calls_checked"] = len(calls)
         if prof is not None and not residual:
             for mode in ("float", "adc", "fused"):
                 for k in (10, 100):
@@ -1054,6 +1161,37 @@ def phase_pq(torch, n_rows: int, shared: dict, prof=None):
         del idx
         torch.cuda.empty_cache()
     return out
+
+
+def check_pq_calls(torch, idx, queries, k: int) -> list:
+    """One adc and one fused ``search_many`` at k with every
+    ``pq_adc_topk`` call of the index (one a probe group in adc) held
+    against the plain version on the same inputs: ids and padding equal,
+    max |delta| <= 1e-4.  Returns each call's shape and result."""
+    from repro_torch.core import vector_index
+    from repro_torch.kernels.pq_scan.ref import pq_adc_topk_ref
+
+    kernel = vector_index.pq_adc_topk
+    calls = []
+
+    def checked(luts, codes, kp, **kw):
+        v, i = kernel(luts, codes, kp, **kw)
+        pv, pi = pq_adc_topk_ref(luts, codes, kp, **kw)
+        fin = torch.isfinite(pv)
+        err = float((v[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
+        ok = (torch.equal(i, pi) and torch.equal(fin, torch.isfinite(v))
+              and err <= 1e-4)
+        calls.append(dict(Q=luts.shape[0], N=codes.shape[0], k=kp,
+                          ok=bool(ok), err=err))
+        return v, i
+
+    vector_index.pq_adc_topk = checked
+    try:
+        for mode in ("adc", "fused"):
+            idx.search_many(queries, k, mode=mode)
+    finally:
+        vector_index.pq_adc_topk = kernel
+    return calls
 
 
 # ---------------------------------------------------------------------------

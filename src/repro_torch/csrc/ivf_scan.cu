@@ -20,22 +20,17 @@
 // double-buffered with cp.async.  The l2 norms come from ivf_norms, one
 // warp a row.  The scores go to a [Q, N] scratch matrix.
 //
-// ivf_select then finds, per query, the k-th largest score by a radix
-// select over an order-preserving uint32 key: three digit passes of 11, 11
-// and 10 bits, each a histogram (four in shared memory, one per four warps,
-// summed after) of the rows that still match the digits chosen so far,
-// stopping early once a digit's bin holds exactly the rows still needed.  It then
-// compacts, in row order, every row above that threshold and the first rows
-// equal to it: k survivors, which a stable sort by value (the wrapper's,
-// over [Q, k] only) puts in lax.top_k order.  The Pallas kernel's per-tile
-// top-L has no counterpart: the selection costs the same for every k, where
-// a tile sort grows with it, and measured faster at every k on the card.
+// The selection is radix_select.cuh's, over the scratch rows: a radix
+// select of each query's k-th largest score, then, in row order, the rows
+// above it and the first rows equal to it: k survivors, which a stable sort
+// by value (the wrapper's, over [Q, k] only) puts in lax.top_k order.  The
+// Pallas kernel's per-tile top-L has no counterpart: the selection costs
+// the same for every k, where a tile sort grows with it, and measured
+// faster at every k on the card.
 #include "hopper.cuh"
+#include "radix_select.cuh"
 
 namespace {
-
-// masked score: below every real score
-constexpr float NEG = -3.0e38f;
 
 constexpr int MAX_GRID_Y = 65535;
 
@@ -165,161 +160,6 @@ ivf_score(const float* __restrict__ q, const float* __restrict__ c,
   }
 }
 
-constexpr int SEL_THREADS = 512;
-constexpr int SEL_WARPS = SEL_THREADS / 32;
-constexpr int PER = 8;                 // scores a thread takes a step
-constexpr int STEP = PER * SEL_THREADS;
-constexpr int BINS = 2048;             // 11-bit digits: 11 + 11 + 10 bits
-constexpr int SUBS = 4;                // histograms, one per 4 warps
-static_assert(BINS == 4 * SEL_THREADS && SUBS == 4, "four bins a thread");
-
-// uint32 key in the order of the float's value; -0 and +0 get one key
-__device__ __forceinline__ uint32_t order_key(float f) {
-  uint32_t u = __float_as_uint(f);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// The PER scores at i0 .. (i0 % 4 == 0, rows 16-byte aligned); those at
-// or past n as NEG.
-__device__ __forceinline__ void load_scores(const float* row, int i0, int n,
-                                            float (&x)[PER]) {
-#pragma unroll
-  for (int h = 0; h < PER; h += 4) {
-    const int j = i0 + h;
-    if (j + 3 < n) {
-      const float4 v = *reinterpret_cast<const float4*>(row + j);
-      x[h] = v.x; x[h + 1] = v.y; x[h + 2] = v.z; x[h + 3] = v.w;
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) x[h + u] = j + u < n ? row[j + u] : NEG;
-    }
-  }
-}
-
-// Exclusive prefix sum of one int a thread over the block, with the total.
-__device__ __forceinline__ int block_scan(int x, int* warp_tot, int* total) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  int incl = x;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) warp_tot[warp] = incl;
-  __syncthreads();
-  int before = 0, all = 0;
-#pragma unroll
-  for (int w = 0; w < SEL_WARPS; ++w) {
-    const int t = warp_tot[w];
-    before += w < warp ? t : 0;
-    all += t;
-  }
-  __syncthreads();                             // warp_tot is reused
-  *total = all;
-  return before + incl - x;
-}
-
-// One block per query: the k rows of its top-k among the first n_valid
-// scores, in row order, to out_v / out_i [k].
-__global__ void __launch_bounds__(SEL_THREADS)
-ivf_select(const float* __restrict__ scores, size_t ld, int n_valid, int k,
-           float* __restrict__ out_v, int* __restrict__ out_i) {
-  __shared__ unsigned hist[SUBS][BINS];
-  __shared__ int warp_tot[SEL_WARPS];
-  __shared__ uint32_t s_digit;
-  __shared__ int s_need, s_exact;
-  const float* row = scores + (size_t)blockIdx.x * ld;
-  unsigned* my_hist = hist[threadIdx.x / 32 / (SEL_WARPS / SUBS)];
-
-  // the rows whose key, under mask, equals prefix hold the k-th largest;
-  // `need` of them belong to the top-k, every row above them does too
-  uint32_t prefix = 0u, mask = 0u;
-  int need = k;
-  for (int pass = 0; pass < 3; ++pass) {
-    const int shift = pass == 0 ? 21 : pass == 1 ? 10 : 0;
-    const uint32_t digits = pass == 2 ? 0x3FFu : 0x7FFu;
-    for (int e = threadIdx.x; e < SUBS * BINS; e += SEL_THREADS)
-      (&hist[0][0])[e] = 0u;
-    __syncthreads();
-    for (int base = 0; base < n_valid; base += STEP) {
-      const int i0 = base + PER * threadIdx.x;
-      float x[PER];
-      load_scores(row, i0, n_valid, x);
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const uint32_t key = order_key(x[u]);
-        if (i0 + u < n_valid && (key & mask) == prefix)
-          atomicAdd(&my_hist[(key >> shift) & digits], 1u);
-      }
-    }
-    __syncthreads();
-    // thread t holds digits BINS - 1 - 4t .. BINS - 4 - 4t, largest first
-    unsigned cnt[4], sum = 0u;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = BINS - 1 - 4 * threadIdx.x - j;
-      cnt[j] = hist[0][d] + hist[1][d] + hist[2][d] + hist[3][d];
-      sum += cnt[j];
-    }
-    int tot;
-    unsigned run = (unsigned)block_scan((int)sum, warp_tot, &tot);
-    const unsigned want = (unsigned)need;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (run < want && want <= run + cnt[j]) {
-        s_digit = BINS - 1 - 4 * threadIdx.x - j;
-        s_need = (int)(want - run);
-        s_exact = cnt[j] == want - run;
-      }
-      run += cnt[j];
-    }
-    __syncthreads();
-    prefix |= s_digit << shift;
-    mask |= digits << shift;
-    need = s_need;
-    if (s_exact) break;                        // the bin is all taken
-  }
-
-  // compaction in row order: above the threshold, and the first `need`
-  // rows at it (lax.top_k's tie rule)
-  float* ov = out_v + (size_t)blockIdx.x * k;
-  int* oi = out_i + (size_t)blockIdx.x * k;
-  int taken = 0, eq_seen = 0;
-  for (int base = 0; base < n_valid && taken < k; base += STEP) {
-    const int i0 = base + PER * threadIdx.x;
-    float x[PER];
-    load_scores(row, i0, n_valid, x);
-    bool gt[PER], eq[PER];
-    int n_gt = 0, n_eq = 0;
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const uint32_t km = order_key(x[u]) & mask;
-      const bool in = i0 + u < n_valid;
-      gt[u] = in && km > prefix;
-      eq[u] = in && km == prefix;
-      n_gt += gt[u];
-      n_eq += eq[u];
-    }
-    int tot;                                   // counts < 2^16 a step
-    const int before = block_scan((n_eq << 16) | n_gt, warp_tot, &tot);
-    int eq_rank = eq_seen + (before >> 16);    // rows at the threshold before
-    int pos = taken + (before & 0xFFFF) +
-              min(max(need - eq_seen, 0), before >> 16);
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      if (gt[u] || (eq[u] && eq_rank < need)) {
-        ov[pos] = x[u];
-        oi[pos] = i0 + u;
-        ++pos;
-      }
-      eq_rank += eq[u];
-    }
-    taken += (tot & 0xFFFF) + min(max(need - eq_seen, 0), tot >> 16);
-    eq_seen += tot >> 16;
-  }
-}
-
 }  // namespace
 
 // q [n_q, d] f32, c [n_rows, d] f32 -> scores [n_q, ld] f32 (columns
@@ -351,7 +191,9 @@ extern "C" int ivf_scan_select(const float* scores, long long ld, int n_q,
   if (n_q <= 0) return 0;
   if (k < 1 || k > n_valid || n_valid > ld || ld % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  ivf_select<<<n_q, SEL_THREADS, 0, (cudaStream_t)stream>>>(
-      scores, (size_t)ld, n_valid, k, out_v, out_i);
+  pandadb::radix_select<<<n_q, pandadb::SEL_THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      pandadb::ScratchRows{scores, (size_t)ld, n_valid, 1, n_valid}, k, out_v,
+      out_i);
   return (int)cudaGetLastError();
 }

@@ -2,211 +2,227 @@
 //
 // Replaces the Pallas kernel merge_topk_pallas (body _merge_kernel) of
 // src/repro/kernels/topk_merge/topk_merge.py.  Input: P shard windows
-// vals [P, Q, K] f32, each row already sorted by its shard.  Candidate column
-// c = p * K + j of query q is vals[p, q, j]; the windows are read in place, so
-// the reference's transpose-and-reshape copy to [Q, P * K] never happens.
+// vals [P, Q, K] f32 and their id payloads ids [P, Q, K] (int64 or int32).
+// Candidate column c = p * K + j of query q is vals[p, q, j]; the windows
+// are read in place, so the reference's transpose-and-reshape copy to
+// [Q, P * K] never happens.  Nothing assumes a window is sorted.
 //
 // Each value is clamped up to CLAMP, so a (-inf, -1) padding column (a shard
 // with fewer than K real rows, or a dropped shard) becomes a CLAMP tie that is
 // taken exactly once, lower column first, as lax.top_k orders the raw -inf.
-// Columns >= n_valid are pinned to NEG, strictly below CLAMP, and the caller
-// keeps k <= n_valid, so they are never chosen.  Output: the top k (value,
-// column) pairs per query in lax.top_k order (value desc, column asc).  The
-// wrapper gathers the int64 id payloads by column and restores -inf where
-// value <= CLAMP.
+// Columns >= n_valid are never chosen (the caller keeps k <= n_valid).
+// Output: the top k values per query in lax.top_k order (value desc,
+// column asc), -inf restored where the value is <= CLAMP, and the ids of
+// their columns, copied as raw bits from the windows.
 //
-// Two steps, both on the card:
-// 1. merge_tile_topk: per tile of SEG columns, a bitonic sort in shared
-//    memory (the scan kernels' tile_topk.cuh) keeps the tile's first
-//    L = min(k, SEG) pairs as a sorted run.  SEG is the smallest power of two
-//    >= C up to 256, so a short window (C = P * k of a few dozen) sorts a
-//    short run; when C <= SEG the one run is the answer.
-// 2. merge_run_pairs, while more than one run is left: runs 2r and 2r + 1
-//    merge into one run of min(2L, k) pairs.  Each pair finds its rank in the
-//    merged run by a binary search in the other run (ties to the earlier run,
-//    which holds the lower columns), so every thread writes one output slot
-//    and no thread waits on another.  ceil(log2(tiles)) passes.
+// Two paths, by the window width C = P * K:
+// - C <= SMALL_COLS: merge_small, one launch (the cluster kNN's merges:
+//   P = 4 shards of k = 10 or 100).  A block stages the clamped columns of ELEMS / SEG
+//   queries as (value, column) pairs in shared memory, SEG the smallest
+//   power of two >= C, pins the pairs past n_valid to NEG, sorts each
+//   query's run by a bitonic sort (value desc, column asc) and writes the
+//   first k values and their ids.
+// - C > SMALL_COLS (large k): radix_select.cuh's selection over the clamped
+//   columns (MergeWindows reads them in place), one block per query, leaves
+//   the k survivors in column order; the wrapper's stable sort over [Q, k]
+//   orders them, and merge_epilogue restores -inf and gathers the ids.
 //
 // Bound: the merge does no arithmetic, so it is bound by bytes: Q * C values
-// read (ids are read only for the k chosen columns, by the wrapper).
-#include <algorithm>
-
-#include "tile_topk.cuh"
+// read, ids read and (value, id) written for the k chosen columns only.
+#include "radix_select.cuh"
 
 namespace {
 
 using pandadb::NEG;
+using pandadb::PER;
 
 constexpr float CLAMP = -1.0e38f;  // input floor: above NEG, below any score
 constexpr int THREADS = 256;
 constexpr int ELEMS = 2048;        // (value, column) pairs staged per block
-constexpr int MAX_SEG = 256;       // widest tile
-constexpr int MAX_GRID_Y = 65535;
-constexpr int PAD_COL = 0x7fffffff;  // column of the pairs that fill a lone run
+constexpr int SMALL_COLS = 512;    // widest window of the one-launch path
 
+// True when (va, ia) goes before (vb, ib): larger value, then lower column.
+__device__ __forceinline__ bool goes_first(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+// Sorts n_seg runs of seg_len (a power of two) pairs, laid out one after the
+// other in v/r, each into goes_first order.  Every thread of the block must
+// call it, after a __syncthreads() that publishes v/r; it ends synchronised.
+__device__ void sort_runs(float* v, int* r, int n_seg, int seg_len) {
+  const int half = seg_len >> 1;
+  const int pairs = n_seg * half;
+  for (int size = 2; size <= seg_len; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
+        const int seg = p / half;
+        const int j = p - seg * half;
+        const int lo = 2 * stride * (j / stride) + (j % stride);
+        const int a = seg * seg_len + lo;
+        const int b = a + stride;
+        const float va = v[a], vb = v[b];
+        const int ia = r[a], ib = r[b];
+        // runs whose `size` bit is clear end first-to-last; the others
+        // last-to-first, so each pair of runs merges as a bitonic sequence
+        const bool swap = ((lo & size) == 0) ? goes_first(vb, ib, va, ia)
+                                             : goes_first(va, ia, vb, ib);
+        if (swap) {
+          v[a] = vb; v[b] = va;
+          r[a] = ib; r[b] = ia;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// out_v[o] = v with -inf restored; out_ids[o] = the id of column col of
+// query q, copied as id_bytes (4 or 8) raw bytes
+__device__ __forceinline__ void emit(float v, int col, size_t q, size_t o,
+                                     const void* ids, void* out_ids, int n_q,
+                                     int kk, int id_bytes, float* out_v) {
+  out_v[o] = v <= CLAMP ? __int_as_float(0xff800000) : v;   // -inf
+  const int p = col / kk;
+  const size_t src = ((size_t)p * n_q + q) * kk + (col - p * kk);
+  if (id_bytes == 8)
+    static_cast<unsigned long long*>(out_ids)[o] =
+        static_cast<const unsigned long long*>(ids)[src];
+  else
+    static_cast<unsigned*>(out_ids)[o] =
+        static_cast<const unsigned*>(ids)[src];
+}
+
+// Block b: queries b * (ELEMS / seg) .., each a run of seg >= C pairs.
 __global__ void __launch_bounds__(THREADS)
-merge_tile_topk(const float* __restrict__ vals, float* __restrict__ cand_v,
-                int* __restrict__ cand_i, int n_q, int n_q_all, int q_base,
-                int kk, int n_valid, int seg, int topl) {
+merge_small(const float* __restrict__ vals, const void* __restrict__ ids,
+            float* __restrict__ out_v, void* __restrict__ out_ids, int n_q,
+            int kk, int n_valid, int k, int seg, int id_bytes) {
   __shared__ float sv[ELEMS];
   __shared__ int si[ELEMS];
-
   const int qb = ELEMS / seg;
-  const int tile = blockIdx.x;
-  const int q0 = blockIdx.y * qb;
+  const int q0 = blockIdx.x * qb;
   const int n_seg = min(qb, n_q - q0);
-  const int col0 = tile * seg;
-
   for (int e = threadIdx.x; e < n_seg * seg; e += THREADS) {
     const int s = e / seg;
-    const int col = col0 + (e - s * seg);
+    const int col = e - s * seg;
     float v = NEG;
     if (col < n_valid) {
       const int p = col / kk;
-      const int j = col - p * kk;
-      const size_t q = (size_t)q_base + q0 + s;
-      v = fmaxf(vals[((size_t)p * n_q_all + q) * kk + j], CLAMP);
+      const size_t q = (size_t)q0 + s;
+      v = fmaxf(vals[((size_t)p * n_q + q) * kk + (col - p * kk)], CLAMP);
     }
     sv[e] = v;
     si[e] = col;
   }
   __syncthreads();
-  pandadb::sort_runs(sv, si, n_seg, seg);
-  pandadb::write_candidates(sv, si, n_seg, seg, topl, q0, tile, gridDim.x,
-                            cand_v, cand_i);
+  sort_runs(sv, si, n_seg, seg);
+  for (int e = threadIdx.x; e < n_seg * k; e += THREADS) {
+    const int s = e / k;
+    const int l = e - s * k;
+    const size_t q = (size_t)q0 + s;
+    emit(sv[s * seg + l], si[s * seg + l], q, q * k + l, ids, out_ids, n_q,
+         kk, id_bytes, out_v);
+  }
 }
 
-// in: n_in sorted runs of len_in pairs per query (rows of n_in * len_in);
-// out: ceil(n_in / 2) sorted runs of len_out = min(2 * len_in, k) pairs.  A
-// run without a partner is copied and its slot filled with (NEG, PAD_COL).
-// Grid: x over a row's ceil(n_in / 2) * 2 * len_in inputs, y over queries.
+// The selection's view of query q's C columns: column c = p * K + j is
+// window p's value j, clamped up to CLAMP.
+struct MergeWindows {
+  const float* vals;
+  int n_q, kk, n_valid;
+
+  struct Row {
+    const float* v;      // window 0 of the query
+    size_t stride;       // from one window to the next
+    int kk, n, col0;
+    __device__ __forceinline__ void load(int i0, int n, float (&x)[PER]) const {
+      int p = i0 / kk;
+      int j = i0 - p * kk;
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        x[u] = i0 + u < n ? fmaxf(v[p * stride + j], CLAMP) : NEG;
+        if (++j == kk) {
+          j = 0;
+          ++p;
+        }
+      }
+    }
+  };
+
+  __device__ __forceinline__ Row row(int q) const {
+    return Row{vals + (size_t)q * kk, (size_t)n_q * kk, kk, n_valid, 0};
+  }
+};
+
+// v / pos [n_q, k]: the survivors' values sorted (stable, descending) and
+// the sort's permutation; cols [n_q, k] the survivors' columns.  Restores
+// -inf in v in place and writes the ids.
 __global__ void __launch_bounds__(THREADS)
-merge_run_pairs(const float* __restrict__ in_v, const int* __restrict__ in_i,
-                float* __restrict__ out_v, int* __restrict__ out_i, int q_base,
-                int n_in, int len_in, int len_out) {
-  const int n_out = (n_in + 1) / 2;
-  const int e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= n_out * 2 * len_in) return;
-  const size_t q = (size_t)q_base + blockIdx.y;
-  const int pair = e / (2 * len_in);
-  const int f = e - pair * 2 * len_in;
-  const int side = f / len_in;              // 0: run 2 * pair, 1: its partner
-  const int i = f - side * len_in;
-  const int run = 2 * pair + side;
-  const size_t row_in = q * n_in * len_in;
-  const size_t slot = (q * n_out + pair) * len_out;
-  if (run >= n_in) {                        // no partner: fill the slot's tail
-    if (len_in + i < len_out) {
-      out_v[slot + len_in + i] = NEG;
-      out_i[slot + len_in + i] = PAD_COL;
-    }
-    return;
-  }
-  if (i >= len_out) return;                 // its rank is at least i
-  const float v = in_v[row_in + (size_t)run * len_in + i];
-  const int c = in_i[row_in + (size_t)run * len_in + i];
-  int rank = i;
-  const int other = run ^ 1;
-  if (other < n_in) {
-    const float* bv = in_v + row_in + (size_t)other * len_in;
-    const int* bi = in_i + row_in + (size_t)other * len_in;
-    // pairs of the other run that go before (v, c); the earlier run wins
-    // ties, so the merged run is stable.  The column is read only on a tie.
-    int lo = 0, hi = len_in;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      const float w = bv[mid];
-      const bool before =
-          w > v || (w == v && (side == 0 ? bi[mid] < c : bi[mid] <= c));
-      if (before) lo = mid + 1; else hi = mid;
-    }
-    rank += lo;
-  }
-  if (rank < len_out) {
-    out_v[slot + rank] = v;
-    out_i[slot + rank] = c;
-  }
+merge_epilogue(float* __restrict__ v, const long long* __restrict__ pos,
+               const int* __restrict__ cols, const void* __restrict__ ids,
+               void* __restrict__ out_ids, int n_q, int kk, int k,
+               int id_bytes) {
+  const size_t e = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (e >= (size_t)n_q * k) return;
+  const size_t q = e / k;
+  emit(v[e], cols[q * k + pos[e]], q, e, ids, out_ids, n_q, kk, id_bytes, v);
 }
 
-int tile_cols(int n_cols) {
-  int seg = 32;
-  while (seg < n_cols && seg < MAX_SEG) seg <<= 1;
-  return seg;
+bool bad_args(int n_p, int kk, int n_valid, int k, int id_bytes) {
+  return k < 1 || k > n_valid || n_valid > n_p * kk ||
+         (id_bytes != 4 && id_bytes != 8);
 }
 
 }  // namespace
 
-// Pairs per query row that each of the two work buffers of topk_merge must
-// hold: the widest row of runs any step writes there, 0 for one tile.
-extern "C" int topk_merge_work_cols(int n_cols, int k) {
-  const int seg = tile_cols(n_cols);
-  int n_runs = (n_cols + seg - 1) / seg;
-  int len = std::min(k, seg);
-  long long widest = 0;
-  while (n_runs > 1) {
-    widest = std::max(widest, (long long)n_runs * len);
-    n_runs = (n_runs + 1) / 2;
-    len = std::min(2 * len, k);
-  }
-  return (int)widest;
-}
-
-// vals [P, n_q, kk] f32 (contiguous) -> out_v f32 / out_c int32 columns
-// [n_q, k], k in [1, n_valid], n_valid in [1, P * kk].  work_v / work_c hold
-// 2 * n_q * topk_merge_work_cols(P * kk, k) pairs (none for one tile).
-// Returns cudaError_t.
-extern "C" int topk_merge(const float* vals, float* out_v, int* out_c,
-                          float* work_v, int* work_c, int n_p, int n_q, int kk,
-                          int n_valid, int k, void* stream) {
+// vals [P, n_q, kk] f32 and ids [P, n_q, kk] (id_bytes 4 or 8 a value),
+// both contiguous, P * kk <= SMALL_COLS -> out_v f32 / out_ids [n_q, k],
+// the top k of each query's first n_valid columns in lax.top_k order, -inf
+// restored.  1 <= k <= n_valid <= P * kk.  Returns cudaError_t.
+extern "C" int topk_merge_small(const float* vals, const void* ids,
+                                int id_bytes, float* out_v, void* out_ids,
+                                int n_p, int n_q, int kk, int n_valid, int k,
+                                void* stream) {
   if (n_q <= 0 || n_p <= 0 || kk <= 0) return 0;
   const int n_cols = n_p * kk;
-  if (k < 1 || k > n_valid || n_valid > n_cols)
+  if (bad_args(n_p, kk, n_valid, k, id_bytes) || n_cols > SMALL_COLS)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int seg = tile_cols(n_cols);
-  const int n_tiles = (n_cols + seg - 1) / seg;
-  const int topl = std::min(k, seg);
-  const size_t half = (size_t)n_q * topk_merge_work_cols(n_cols, k);
-  float* run_v = n_tiles == 1 ? out_v : work_v;
-  int* run_c = n_tiles == 1 ? out_c : work_c;
-
-  const size_t width = (size_t)n_tiles * topl;
+  int seg = 32;
+  while (seg < n_cols) seg <<= 1;
   const int qb = ELEMS / seg;
-  const int q_step = MAX_GRID_Y * qb;
-  for (int qa = 0; qa < n_q; qa += q_step) {
-    const int nq = std::min(q_step, n_q - qa);
-    dim3 grid(n_tiles, (nq + qb - 1) / qb);
-    merge_tile_topk<<<grid, THREADS, 0, st>>>(
-        vals, run_v + (size_t)qa * width, run_c + (size_t)qa * width, nq, n_q,
-        qa, kk, n_valid, seg, topl);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  merge_small<<<(n_q + qb - 1) / qb, THREADS, 0, (cudaStream_t)stream>>>(
+      vals, ids, out_v, out_ids, n_q, kk, n_valid, k, seg, id_bytes);
+  return (int)cudaGetLastError();
+}
 
-  int n_runs = n_tiles, len = topl, which = 0;
-  while (n_runs > 1) {
-    const int n_out = (n_runs + 1) / 2;
-    const int len_out = std::min(2 * len, k);
-    float* dst_v = work_v + (which ^ 1) * half;
-    int* dst_c = work_c + (which ^ 1) * half;
-    if (n_out == 1) {                       // the last step writes the answer
-      if (len_out != k) return (int)cudaErrorInvalidValue;
-      dst_v = out_v;
-      dst_c = out_c;
-    }
-    const int per_q = n_out * 2 * len;
-    for (int qa = 0; qa < n_q; qa += MAX_GRID_Y) {
-      dim3 grid((per_q + THREADS - 1) / THREADS,
-                std::min(MAX_GRID_Y, n_q - qa));
-      merge_run_pairs<<<grid, THREADS, 0, st>>>(
-          work_v + which * half, work_c + which * half, dst_v, dst_c, qa,
-          n_runs, len, len_out);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    n_runs = n_out;
-    len = len_out;
-    which ^= 1;
-  }
-  return 0;
+// vals [P, n_q, kk] f32 (contiguous) -> each query's top-k among its first
+// n_valid clamped columns, in column order: sel_v f32 / sel_c int32
+// [n_q, k].  1 <= k <= n_valid <= P * kk.  Returns cudaError_t.
+extern "C" int topk_merge_select(const float* vals, float* sel_v, int* sel_c,
+                                 int n_p, int n_q, int kk, int n_valid, int k,
+                                 void* stream) {
+  if (n_q <= 0 || n_p <= 0 || kk <= 0) return 0;
+  if (bad_args(n_p, kk, n_valid, k, 4)) return (int)cudaErrorInvalidValue;
+  pandadb::radix_select<<<n_q, pandadb::SEL_THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      MergeWindows{vals, n_q, kk, n_valid}, k, sel_v, sel_c);
+  return (int)cudaGetLastError();
+}
+
+// v / pos [n_q, k]: the selection's values after a stable descending sort
+// and the sort's int64 permutation; sel_c [n_q, k] the selection's columns;
+// ids [P, n_q, kk] (id_bytes 4 or 8 a value).  Restores -inf in v in place
+// and writes out_ids [n_q, k].  Returns cudaError_t.
+extern "C" int topk_merge_epilogue(float* v, const long long* pos,
+                                   const int* sel_c, const void* ids,
+                                   int id_bytes, void* out_ids, int n_q,
+                                   int kk, int k, void* stream) {
+  if (n_q <= 0 || k <= 0) return 0;
+  if (kk <= 0 || (id_bytes != 4 && id_bytes != 8))
+    return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)n_q * k;
+  merge_epilogue<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
+                   (cudaStream_t)stream>>>(v, pos, sel_c, ids, out_ids, n_q,
+                                           kk, k, id_bytes);
+  return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 version for tensors on the CPU.
 
 ``csrc/ivf_scan.cu`` scores every row (``ivf_score``, the [Q, N] scores in
-scratch memory) and keeps each query's k rows (``ivf_select``: a radix
+scratch memory) and keeps each query's k rows (``radix_select`` of
+``csrc/radix_select.cuh``, shared with the PQ scan and the merge: a radix
 select of the k-th largest score, then the rows above it and the first rows
 equal to it, in row order); a stable sort over those [Q, k] survivors puts
 them in ``lax.top_k`` order.  No sort or top-k runs over all N columns.
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.kernels.build import LaunchCounter, check_launch, load
 from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref, normalize_rows
-from repro_torch.kernels.topk import merge_tile_candidates
+from repro_torch.kernels.topk import sort_survivors
 
 METRICS = ("l2", "ip", "cosine")
 
@@ -100,7 +101,7 @@ def ivf_scores(q: torch.Tensor, corpus: torch.Tensor, l2: bool
 
 def ivf_select(scores: torch.Tensor, n_valid: int, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel ``ivf_select``: scores [Q, ld] -> each row's top-k among its
+    """Kernel ``radix_select``: scores [Q, ld] -> each row's top-k among its
     first ``n_valid`` columns, in column order: (vals [Q, k] f32, cols
     [Q, k] int32)."""
     qn, ld = scores.shape
@@ -125,7 +126,7 @@ def _launch(q: torch.Tensor, corpus: torch.Tensor, k: int, metric: str,
     parts = []
     for q0 in range(0, q.shape[0], step):
         scores = ivf_scores(q[q0:q0 + step], corpus, l2)
-        parts.append(merge_tile_candidates(*ivf_select(scores, n_valid, k),
+        parts.append(sort_survivors(*ivf_select(scores, n_valid, k),
                                            k))
         del scores
     if len(parts) == 1:

@@ -9,7 +9,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.topk import stable_topk
+from repro_torch.kernels.topk import radix_select_ref, stable_topk
 
 
 def normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -45,62 +45,7 @@ def ivf_scan_topk_ref(q: torch.Tensor, corpus: torch.Tensor, k: int,
     return vals, idx.to(torch.int32)
 
 
-# -- the kernel route's selection, step by step -------------------------------
-
-
-def order_keys(scores: torch.Tensor) -> torch.Tensor:
-    """float32 scores -> int64 keys in [0, 2**32) in the scores' order, as
-    ``ivf_select`` forms them (-0 and +0 get one key)."""
-    u = scores.float().contiguous().view(torch.int32).to(torch.int64) \
-        & 0xFFFFFFFF
-    u = torch.where(u == 0x80000000, torch.zeros_like(u), u)
-    return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
-
-
-def radix_select_ref(scores: torch.Tensor, n_valid: int, k: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What ``ivf_select`` computes, in plain torch: per row of scores
-    [Q, >= n_valid], its top-``k`` among the first ``n_valid`` columns, in
-    column order: (vals [Q, k] f32, cols [Q, k] int32).
-
-    Three digit passes over the order keys (11, 11 and 10 bits, most
-    significant first) find the digits of the k-th largest key: a pass
-    histograms the keys that match the digits chosen so far and picks the
-    digit whose bin holds the k-th; a row stops once that bin holds exactly
-    the keys still needed.  Then every key above the threshold is kept, and
-    of the keys equal to it the first in column order (``lax.top_k``'s tie
-    rule)."""
-    key = order_keys(scores[:, :n_valid])
-    qn = key.shape[0]
-    dev = key.device
-    prefix = torch.zeros(qn, dtype=torch.int64, device=dev)
-    mask = torch.zeros(qn, dtype=torch.int64, device=dev)
-    need = torch.full((qn,), k, dtype=torch.int64, device=dev)
-    done = torch.zeros(qn, dtype=torch.bool, device=dev)
-    for shift, bits in ((21, 11), (10, 11), (0, 10)):
-        top = (1 << bits) - 1
-        match = (key & mask[:, None]) == prefix[:, None]
-        digit = (key >> shift) & top
-        hist = torch.zeros(qn, top + 1, dtype=torch.int64,
-                           device=dev).scatter_add_(1, digit,
-                                                    match.to(torch.int64))
-        desc = hist.flip(1)                     # column i: digit top - i
-        incl = desc.cumsum(1)
-        pos = (incl < need[:, None]).sum(1)     # the bin holding the k-th
-        above = (incl - desc).gather(1, pos[:, None])[:, 0]
-        count = desc.gather(1, pos[:, None])[:, 0]
-        live = ~done
-        prefix = torch.where(live, prefix | ((top - pos) << shift), prefix)
-        mask = torch.where(live, mask | (top << shift), mask)
-        need = torch.where(live, need - above, need)
-        done = done | (count == need)
-    km = key & mask[:, None]
-    gt = km > prefix[:, None]
-    eq = km == prefix[:, None]
-    eq_before = eq.cumsum(1) - eq.to(torch.int64)
-    keep = gt | (eq & (eq_before < need[:, None]))
-    cols = keep.nonzero()[:, 1].reshape(qn, k)
-    return scores.gather(1, cols).float(), cols.to(torch.int32)
+# -- the kernel route, step by step -----------------------------------------
 
 
 def ivf_scan_select_ref(q: torch.Tensor, corpus: torch.Tensor, k: int,

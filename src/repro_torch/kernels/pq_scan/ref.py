@@ -20,7 +20,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.topk import stable_topk
+from repro_torch.kernels.topk import (radix_select_ref, sort_survivors,
+                                      stable_topk)
+
+#: the kernel's pin for non-probed rows, below every real score
+NEG = -3.0e38
 
 
 def pq_scores_ref(luts: torch.Tensor, codes: torch.Tensor,
@@ -67,3 +71,27 @@ def pq_adc_topk_ref(luts: torch.Tensor, codes: torch.Tensor, k: int,
     if probe_mask is not None:
         idx = torch.where(torch.isfinite(vals), idx, -1)
     return vals, idx
+
+
+def pq_adc_select_ref(luts: torch.Tensor, codes: torch.Tensor, k: int,
+                      n_valid: int = -1, bias: Optional[torch.Tensor] = None,
+                      row_bucket: Optional[torch.Tensor] = None,
+                      cscores: Optional[torch.Tensor] = None,
+                      probe_mask: Optional[torch.Tensor] = None,
+                      n_seg: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel route in plain torch: the scores with non-probed rows
+    pinned to NEG, :func:`radix_select_ref` over the first ``n_valid``
+    columns (in ``n_seg`` segments), the stable sort of the survivors, then
+    NEG back to (-inf, -1) as the wrapper does -> equal to
+    :func:`pq_adc_topk_ref`."""
+    s = pq_scores_ref(luts, codes, bias=bias, row_bucket=row_bucket,
+                      cscores=cscores)
+    if probe_mask is not None:
+        s = torch.where(probe_mask.bool()[:, row_bucket.long()], s, NEG)
+    if n_valid < 0 or n_valid > codes.shape[0]:
+        n_valid = codes.shape[0]
+    vals, rows = sort_survivors(*radix_select_ref(s, n_valid, k, n_seg), k)
+    if probe_mask is not None:
+        vals = torch.where(vals <= NEG / 2, -torch.inf, vals)
+        rows = torch.where(torch.isfinite(vals), rows, -1)
+    return vals, rows

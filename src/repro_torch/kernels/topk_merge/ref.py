@@ -18,7 +18,11 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.topk import stable_topk
+from repro_torch.kernels.topk import (radix_select_ref, sort_survivors,
+                                      stable_topk)
+
+#: the kernel's input floor: values at or below it are padding
+CLAMP = -1.0e38
 
 
 def merge_topk_ref(vals: torch.Tensor, ids: torch.Tensor, k: int,
@@ -36,3 +40,21 @@ def merge_topk_ref(vals: torch.Tensor, ids: torch.Tensor, k: int,
         n_valid = c
     mv, pos = stable_topk(flat_v, min(k, n_valid))
     return mv, torch.gather(flat_i, 1, pos)
+
+
+def merge_select_ref(vals: torch.Tensor, ids: torch.Tensor, k: int,
+                     n_valid: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's route for wide windows in plain torch: the [Q, P*K]
+    columns clamped up to CLAMP, :func:`radix_select_ref` over the first
+    ``n_valid``, the stable sort of the k survivors, -inf restored and the
+    ids of their columns gathered -> equal to :func:`merge_topk_ref`."""
+    p, qn, kk = vals.shape
+    c = p * kk
+    if n_valid < 0 or n_valid > c:
+        n_valid = c
+    k = min(k, n_valid)
+    flat_v = vals.to(torch.float32).permute(1, 0, 2).reshape(qn, c)
+    flat_v = torch.clamp_min(flat_v, CLAMP)
+    mv, cols = sort_survivors(*radix_select_ref(flat_v, n_valid, k), k)
+    picked = torch.gather(ids.permute(1, 0, 2).reshape(qn, c), 1, cols.long())
+    return torch.where(mv <= CLAMP, -torch.inf, mv), picked

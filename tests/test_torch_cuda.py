@@ -149,6 +149,144 @@ def test_topk_merge_kernel_tie_order(cuda):
     assert torch.equal(ki, flat[:, :9])
 
 
+def _pq_ext_inputs(rng, qn, n, mb, cuda):
+    """bias, sorted row buckets, bucket scores and a probe mask with a query
+    that probes nothing and one that probes a single bucket."""
+    pm = torch.from_numpy(rng.random((qn, mb)) < 0.4)
+    pm[0] = False
+    if qn > 1:
+        pm[1] = False
+        pm[1, 2] = True
+    return dict(bias=torch.from_numpy(rng.standard_normal(n).astype(
+                    np.float32)).to(cuda),
+                row_bucket=torch.from_numpy(np.sort(rng.integers(
+                    0, mb, n)).astype(np.int32)).to(cuda),
+                cscores=torch.from_numpy(rng.standard_normal(
+                    (qn, mb)).astype(np.float32)).to(cuda),
+                probe_mask=pm.to(cuda))
+
+
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("k", [1, 80, 255, 256, 800, 2990])
+def test_pq_kernel_query_chunks(cuda, monkeypatch, ext, k):
+    """Past SCRATCH_BYTES of scores the queries go in chunks: one scoring
+    launch a chunk, counted by the form it serves, results joined in query
+    order, equal to the plain version bitwise (float LUTs, sums in its
+    order), at k up to n_valid."""
+    rng = np.random.default_rng(k)
+    qn, n, n_valid = 30, 3001, 2990
+    luts = torch.from_numpy(rng.standard_normal((qn, 16, 256)).astype(
+        np.float32)).to(cuda)
+    codes = torch.from_numpy(rng.integers(0, 256, (n, 16)).astype(
+        np.uint8)).to(cuda)
+    kw = _pq_ext_inputs(rng, qn, n, 7, cuda) if ext else {}
+    ld = -(-n_valid // 4) * 4
+    monkeypatch.setattr(pq_ops, "SCRATCH_BYTES", 4 * ld * 7)   # 7 queries
+    counter = pq_ops.ext_launches if ext else pq_ops.launches
+    before = counter.n
+    kv, ki = pq_adc_topk(luts, codes, k, n_valid=n_valid, **kw)
+    pv, pi = pq_adc_topk_ref(luts, codes, k, n_valid=n_valid, **kw)
+    torch.cuda.synchronize()
+    assert counter.n == before + 5                 # ceil(30 / 7) chunks
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    if ext:
+        assert bool((ki[0] == -1).all())
+
+
+@pytest.mark.parametrize("m,ksub,qn,offset", [
+    (8, 256, 30, 0), (12, 16, 3, 0), (16, 256, 1, 0), (16, 256, 4, 0),
+    (16, 256, 13, 1), (64, 256, 5, 0), (16, 256, 9, 0), (64, 256, 9, 0),
+])
+def test_pq_kernel_code_widths(cuda, m, ksub, qn, offset):
+    """Every scoring instantiation: 4 or 1 query slots a block (by the
+    query count and the LUT size; 64 x 256 leaves room for one at any
+    count), 16-byte code loads at M = 16 and byte loads otherwise (other
+    M, or a code table that starts off a 16-byte boundary), against the
+    plain version, plain and extended."""
+    rng = np.random.default_rng(m * ksub + qn)
+    n = 1537
+    luts = torch.from_numpy(rng.standard_normal((qn, m, ksub)).astype(
+        np.float32)).to(cuda)
+    buf = torch.from_numpy(rng.integers(0, ksub, n * m + offset).astype(
+        np.uint8)).to(cuda)
+    codes = buf[offset:].view(n, m)
+    for kw in ({}, _pq_ext_inputs(rng, qn, n, 5, cuda)):
+        kv, ki = pq_adc_topk(luts, codes, 100, **kw)
+        pv, pi = pq_adc_topk_ref(luts, codes, 100, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("qn,n,k,min_segment", [
+    (3, 5000, 1, 64), (3, 5000, 100, 64), (3, 5000, 1000, 64),
+    (2, 200_000, 800, None), (255, 40_000, 80, 64),
+])
+def test_pq_kernel_segments(cuda, monkeypatch, ext, qn, n, k, min_segment):
+    """With few queries each row's selection is cut into segments, a block
+    each (2 x 200,000 rows at k' = 800: 12 of them; a small MIN_SEGMENT
+    forces up to 78), and the survivors' sort still gives the plain
+    top-k, ties to the lower row."""
+    if min_segment is not None:
+        monkeypatch.setattr(pq_ops, "MIN_SEGMENT", min_segment)
+    rng = np.random.default_rng(n + k)
+    luts = torch.from_numpy(rng.integers(-3, 4, (qn, 16, 16)).astype(
+        np.float32)).to(cuda)                      # integer sums: many ties
+    codes = torch.from_numpy(rng.integers(0, 16, (n, 16)).astype(
+        np.uint8)).to(cuda)
+    kw = _pq_ext_inputs(rng, qn, n, 6, cuda) if ext else {}
+    assert pq_ops.select_segments(qn, n - 7, k) > 1
+    kv, ki = pq_adc_topk(luts, codes, k, n_valid=n - 7, **kw)
+    pv, pi = pq_adc_topk_ref(luts, codes, k, n_valid=n - 7, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("p,qn,kk,k,n_valid,pad", [
+    (4, 256, 10, 10, -1, 2), (4, 33, 100, 100, 350, 10),
+    (2, 5, 256, 250, -1, 0), (3, 7, 171, 150, 510, 5),
+    (2, 5, 1024, 1000, -1, 0), (3, 7, 683, 500, 2046, 5),
+    (8, 3, 10002, 10002, 75015, 1000),
+])
+def test_topk_merge_kernel_paths(cuda, monkeypatch, id_dtype, p, qn, kk, k,
+                                 n_valid, pad):
+    """Both paths on the same windows: the one-launch path (C <= SMALL_COLS;
+    C = 512 is the cut) and the radix selection (forced by SMALL_COLS = 0,
+    and taken from C = 513 on anyway), int64 and int32 ids, an all-padding
+    shard, columns past n_valid; equal to the plain merge."""
+    rng = np.random.default_rng(kk + k)
+    vals, ids = _windows(rng, p, qn, kk, pad=pad, ties=True)
+    vals[1], ids[1] = -np.inf, -1                     # an all-padding shard
+    vals, ids = vals.to(cuda), ids.to(id_dtype).to(cuda)
+    pv, pi = merge_topk_ref(vals, ids, k, n_valid=n_valid)
+    for small_cols in (merge_ops.SMALL_COLS, 0):
+        monkeypatch.setattr(merge_ops, "SMALL_COLS", small_cols)
+        before = merge_ops.launches.n
+        kv, ki = merge_topk_dev(vals, ids, k, n_valid=n_valid)
+        torch.cuda.synchronize()
+        assert merge_ops.launches.n == before + 1
+        assert ki.dtype == id_dtype
+        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+def test_topk_merge_small_window_is_one_launch(cuda):
+    """The cluster kNN's merge (P = 4, Q = 256, k = 10) runs one kernel and
+    nothing else on the card: no copy, no fill, no torch kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(4)
+    vals, ids = (t.to(cuda) for t in _windows(rng, 4, 256, 10, pad=2))
+    merge_topk_dev(vals, ids, 10)                     # builds and loads
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        merge_topk_dev(vals, ids, 10)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(on_card) == 1 and "merge_small" in on_card[0], on_card
+
+
 def test_index_on_card_matches_cpu(cuda):
     """One index state on the card and on the CPU: every search mode gives
     the same ids and scores."""
@@ -337,8 +475,8 @@ def _select_inputs(case):
 def test_ivf_select_kernel_ties(cuda, case):
     """ivf_select against the plain radix selection and the full stable
     sort: ids identical, values equal (integer scores are exact)."""
-    from repro_torch.kernels.ivf_scan.ref import (ivf_scan_select_ref,
-                                                  radix_select_ref)
+    from repro_torch.kernels.ivf_scan.ref import ivf_scan_select_ref
+    from repro_torch.kernels.topk import radix_select_ref
     q, c, k, n_valid = _select_inputs(case)
     q, c = q.to(cuda), c.to(cuda)
     scores = ivf_ops.ivf_scores(q, c, True)

@@ -25,15 +25,16 @@ from repro.kernels.topk_merge.ref import merge_topk_ref as merge_ref_np
 from repro_torch.kernels.ivf_scan import ops as ivf_ops
 from repro_torch.kernels.ivf_scan.ops import ivf_scan_topk
 from repro_torch.kernels.ivf_scan.ref import (ivf_scan_select_ref,
-                                              ivf_scan_topk_ref, order_keys,
-                                              radix_select_ref)
+                                              ivf_scan_topk_ref)
 from repro_torch.kernels.pq_scan import ops as pq_ops
 from repro_torch.kernels.pq_scan.ops import pq_adc_topk
-from repro_torch.kernels.pq_scan.ref import pq_adc_topk_ref
-from repro_torch.kernels.topk import merge_tile_candidates, stable_topk
+from repro_torch.kernels.pq_scan.ref import pq_adc_select_ref, pq_adc_topk_ref
+from repro_torch.kernels.topk import (order_keys, radix_select_ref,
+                                      sort_survivors, stable_topk)
 from repro_torch.kernels.topk_merge import ops as merge_ops
 from repro_torch.kernels.topk_merge.ops import merge_topk_dev
-from repro_torch.kernels.topk_merge.ref import merge_topk_ref
+from repro_torch.kernels.topk_merge.ref import (merge_select_ref,
+                                               merge_topk_ref)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -48,23 +49,6 @@ def _assert_same(port, ref):
     assert pi.shape == ri.shape
     np.testing.assert_array_equal(pi, ri)
     np.testing.assert_allclose(pv, rv, **TOL)
-
-
-def _tile_emulation(scores: torch.Tensor, k: int, tile: int = 256):
-    """The CUDA kernels' decomposition in plain torch: per tile of `tile`
-    rows a (value desc, row asc) sort, its first L = min(k, tile) kept, then
-    the wrapper's stable merge."""
-    qn, n = scores.shape
-    n_tiles = -(-n // tile)
-    pad = n_tiles * tile - n
-    s = torch.cat([scores, torch.full((qn, pad), -3e38)], 1) if pad else scores
-    rows = torch.arange(n_tiles * tile, dtype=torch.int32).expand(qn, -1)
-    topl = min(k, tile)
-    v, pos = torch.sort(s.reshape(qn, n_tiles, tile), dim=2,
-                        descending=True, stable=True)
-    r = torch.gather(rows.reshape(qn, n_tiles, tile), 2, pos.to(torch.int64))
-    return merge_tile_candidates(v[:, :, :topl].reshape(qn, -1),
-                                 r[:, :, :topl].reshape(qn, -1), k)
 
 
 # ---------------------------------------------------------------------------
@@ -127,18 +111,22 @@ def test_ivf_scan_duplicate_rows_tie_to_lower_row():
 
 @pytest.mark.parametrize("k", [1, 10, 64, 256, 700])
 def test_ivf_tile_decomposition_equals_plain(k):
-    """Per-tile top-L + stable merge (what the CUDA kernel and its wrapper
-    compute) equals the plain top-k, ties included, for k below, at and
-    above the tile width."""
+    """The CUDA route in plain torch (the scores, the radix selection of
+    each row's k survivors in row order, their stable sort) equals the
+    plain top-k bitwise and the JAX package's ivf_scan_topk (its Pallas
+    kernel in interpret mode where k <= 64, else its XLA twin), heavy ties
+    included, for k from 1 past the old 256-row tile."""
     rng = np.random.default_rng(k)
     q, c = _int_mat(rng, 5, 8, lo=-1, hi=2), _int_mat(rng, 1100, 8, lo=-1,
                                                       hi=2)
     from repro_torch.kernels.ivf_scan.ref import scores_ref
     s = scores_ref(torch.from_numpy(q), torch.from_numpy(c), "l2")
-    tv, ti = _tile_emulation(s, k)
+    got = sort_survivors(*radix_select_ref(s, c.shape[0], k), k)
     pv, pi = ivf_scan_topk_ref(torch.from_numpy(q), torch.from_numpy(c), k)
-    np.testing.assert_array_equal(ti.numpy(), pi.numpy())
-    np.testing.assert_array_equal(tv.numpy(), pv.numpy())
+    np.testing.assert_array_equal(got[1].numpy(), pi.numpy())
+    np.testing.assert_array_equal(got[0].numpy(), pv.numpy())
+    _assert_same(got, ivf_ref_jax(jnp.asarray(q), jnp.asarray(c), k,
+                                  force_pallas=k <= 64))
 
 
 def test_ivf_scan_on_cpu_never_launches():
@@ -311,17 +299,76 @@ def test_pq_ext_probe_mask_starved_queries(force_pallas, k):
     assert np.all(i[2] == -1)        # query 2 probes nothing
 
 
-def test_pq_tile_decomposition_equals_plain():
-    rng = np.random.default_rng(9)
-    luts, codes = _pq_inputs(rng, 3, 900, 4, 4)       # heavy ties
-    from repro_torch.kernels.pq_scan.ref import pq_scores_ref
-    s = pq_scores_ref(torch.from_numpy(luts), torch.from_numpy(codes))
-    for k in (5, 256, 900):
-        tv, ti = _tile_emulation(s, k)
-        pv, pi = pq_adc_topk_ref(torch.from_numpy(luts),
-                                 torch.from_numpy(codes), k)
-        np.testing.assert_array_equal(ti.numpy(), pi.numpy())
-        np.testing.assert_array_equal(tv.numpy(), pv.numpy())
+def _pq_route_case(name):
+    """(luts, codes, k, n_valid, extended inputs) of one case of the kernel
+    route, numpy arrays."""
+    rng = np.random.default_rng(len(name) + 9)
+    if name.startswith("heavy_ties"):
+        luts, codes = _pq_inputs(rng, 3, 900, 4, 4)    # 4^4 distinct codes
+        return luts, codes, int(name.split("_")[-1]), -1, {}
+    if name == "float_luts_k_past_256":
+        luts, codes = _pq_inputs(rng, 4, 1500, 16, 64, integer=False)
+        return luts, codes, 700, -1, {}
+    if name == "padding_rows":
+        luts, codes = _pq_inputs(rng, 3, 1000, 8, 16)
+        codes[777:] = codes[:223]                      # the tail ties the head
+        return luts, codes, 300, 777, {}
+    if name == "k_one":
+        luts, codes = _pq_inputs(rng, 5, 2000, 8, 16)
+        return luts, codes, 1, -1, {}
+    if name == "ext_bias_cterm":
+        qn, n, mb = 4, 700, 6
+        luts, codes = _pq_inputs(rng, qn, n, 8, 32)
+        return luts, codes, 200, -1, dict(
+            bias=rng.integers(-5, 6, n).astype(np.float32),
+            row_bucket=rng.integers(0, mb, n).astype(np.int32),
+            cscores=rng.integers(-9, 10, (qn, mb)).astype(np.float32))
+    if name == "starved_probe_mask":
+        qn, n, mb = 5, 400, 8
+        luts, codes = _pq_inputs(rng, qn, n, 4, 16)
+        pm = np.zeros((qn, mb), bool)
+        pm[0, :] = True
+        pm[1, 0] = True                                # fewer rows than k
+        pm[3, [2, 5]] = True
+        pm[4, 7] = True
+        return luts, codes, 120, -1, dict(
+            row_bucket=np.sort(rng.integers(0, mb, n)).astype(np.int32),
+            probe_mask=pm)
+    raise KeyError(name)
+
+
+PQ_ROUTE_CASES = ["heavy_ties_5", "heavy_ties_256", "heavy_ties_900",
+                  "float_luts_k_past_256", "padding_rows", "k_one",
+                  "ext_bias_cterm", "starved_probe_mask"]
+
+
+@pytest.mark.parametrize("segments", [1, 3])
+@pytest.mark.parametrize("case", PQ_ROUTE_CASES)
+def test_pq_tile_decomposition_equals_plain(case, segments):
+    """The CUDA route in plain torch (scores with non-probed rows at NEG,
+    the radix selection of the survivors in row order, each row whole or
+    cut into segments as with few queries, their stable sort, NEG back to
+    (-inf, -1)) equals the plain top-k bitwise and the JAX package's
+    pq_adc_topk (its Pallas kernel in interpret mode where k <= 64, else
+    its XLA twin), ties, padding and starved queries included."""
+    luts, codes, k, nv, ext = _pq_route_case(case)
+    n_valid = nv if nv >= 0 else codes.shape[0]
+    n_seg = max(1, min(segments, n_valid // (k + 3)))
+    t_ext = {key: torch.from_numpy(a) for key, a in ext.items()}
+    got = pq_adc_select_ref(torch.from_numpy(luts), torch.from_numpy(codes),
+                            k, n_valid=nv, n_seg=n_seg, **t_ext)
+    want = pq_adc_topk_ref(torch.from_numpy(luts), torch.from_numpy(codes),
+                           k, n_valid=nv, **t_ext)
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    ref = pq_ref_jax(jnp.asarray(luts), jnp.asarray(codes), k, n_valid=nv,
+                     force_pallas=k <= 64,
+                     **{key: jnp.asarray(a) for key, a in ext.items()})
+    _assert_same(got, ref)
+    if "probe_mask" in ext:                       # query 1: one bucket
+        n0 = int((ext["row_bucket"] == 0).sum())
+        assert n0 < k
+        assert (got[1][1, n0:] == -1).all() and (got[1][1, :n0] >= 0).all()
 
 
 def test_pq_scan_on_cpu_never_launches():
@@ -332,6 +379,20 @@ def test_pq_scan_on_cpu_never_launches():
     pq_adc_topk(torch.from_numpy(luts), torch.from_numpy(codes), 4,
                 bias=torch.zeros(30))
     assert (pq_ops.launches.n, pq_ops.ext_launches.n) == before
+
+
+@pytest.mark.parametrize("qn,m,ksub,slots", [
+    (1, 16, 256, 1), (6, 16, 256, 1), (7, 16, 256, 4), (256, 16, 256, 4),
+    (256, 8, 16, 4), (256, 64, 256, 1), (256, 256, 256, None),
+])
+def test_pq_query_slots(qn, m, ksub, slots):
+    """Query slots of a scoring block: 4 past 6 queries where four LUTs fit
+    shared memory, else 1; a LUT that does not fit alone raises."""
+    if slots is None:
+        with pytest.raises(ValueError):
+            pq_ops.query_slots(qn, m, ksub)
+    else:
+        assert pq_ops.query_slots(qn, m, ksub) == slots
 
 
 def test_pq_cscores_without_row_bucket_raises():
@@ -449,69 +510,41 @@ def test_topk_merge_keeps_int64_ids():
     _assert_merge_same((pv, pi), merge_ref_np(vals, ids, 20))
 
 
-def _sort_pairs(v, c):
-    """(value desc, column asc) order along the last axis, stable."""
-    c, pos = torch.sort(c, dim=-1, stable=True)
-    v = torch.gather(v, -1, pos)
-    v, pos = torch.sort(v, dim=-1, descending=True, stable=True)
-    return v, torch.gather(c, -1, pos)
-
-
-def _merge_tile_emulation(vals, ids, k, n_valid):
-    """The CUDA kernel's decomposition in plain torch: clamp to CLAMP, pin
-    columns >= n_valid to NEG, per tile of SEG columns a (value desc,
-    column asc) sort whose first L = min(k, SEG) are kept as a run, then
-    runs merged pairwise into runs of min(2L, k) (a run without a partner
-    filled with (NEG, PAD_COL)) until one is left, then the wrapper's
-    epilogue (``gather_ids``)."""
-    p, qn, kk = vals.shape
-    c = p * kk
-    seg = 32
-    while seg < c and seg < 256:
-        seg <<= 1
-    n_tiles = -(-c // seg)
-    flat = torch.from_numpy(vals).permute(1, 0, 2).reshape(qn, c)
-    flat = torch.clamp_min(flat, merge_ops.CLAMP)
-    cols = torch.arange(n_tiles * seg, dtype=torch.int32).expand(qn, -1)
-    s = torch.full((qn, n_tiles * seg), -3e38)
-    s[:, :n_valid] = flat[:, :n_valid]
-    s, cols = _sort_pairs(s.reshape(qn, n_tiles, seg),
-                          cols.reshape(qn, n_tiles, seg))
-    length = min(k, seg)
-    s, cols = s[:, :, :length], cols[:, :, :length]
-    while s.shape[1] > 1:
-        if s.shape[1] % 2:
-            s = torch.cat([s, torch.full((qn, 1, length), -3e38)], 1)
-            cols = torch.cat([cols, torch.full((qn, 1, length), 2 ** 31 - 1,
-                                               dtype=torch.int32)], 1)
-        n_out, out_len = s.shape[1] // 2, min(2 * length, k)
-        s, cols = _sort_pairs(s.reshape(qn, n_out, 2 * length),
-                              cols.reshape(qn, n_out, 2 * length))
-        s, cols = s[:, :, :out_len], cols[:, :, :out_len]
-        length = out_len
-    assert length == k
-    return merge_ops.gather_ids(s[:, 0], cols[:, 0], torch.from_numpy(ids))
-
-
-@pytest.mark.parametrize("p,qn,kk,k,n_valid,pad", [
-    (2, 3, 10, 10, 20, 0.5), (3, 4, 6, 9, 18, 0.0), (4, 5, 64, 256, 256, 0.2),
-    (4, 3, 75, 40, 290, 0.4), (8, 2, 125, 1000, 1000, 0.3),
-    (3, 2, 100, 300, 300, 0.0), (5, 3, 130, 600, 640, 0.1),
+@pytest.mark.parametrize("p,qn,kk,k,n_valid,pad,id_dtype", [
+    (2, 3, 10, 10, 20, 0.5, np.int64), (3, 4, 6, 9, 18, 0.0, np.int64),
+    (4, 5, 64, 256, 256, 0.2, np.int64), (4, 3, 75, 40, 290, 0.4, np.int64),
+    (8, 2, 125, 1000, 1000, 0.3, np.int64),
+    (3, 2, 100, 300, 300, 0.0, np.int64),
+    (5, 3, 130, 600, 640, 0.1, np.int64),
+    (4, 6, 50, 120, 190, 0.3, np.int32),
 ])
 def test_topk_merge_tile_decomposition_equals_plain(p, qn, kk, k, n_valid,
-                                                    pad):
-    """Per-tile top-L + pairwise run merges + id gather (what the CUDA
-    kernel and its wrapper compute) equals the plain merge, ties and
-    padding included, for one tile, tiles with L < SEG, tiles with L ==
-    SEG, and an odd number of runs."""
+                                                    pad, id_dtype):
+    """The CUDA route for wide windows in plain torch (columns clamped to
+    CLAMP, the radix selection of the survivors in column order, their
+    stable sort, -inf restored, ids gathered by column) equals the plain
+    merge bitwise and the JAX package's numpy oracle, and its Pallas
+    kernel (interpret mode) where k <= 64, ties, padding, an n_valid cut
+    inside a shard, an odd shard count and int32 ids included.  (XLA's
+    CPU top_k does not break ties by index when k is the whole row, so
+    its twin is held on tie-free windows, in
+    test_topk_merge_large_k_matches_xla_twin.)"""
     vals, ids = _merge_inputs(p, qn, kk, pad_frac=pad, seed=kk + k)
+    ids = ids.astype(id_dtype)
     if p == 3:
         vals = np.round(vals)                          # heavy ties
-    tv, ti = _merge_tile_emulation(vals, ids, k, n_valid)
+    tv, ti = merge_select_ref(torch.from_numpy(vals), torch.from_numpy(ids),
+                              k, n_valid=n_valid)
     pv, pi = merge_topk_ref(torch.from_numpy(vals), torch.from_numpy(ids),
                             k, n_valid=n_valid)
+    assert ti.dtype == pi.dtype == torch.from_numpy(ids).dtype
     np.testing.assert_array_equal(ti.numpy(), pi.numpy())
     np.testing.assert_array_equal(tv.numpy(), pv.numpy())
+    refs = [merge_ref_np(vals, ids, k, n_valid=n_valid)]
+    if k <= 64:
+        refs.append(merge_ref_jax(jnp.asarray(vals), jnp.asarray(ids), k,
+                                  n_valid=n_valid, force_pallas=True))
+    _assert_merge_same((tv.numpy(), ti.numpy()), *refs)
 
 
 def test_topk_merge_on_cpu_never_launches():
