@@ -27,7 +27,11 @@ per source, all at once), then runs seven phases and fails if any fails:
    S, head width 160, each with the float32-faithful weights and with
    ``bf16_probs``, and a float32 case; decode: B=8 over a 32,768-position
    cache with positions spread over it, at the LM path's positions, head
-   width 160, float32), within rtol=1e-2, atol=1e-4 in bf16 (one bf16 ulp of
+   width 160, float32) and at the other shapes the reference serves (flash:
+   512 queries against 4,096 keys, MLA's prefill at 128 heads with q and k
+   at 192 and v at 128, a padded width of 80; decode: MLA's widths, 16
+   query heads per key head, width 96 in float32), within rtol=1e-2,
+   atol=1e-4 in bf16 (one bf16 ulp of
    the output; with ``bf16_probs`` plus the slack of the weights that sit
    within 2^-12 of a bf16 midpoint and may round the other way on either
    side) and 1e-4 in float32; in each bf16 case, in both modes, a planted
@@ -559,7 +563,8 @@ def fault_tile(s: int, last: int) -> slice:
 
 def sdpa(torch, q, k, v, **kw):
     """One ``scaled_dot_product_attention`` call on [B, S, H, D] tensors
-    with fewer key heads: the library yardstick, never used by the port."""
+    with fewer key heads (v may be narrower): the library yardstick, never
+    used by the port."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, enable_gqa=True, **kw).transpose(1, 2)
@@ -569,37 +574,53 @@ def kernel_flash_attention(torch, dev):
     """flash_attention at the LM path's shapes: the llama3-8b prefill (B=8,
     S=4,096, 32 query / 8 key heads of 128, bf16), the phi forward (S=64),
     a ragged S, stablelm's head width 160, and the float32 parity config;
-    the bf16 cases with the float32-faithful weights (the LM's path) and
-    with ``bf16_probs``, held against the plain version rounding on the
-    kernel's key tiles."""
+    then the shapes the reference's chunked_attention also serves: 512
+    queries against 4,096 keys, MLA's prefill at deepseek-v2's full head
+    count (q and k at 192, v at 128, 128 heads), and a width the wrapper
+    pads (80); the bf16 cases with the float32-faithful weights (the LM's
+    path) and with ``bf16_probs``, held against the plain version rounding
+    on the kernel's key tiles."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          key_tile)
     from repro_torch.kernels.flash_attention.ref import (bf16_probs_slack,
                                                          flash_attention_ref)
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    cases = [("prefill", 8, 4096, 32, 8, 128, torch.bfloat16),
-             ("phi", 8, 64, 32, 8, 128, torch.bfloat16),
-             ("ragged", 2, 1000, 32, 8, 128, torch.bfloat16),
-             ("head_dim_160", 2, 2048, 32, 8, 160, torch.bfloat16),
-             ("parity_f32", 2, 37, 4, 2, 32, torch.float32)]
-    worst, main = 0.0, None
-    for label, b, s, h, kvh, d, dt in cases:
-        q = torch.randn(b, s, h, d, device=dev, generator=gen).to(dt)
-        k = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
-        v = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
+    bf, f32 = torch.bfloat16, torch.float32
+    # (label, B, Sq, Skv, H, KVH, D, Dv, dtype)
+    cases = [("prefill", 8, 4096, 4096, 32, 8, 128, 128, bf),
+             ("phi", 8, 64, 64, 32, 8, 128, 128, bf),
+             ("ragged", 2, 1000, 1000, 32, 8, 128, 128, bf),
+             ("head_dim_160", 2, 2048, 2048, 32, 8, 160, 160, bf),
+             ("parity_f32", 2, 37, 37, 4, 2, 32, 32, f32),
+             ("sq_below_skv", 8, 512, 4096, 32, 8, 128, 128, bf),
+             ("mla_prefill", 1, 4096, 4096, 128, 128, 192, 128, bf),
+             ("padded_d80", 2, 1024, 1024, 32, 8, 80, 80, bf)]
+    worst, main, table = 0.0, None, {}
+    for label, b, sq, skv, h, kvh, d, dv, dt in cases:
+        q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dt)
+        k = torch.randn(b, skv, kvh, d, device=dev, generator=gen).to(dt)
+        v = torch.randn(b, skv, kvh, dv, device=dev, generator=gen).to(dt)
         name = str(dt).split(".")[1]
-        kt = key_tile(d, dt)
-        # causal: B*H*S(S+1)/2 (query, key) pairs, 2D operations for the
-        # score and 2D for P.V each; q, k, v read once, o written once.  The
-        # kernel's float32-faithful P.V is two bf16 products (hi + lo), so
-        # its own floor is 3/2 of the function's.
-        n_ops = 2.0 * b * h * d * s * (s + 1)
-        n_bytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * q.element_size()
+        kt = key_tile(d, dt, dv)
+        # causal, query row i at i + Skv - Sq: Sq (Skv - Sq) + Sq (Sq + 1) / 2
+        # (query, key) pairs a head, 2D operations for the score and 2Dv for
+        # P.V each; q, k, v read once, o written once.  The kernel's
+        # float32-faithful P.V is two bf16 products (hi + lo), so its own
+        # floor counts 4Dv for P.V.
+        pairs = float(b * h) * (sq * (skv - sq) + sq * (sq + 1) / 2)
+        n_ops = pairs * 2 * (d + dv)
+        n_bytes = (b * sq * h * (d + dv) + b * skv * kvh * (d + dv)) \
+            * q.element_size()
         b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
                            if dt == torch.bfloat16 else FP32_OPS_PER_S)
-        split_ms = bound(n_bytes, 1.5 * n_ops, BF16_OPS_PER_S)[0]
-        lib_ms = time_ms(torch, lambda: sdpa(torch, q, k, v, is_causal=True))
+        split_ms = bound(n_bytes, pairs * (2 * d + 4 * dv), BF16_OPS_PER_S)[0]
+        # SDPA's is_causal aligns the rows top-left; the bottom-right mask
+        # of unequal lengths goes in as a boolean mask
+        mask = dict(is_causal=True) if sq == skv else dict(attn_mask=(
+            torch.arange(sq, device=dev)[:, None] + (skv - sq)
+            >= torch.arange(skv, device=dev)[None, :]))
+        lib_ms = time_ms(torch, lambda: sdpa(torch, q, k, v, **mask))
         modes = (False, True) if dt == torch.bfloat16 else (False,)
         row = {}
         for probs in modes:
@@ -630,21 +651,23 @@ def kernel_flash_attention(torch, dev):
                 extra = (f" past_one_ulp={over} slack_max="
                          f"{float(slack.max())} slack_mean="
                          f"{float(slack.mean()):.3g}")
-            log(f"[kernels] flash_attention {label} B={b} S={s} H={h} "
-                f"KVH={kvh} D={d} {name} {tag}: max_abs_err={err} "
+            log(f"[kernels] flash_attention {label} B={b} Sq={sq} Skv={skv} "
+                f"H={h} KVH={kvh} D={d} Dv={dv} {name} {tag}: max_abs_err={err} "
                 f"within_tol={ok} ms={ms:.3f} plain_ms={plain_ms:.3f} "
                 f"library_ms={lib_ms:.3f} bound_ms={b_ms:.4f} ({b_by})"
                 f"{extra}")
             check(ok, f"flash_attention {label} {tag} off its plain version "
                   f"by {err}")
-            row[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+            row[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
             del got
             fault = {}
             if dt == torch.bfloat16:
                 # the tolerance must fail a kernel that loses one key tile's
                 # values on the longest rows (the last query tile, batch
                 # row 0), in each mode with that mode's limit
-                tile, rows = fault_tile(s, s - 1), slice(max(0, s - 64), s)
+                tile = fault_tile(skv, skv - 1)
+                rows = slice(max(0, sq - 64), sq)
                 vf = v[:1].clone()
                 vf[:, tile] = 0
                 bad = flash_attention_ref(q[:1], k[:1], vf, bf16_probs=probs,
@@ -668,34 +691,43 @@ def kernel_flash_attention(torch, dev):
                 main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=b_ms, bound_by=b_by,
                             split_floor_ms=split_ms, **fault,
-                            shape=f"B={b} S={s} H={h} KVH={kvh} D={d} {name}")
+                            shape=f"B={b} S={sq} H={h} KVH={kvh} D={d} {name}")
             del want, slack
+        table[label] = row
         if label == "prefill":
             main["bf16_probs_ms"] = row["bf16_probs"]["ms"]
             main["bf16_probs_max_abs_err"] = row["bf16_probs"]["max_abs_err"]
             main["bf16_probs_fault_err"] = row["bf16_probs"]["fault_err"]
-        del q, k, v
+        del q, k, v, mask
         torch.cuda.empty_cache()
-    return dict(main, max_abs_err=worst)
+    return dict(main, max_abs_err=worst, cases=table)
 
 
 def kernel_decode_attention(torch, dev):
     """decode_attention over a 32,768-position cache (the decode_32k shape
     cut to B=8): positions spread over [0, S-1] with one at S-1, the LM
-    path's positions (all 4,100), head width 160, and float32."""
+    path's positions (all 4,100), head width 160, and float32; then the
+    shapes the reference's decode_attention also serves: v narrower than
+    k (MLA's widths, 192 and 128), 16 query heads per key head, and a width
+    outside the old kernel's list (96, float32)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    cases = [("spread", 8, 32768, 32, 8, 128, torch.bfloat16, None),
-             ("lm_path", 8, 32768, 32, 8, 128, torch.bfloat16, 4100),
-             ("head_dim_160", 4, 8192, 32, 8, 160, torch.bfloat16, None),
-             ("parity_f32", 2, 45, 4, 2, 32, torch.float32, None)]
-    worst, main = 0.0, None
-    for label, b, s, h, kvh, d, dt, at in cases:
+    bf, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, KVH, D, Dv, dtype, pos: spread if None)
+    cases = [("spread", 8, 32768, 32, 8, 128, 128, bf, None),
+             ("lm_path", 8, 32768, 32, 8, 128, 128, bf, 4100),
+             ("head_dim_160", 4, 8192, 32, 8, 160, 160, bf, None),
+             ("parity_f32", 2, 45, 4, 2, 32, 32, f32, None),
+             ("mla_widths", 8, 8192, 32, 8, 192, 128, bf, None),
+             ("group_16", 8, 32768, 32, 2, 128, 128, bf, None),
+             ("odd_f32", 4, 4096, 16, 4, 96, 96, f32, None)]
+    worst, main, table = 0.0, None, {}
+    for label, b, s, h, kvh, d, dv, dt, at in cases:
         q = torch.randn(b, 1, h, d, device=dev, generator=gen).to(dt)
         kc = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
-        vc = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dt)
+        vc = torch.randn(b, s, kvh, dv, device=dev, generator=gen).to(dt)
         if at is None:
             pos = torch.randint(0, s, (b,), device=dev, generator=gen,
                                 dtype=torch.int32)
@@ -716,15 +748,16 @@ def kernel_decode_attention(torch, dev):
                 )[:, None, None, :]
         lib_ms = time_ms(torch, lambda: sdpa(torch, q, kc, vc,
                                              attn_mask=mask))
-        # the function depends on the cache rows at positions <= pos only
+        # the function depends on the cache rows at positions <= pos only:
+        # a key row and a value row a key head, 2D + 2Dv operations a head
         vis = float(torch.clamp(pos.long() + 1, max=s).sum())
-        n_bytes = (vis * 2 * kvh * d + 2 * b * h * d) * q.element_size() \
-            + 4 * b
-        n_ops = vis * 4.0 * h * d
+        n_bytes = (vis * kvh * (d + dv) + b * h * (d + dv)) \
+            * q.element_size() + 4 * b
+        n_ops = vis * 2.0 * h * (d + dv)
         b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
                            if dt == torch.bfloat16 else FP32_OPS_PER_S)
         log(f"[kernels] decode_attention {label} B={b} S={s} H={h} "
-            f"KVH={kvh} D={d} {name} visible_keys={int(vis)}: "
+            f"KVH={kvh} D={d} Dv={dv} {name} visible_keys={int(vis)}: "
             f"max_abs_err={err} within_tol={ok} ms={ms:.3f} "
             f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
             f"bound_ms={b_ms:.4f} ({b_by})")
@@ -749,14 +782,16 @@ def kernel_decode_attention(torch, dev):
             check(not f_ok, f"decode_attention {label}: the tolerance passes "
                   f"a kernel that drops a key tile")
             del vf, bad
+        table[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                            visible_keys=int(vis), **fault)
         if label == "spread":
-            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=b_ms, bound_by=b_by, **fault,
+            main = dict(table[label],
                         shape=f"B={b} S={s} H={h} KVH={kvh} D={d} {name}, "
                               f"pos spread")
         del q, kc, vc, got, want, mask
         torch.cuda.empty_cache()
-    return dict(main, max_abs_err=worst)
+    return dict(main, max_abs_err=worst, cases=table)
 
 
 # ---------------------------------------------------------------------------

@@ -4,15 +4,22 @@
 // Replaces the Pallas kernel flash_attention_pallas (body _flash_kernel) of
 // src/repro/kernels/flash_attention/flash_attention.py, and with it the
 // reference model's chunked_attention (src/repro/models/attention.py), its
-// XLA form.  q [B, S, H, D], k and v [B, S, KVH, D] with KVH dividing H:
-// query head h reads key head h / (H / KVH) in place, so grouped-query
-// attention needs no repeat_kv copy of k and v.  Scores are q . k * scale in
+// XLA form.  q [B, Sq, H, D], k [B, Skv, KVH, D] and v [B, Skv, KVH, Dv]
+// with KVH dividing H: query head h reads key head h / (H / KVH) in place,
+// so grouped-query attention needs no repeat_kv copy of k and v.  Query row
+// i sits at position i + Skv - Sq (right-aligned, as chunked_attention
+// places it); under causal a row at a negative position sees no key, and
+// its -1e30 scores weigh every key alike, as the reference's do (keys past
+// Skv in a ragged tile score -inf, so they weigh nothing even there).  The
+// kernel is compiled for the (D, Dv) pairs of the launch switch below; the
+// wrapper zero-pads any other pair.  Scores are q . k * scale in
 // float32; masked scores are -1e30 (not -inf, so a fully masked tile keeps a
 // finite max); m, l and the accumulator are float32; l is floored at 1e-30;
 // the output is in q's type.  With bf16_probs the softmax weights are
 // rounded to bfloat16 before P.V (l sums them unrounded), as
-// chunked_attention does.  Any S runs: keys and rows past S are masked, with
-// no fallback to another path.  Key tiles past the causal diagonal of a
+// chunked_attention does.  Any Sq and Skv run: keys past Skv and rows past
+// Sq are masked, with no fallback to another path.  Key tiles past the
+// causal diagonal of a
 // query tile are not loaded at all (the Pallas kernel's `run` skip), and the
 // heaviest query tiles start first so the short ones fill the tail.
 //
@@ -23,11 +30,12 @@
 // * bfloat16 (the LM's type): Hopper's warpgroup MMA (wgmma, sm_90a) for
 //   both products, fed by the TMA unit.  A block holds 128 query rows, 64
 //   for each of two consumer warpgroups, and a producer warpgroup whose one
-//   thread keeps a ring of K/V tiles (128 keys; 64 at D = 160) in flight,
+//   thread keeps a ring of K/V tiles (128 keys; 64 past D or Dv = 128) in
+//   flight,
 //   each completing on an mbarrier and refilled once both consumers release
 //   it; the producer hands its registers to the consumers (setmaxnreg).  S
 //   = Q K^T is one wgmma m64nWKk16 per 16 columns of D, A and B read from
-//   shared memory; O += P V is one m64nDk16 per 16 keys, P from registers
+//   shared memory; O += P V is one m64nDVk16 per 16 keys, P from registers
 //   and V read in place as the transposed B operand.  A consumer issues
 //   S_t and P_{t-1} V_{t-1} together, exponentiates S_t as soon as it
 //   completes while P V runs on, then rescales O; the two consumers take
@@ -46,8 +54,11 @@
 // * float32 (the parity configs): float32 FMAs on the SIMT cores, since
 //   TF32 tensor cores would change the scores.  Four threads per query row,
 //   each with a quarter of the row's scaled q and accumulator in registers
-//   as float4 chunks; K and V tiles of 32 keys in shared memory; a row's
-//   score is its four threads' partial dots summed by two warp shuffles.
+//   as float4 chunks; K and V tiles of 32 keys (16 at the widest pairs) in
+//   shared memory; a row's score is its four threads' partial dots summed
+//   by two warp shuffles.
+#include <cmath>
+
 #include <cuda.h>
 
 #include "attention_dtype.cuh"
@@ -58,7 +69,6 @@ namespace {
 using pandadb::ATTN_NEG;
 
 constexpr int BQ = 64;                // query rows per block
-constexpr int BK = 32;                // keys per shared tile
 constexpr int LANES = 4;              // threads per query row
 constexpr int THREADS = BQ * LANES;   // 256
 constexpr int MAX_GRID = 65535;
@@ -75,19 +85,26 @@ constexpr int CONSUMERS = 256;        // two warpgroups
 constexpr int WTHREADS = CONSUMERS + 128;  // and a producer warpgroup
 constexpr int SMEM_MAX = 232448;      // shared memory a block may use
 
-// The tiles of head width D.  D is read in column chunks of W bf16
-// (hopper.cuh): 64 (128-byte rows) where 64 divides D, else 32 or 16; Q, K
-// and V tiles are stored chunk after chunk, each chunk row-major and
-// swizzled.  Key tiles hold WK keys (128; 64 at D = 160, whose O takes 80
-// registers a thread), in a ring of as many stages as fit, up to 4.
-template <int D>
+// The column chunk of a width: 64 bf16 (128-byte rows) where 64 divides it,
+// else 32 or 16.
+constexpr int chunk_of(int d) { return d % 64 == 0 ? 64 : d % 32 == 0 ? 32 : 16; }
+
+// The tiles of head widths D (q, k) and DV (v, o).  Each is read in column
+// chunks (hopper.cuh): W of D, WV of DV; Q, K and V tiles are stored chunk
+// after chunk, each chunk row-major and swizzled.  Key tiles hold WK keys
+// (128; 64 past a width of 128, whose O or scores would not fit the
+// registers beside it), in a ring of as many stages as fit, up to 4.
+template <int D, int DV>
 struct Tile {
-  static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
-  static constexpr int WK = D > 128 ? 64 : 128;
+  static constexpr int W = chunk_of(D);
+  static constexpr int WV = chunk_of(DV);
+  static constexpr int WK = D > 128 || DV > 128 ? 64 : 128;
   static constexpr uint32_t MODE = pandadb::wgmma_swizzle(2 * W);
   static constexpr uint32_t SBO = 8 * 2 * W;   // bytes between 8-row groups
+  static constexpr uint32_t MODE_V = pandadb::wgmma_swizzle(2 * WV);
+  static constexpr uint32_t SBO_V = 8 * 2 * WV;
   static constexpr int Q_BYTES = WQ * D * 2;
-  static constexpr int STAGE_BYTES = 2 * WK * D * 2;   // K and V
+  static constexpr int STAGE_BYTES = WK * (D + DV) * 2;   // K and V
   static constexpr int STAGES =
       (SMEM_MAX - 1024 - Q_BYTES) / STAGE_BYTES < 4
           ? (SMEM_MAX - 1024 - Q_BYTES) / STAGE_BYTES
@@ -121,10 +138,10 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) {
 
 // S[64 x WK] = Q[64 x D] K^T for one warpgroup: qw its 64 rows of chunk 0
 // of the Q tile, kt chunk 0 of the K tile; 16 columns of D a step.
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void qk_mma(float* s, const bf16* qw,
                                        const bf16* kt) {
-  using T = Tile<D>;
+  using T = Tile<D, DV>;
 #pragma unroll
   for (int k = 0; k < D / 16; ++k) {
     const int c = k * 16 / T::W, off = k * 16 % T::W;
@@ -137,37 +154,41 @@ __device__ __forceinline__ void qk_mma(float* s, const bf16* qw,
   }
 }
 
-// O[64 x D] += P[64 x 16] V[16 x D] for one warpgroup: P in registers, v16
-// the first of the 16 keys' rows in chunk 0 of the V tile (N-major B, so V
-// is read as stored; LBO steps from chunk to chunk).
-template <int D>
+// O[64 x DV] += P[64 x 16] V[16 x DV] for one warpgroup: P in registers,
+// v16 the first of the 16 keys' rows in chunk 0 of the V tile (N-major B,
+// so V is read as stored; LBO steps from chunk to chunk).
+template <int D, int DV>
 __device__ __forceinline__ void pv_mma(float* o, const uint32_t* p,
                                        const bf16* v16) {
-  using T = Tile<D>;
-  const uint64_t desc = wgmma_desc(v16, 2 * T::WK * T::W, T::SBO, T::MODE);
-  if constexpr (D == 16) pandadb::wgmma_rs_n16(o, p, desc, 1);
-  if constexpr (D == 32) pandadb::wgmma_rs_n32(o, p, desc, 1);
-  if constexpr (D == 64) pandadb::wgmma_rs_n64(o, p, desc, 1);
-  if constexpr (D == 128) pandadb::wgmma_rs_n128(o, p, desc, 1);
-  if constexpr (D == 160) pandadb::wgmma_rs_n160(o, p, desc, 1);
+  using T = Tile<D, DV>;
+  const uint64_t desc = wgmma_desc(v16, 2 * T::WK * T::WV, T::SBO_V,
+                                   T::MODE_V);
+  if constexpr (DV == 16) pandadb::wgmma_rs_n16(o, p, desc, 1);
+  if constexpr (DV == 32) pandadb::wgmma_rs_n32(o, p, desc, 1);
+  if constexpr (DV == 64) pandadb::wgmma_rs_n64(o, p, desc, 1);
+  if constexpr (DV == 128) pandadb::wgmma_rs_n128(o, p, desc, 1);
+  if constexpr (DV == 160) pandadb::wgmma_rs_n160(o, p, desc, 1);
+  if constexpr (DV == 192) pandadb::wgmma_rs_n192(o, p, desc, 1);
+  if constexpr (DV == 256) pandadb::wgmma_rs_n256(o, p, desc, 1);
 }
 
-// q [B, S, H, D] and k, v [B, S, KVH, D] reach the kernel as TMA tensor
-// maps whose boxes land in the chunked layout: the map's dimensions are
-// (W columns, position, column chunk, head, batch), so a box of
-// (W, rows, D / W, 1, 1) is stored chunk after chunk, swizzled by the TMA
-// unit.  Positions past S are filled with zeros by the TMA unit.
-template <int D, bool HI_ONLY>
+// q [B, Sq, H, D], k [B, Skv, KVH, D] and v [B, Skv, KVH, DV] reach the
+// kernel as TMA tensor maps whose boxes land in the chunked layout: the
+// map's dimensions are (W columns, position, column chunk, head, batch), so
+// a box of (W, rows, D / W, 1, 1) is stored chunk after chunk, swizzled by
+// the TMA unit.  Positions past Sq or Skv are filled with zeros by the TMA
+// unit.
+template <int D, int DV, bool HI_ONLY>
 __global__ void __launch_bounds__(WTHREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
-                bf16* __restrict__ o, int seq, int n_heads, int n_kv_heads,
-                float scale_log2, int causal) {
-  using T = Tile<D>;
+                bf16* __restrict__ o, int sq, int skv, int n_heads,
+                int n_kv_heads, float scale_log2, int causal) {
+  using T = Tile<D, DV>;
   constexpr int WK = T::WK;
   constexpr int ST = T::STAGES;
-  constexpr int NO = D / 2;           // O accumulator registers a thread
+  constexpr int NO = DV / 2;          // O accumulator registers a thread
   constexpr int NS = WK / 2;          // S accumulator registers a thread
   constexpr int PK = WK / 16;         // k-steps of P V
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -181,7 +202,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int b = blockIdx.z;
   const int kh = h / (n_heads / n_kv_heads);
   const int q0 = qt * WQ;
-  const int k_end = causal ? min(seq, q0 + WQ) : seq;
+  const int off = skv - sq;                    // query row i at i + off
+  // causal: keys up to the tile's last row; a tile with a row at a negative
+  // position (Sq > Skv) weighs every key, so it loads them all
+  const int k_end = causal && q0 + off >= 0 ? min(skv, q0 + WQ + off) : skv;
   const int n_tiles = (k_end + WK - 1) / WK;
 
   if (threadIdx.x == 0) {
@@ -208,8 +232,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
         pandadb::mbar_expect_tx(&full[s], T::STAGE_BYTES);
         pandadb::tma_load_5d(ks + s * WK * D, &k_map, &full[s], 0, t * WK, 0,
                              kh, b);
-        pandadb::tma_load_5d(vs + s * WK * D, &v_map, &full[s], 0, t * WK, 0,
-                             kh, b);
+        pandadb::tma_load_5d(vs + s * WK * DV, &v_map, &full[s], 0, t * WK,
+                             0, kh, b);
       }
     }
     return;
@@ -224,7 +248,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int w0 = q0 + wg * 64;                 // this warpgroup's first row
   const int r0 = w0 + warp * 16 + gr;          // the two rows this thread
   const int r1 = r0 + 8;                       // holds in accumulators
-  const bool w_live = w0 < seq;
+  const bool w_live = w0 < sq;
   const bf16* qw = qs + wg * 64 * T::W;        // its 64 rows of each chunk
 
   // ping-pong: the warpgroups take turns to issue their products (named
@@ -240,27 +264,30 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   uint32_t hi[PK][4], lo[PK][4];    // P of the previous tile, as A operands
 
   // Every tile of the block runs through both warpgroups, also one wholly
-  // above a warpgroup's rows (at WK = 64) or past S: its scores are masked
+  // above a warpgroup's rows (at WK = 64) or past Skv: its scores are masked
   // to -1e30, whose weights are exactly 0 once a row has seen a real key
-  // (key 0 is in tile 0).  So no product sits under a run-time condition,
-  // which would make the compiler serialise every wgmma.
+  // (key 0 is in tile 0 and every row at a position >= 0 sees it).  So no
+  // product sits under a run-time condition, which would make the compiler
+  // serialise every wgmma.
 
   // scores of tile t -> weights in sc, running max and sums updated;
   // (a0, a1) rescale O
   auto softmax = [&](int t, float& a0, float& a1) {
     const int k0 = t * WK;
-    // a tile that crosses the diagonal or the end of S is scaled and
+    // a tile that crosses the diagonal or the end of Skv is scaled and
     // masked first; any other is scaled inside the exponent's FMA, its max
     // taken unscaled (scaling by a positive factor keeps the order)
     float mul = scale_log2;
-    if ((causal && k0 + WK - 1 > w0) || k0 + WK > seq || !(mul > 0.f)) {
+    if ((causal && k0 + WK - 1 > w0 + off) || k0 + WK > skv ||
+        !(mul > 0.f)) {
 #pragma unroll
       for (int j = 0; j < WK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + j * 8 + t4 * 2 + (e & 1);
           const int row = e < 2 ? r0 : r1;
-          sc[4 * j + e] = key >= seq || (causal && key > row)
+          sc[4 * j + e] = key >= skv ? -INFINITY
+                          : causal && key > row + off
                               ? ATTN_NEG
                               : sc[4 * j + e] * scale_log2;
         }
@@ -314,8 +341,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   auto pv = [&](const bf16* vt) {
 #pragma unroll
     for (int j = 0; j < PK; ++j) {             // 16 keys (2 row groups) a step
-      pv_mma<D>(oacc, hi[j], vt + j * 16 * T::W);
-      if constexpr (!HI_ONLY) pv_mma<D>(oacc, lo[j], vt + j * 16 * T::W);
+      pv_mma<D, DV>(oacc, hi[j], vt + j * 16 * T::WV);
+      if constexpr (!HI_ONLY)
+        pv_mma<D, DV>(oacc, lo[j], vt + j * 16 * T::WV);
     }
   };
   auto take_turn = [&]() { pandadb::named_bar_sync(my_turn, CONSUMERS); };
@@ -333,7 +361,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < NS; ++i) sc[i] = 0.f;
   take_turn();
   pandadb::wgmma_fence();
-  qk_mma<D>(sc, qw, ks);
+  qk_mma<D, DV>(sc, qw, ks);
   pandadb::wgmma_commit();
   pass_turn(0);
   pandadb::wgmma_wait<0>();
@@ -355,9 +383,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     take_turn();
     pandadb::fence_regs<NO>(oacc);
     pandadb::wgmma_fence();
-    qk_mma<D>(sc, qw, ks + s * WK * D);
+    qk_mma<D, DV>(sc, qw, ks + s * WK * D);
     pandadb::wgmma_commit();
-    pv(vs + sp * WK * D);
+    pv(vs + sp * WK * DV);
     pandadb::wgmma_commit();
     pass_turn(t);
     pandadb::wgmma_wait<1>();                  // S is done, P V may run on
@@ -379,7 +407,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   // the last tile's P V
   pandadb::fence_regs<NO>(oacc);
   pandadb::wgmma_fence();
-  pv(vs + ((n_tiles - 1) % ST) * WK * D);
+  pv(vs + ((n_tiles - 1) % ST) * WK * DV);
   pandadb::wgmma_commit();
   pandadb::wgmma_wait<0>();
   pandadb::fence_regs<NO>(oacc);
@@ -392,29 +420,36 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  const size_t q_stride = (size_t)n_heads * D;
-  bf16* ob = o + ((size_t)b * seq * n_heads + h) * D;
+  const size_t o_stride = (size_t)n_heads * DV;
+  bf16* ob = o + ((size_t)b * sq * n_heads + h) * DV;
 #pragma unroll
   for (int n = 0; n < NO / 4; ++n) {
     const int c = n * 8 + t4 * 2;
-    if (r0 < seq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * q_stride + c) =
+    if (r0 < sq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * o_stride + c) =
           pack_bf16(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
-    if (r1 < seq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * q_stride + c) =
+    if (r1 < sq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * o_stride + c) =
           pack_bf16(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
   }
 }
 
-template <int D>
+// keys per shared tile of the float32 path: 32, or 16 where 32 keys' K and
+// V rows would pass the 40 KB the static tiles may take
+template <int D, int DV>
+constexpr int F32_KEYS = 32 * (D + DV) * 4 <= 40960 ? 32 : 16;
+
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int seq,
+          const float* __restrict__ v, float* __restrict__ o, int sq, int skv,
           int n_heads, int n_kv_heads, float scale, int causal,
           int bf16_probs) {
-  constexpr int C = D / (4 * LANES);  // float4 chunks per thread
+  constexpr int C = D / (4 * LANES);   // float4 chunks of q per thread
+  constexpr int CV = DV / (4 * LANES); // and of the accumulator
+  constexpr int BK = F32_KEYS<D, DV>;
   __shared__ float4 ks[BK][D / 4];
-  __shared__ float4 vs[BK][D / 4];
+  __shared__ float4 vs[BK][DV / 4];
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
   const int h = blockIdx.y;
@@ -422,11 +457,12 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int kh = h / (n_heads / n_kv_heads);
   const int row = threadIdx.x / LANES;
   const int lane = threadIdx.x % LANES;
-  const int qp = qt * BQ + row;                // this row's query position
-  const bool live = qp < seq;
+  const int qp = qt * BQ + row;                // this row's query index
+  const int off = skv - sq;                    // its position is qp + off
+  const bool live = qp < sq;
 
-  float4 qr[C], acc[C];
-  const size_t q_off = (((size_t)b * seq + qp) * n_heads + h) * D;
+  float4 qr[C], acc[CV];
+  const size_t q_off = (((size_t)b * sq + qp) * n_heads + h) * D;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int d = 4 * (lane + c * LANES);
@@ -438,13 +474,16 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       x.w = q[q_off + d + 3] * scale;
     }
     qr[c] = x;
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+#pragma unroll
+  for (int c = 0; c < CV; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   float m = ATTN_NEG, l = 0.f;
 
-  const int k_end = causal ? min(seq, (qt + 1) * BQ) : seq;
-  const size_t pos_stride = (size_t)n_kv_heads * D;
-  const size_t kv_base = ((size_t)b * seq * n_kv_heads + kh) * D;
+  // causal: keys up to the block's last row; a block with a row at a
+  // negative position (Sq > Skv) weighs every key, so it reads them all
+  const int q0 = qt * BQ;
+  const int k_end = causal && q0 + off >= 0 ? min(skv, q0 + BQ + off) : skv;
+  const size_t kv_base = (size_t)b * skv * n_kv_heads + kh;
   float* ksf = reinterpret_cast<float*>(ks);
   float* vsf = reinterpret_cast<float*>(vs);
 
@@ -452,15 +491,15 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                       // the last tile has been read
     for (int e = threadIdx.x; e < BK * D; e += THREADS) {
       const int j = e / D;
-      const int d = e - j * D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + j < seq) {
-        const size_t off = kv_base + (size_t)(k0 + j) * pos_stride + d;
-        kx = k[off];
-        vx = v[off];
-      }
-      ksf[e] = kx;
-      vsf[e] = vx;
+      ksf[e] = k0 + j < skv
+                   ? k[(kv_base + (size_t)(k0 + j) * n_kv_heads) * D + e - j * D]
+                   : 0.f;
+    }
+    for (int e = threadIdx.x; e < BK * DV; e += THREADS) {
+      const int j = e / DV;
+      vsf[e] = k0 + j < skv ? v[(kv_base + (size_t)(k0 + j) * n_kv_heads) * DV +
+                                e - j * DV]
+                            : 0.f;
     }
     __syncthreads();
 
@@ -474,8 +513,10 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int kp = k0 + j;
-      const bool ok = kp < seq && (!causal || kp <= qp);
-      sc[j] = ok ? part : ATTN_NEG;
+      // keys past Skv weigh nothing, even in a row that sees no key
+      sc[j] = kp >= skv ? -INFINITY
+              : causal && kp > qp + off ? ATTN_NEG
+                                        : part;
       m_cur = fmaxf(m_cur, sc[j]);
     }
     const float m_new = fmaxf(m, m_cur);
@@ -489,7 +530,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     }
     l = l * alpha + psum;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
+    for (int c = 0; c < CV; ++c) {
       acc[c].x *= alpha;
       acc[c].y *= alpha;
       acc[c].z *= alpha;
@@ -499,7 +540,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       const float p = sc[j];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
+      for (int c = 0; c < CV; ++c) {
         const float4 x = vs[j][lane + c * LANES];
         acc[c].x += p * x.x;
         acc[c].y += p * x.y;
@@ -512,32 +553,35 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
   if (!live) return;
   const float inv = 1.f / fmaxf(l, 1e-30f);
+  const size_t o_off = (((size_t)b * sq + qp) * n_heads + h) * DV;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
+  for (int c = 0; c < CV; ++c) {
     const int d = 4 * (lane + c * LANES);
-    o[q_off + d] = acc[c].x * inv;
-    o[q_off + d + 1] = acc[c].y * inv;
-    o[q_off + d + 2] = acc[c].z * inv;
-    o[q_off + d + 3] = acc[c].w * inv;
+    o[o_off + d] = acc[c].x * inv;
+    o[o_off + d + 1] = acc[c].y * inv;
+    o[o_off + d + 2] = acc[c].z * inv;
+    o[o_off + d + 3] = acc[c].w * inv;
   }
 }
 
+// The compiled (D, DV) pairs: equal widths, and MLA's prefill (192, 128).
+#define PANDADB_FLASH_PAIRS(X)                                                \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(160, 160) X(192, 192)           \
+  X(256, 256) X(192, 128)
+
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       float* o, int n_b, int seq, int n_heads,
-                       int n_kv_heads, int d, float scale, int causal,
+                       float* o, int n_b, int sq, int skv, int n_heads,
+                       int n_kv_heads, int d, int dv, float scale, int causal,
                        int bf16_probs, cudaStream_t st) {
-  const dim3 grid((seq + BQ - 1) / BQ, n_heads, n_b);
-#define PANDADB_FLASH(DIM)                                                    \
-  case DIM:                                                                   \
-    flash_fwd<DIM><<<grid, THREADS, 0, st>>>(                          \
-        q, k, v, o, seq, n_heads, n_kv_heads, scale, causal, bf16_probs);     \
+  const dim3 grid((sq + BQ - 1) / BQ, n_heads, n_b);
+#define PANDADB_FLASH(DIM, DIMV)                                              \
+  case DIM * 1000 + DIMV:                                                     \
+    flash_fwd<DIM, DIMV><<<grid, THREADS, 0, st>>>(q, k, v, o, sq, skv,       \
+                                                   n_heads, n_kv_heads,       \
+                                                   scale, causal, bf16_probs);\
     break;
-  switch (d) {
-    PANDADB_FLASH(16)
-    PANDADB_FLASH(32)
-    PANDADB_FLASH(64)
-    PANDADB_FLASH(128)
-    PANDADB_FLASH(160)
+  switch (d * 1000 + dv) {
+    PANDADB_FLASH_PAIRS(PANDADB_FLASH)
     default:
       return cudaErrorInvalidValue;
   }
@@ -593,48 +637,47 @@ int make_map(CUtensorMap* map, const bf16* base, int n_b, int seq, int heads,
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
-template <int D, bool HI_ONLY>
+template <int D, int DV, bool HI_ONLY>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                 int n_b, int seq, int n_heads, int n_kv_heads, float scale,
-                 int causal, cudaStream_t st) {
-  using T = Tile<D>;
+                 int n_b, int sq, int skv, int n_heads, int n_kv_heads,
+                 float scale, int causal, cudaStream_t st) {
+  using T = Tile<D, DV>;
   CUtensorMap qm, km, vm;
-  int err = make_map(&qm, q, n_b, seq, n_heads, D, T::W, WQ);
-  if (err == 0) err = make_map(&km, k, n_b, seq, n_kv_heads, D, T::W, T::WK);
-  if (err == 0) err = make_map(&vm, v, n_b, seq, n_kv_heads, D, T::W, T::WK);
+  int err = make_map(&qm, q, n_b, sq, n_heads, D, T::W, WQ);
+  if (err == 0) err = make_map(&km, k, n_b, skv, n_kv_heads, D, T::W, T::WK);
+  if (err == 0)
+    err = make_map(&vm, v, n_b, skv, n_kv_heads, DV, T::WV, T::WK);
   if (err != 0) return err;
   static bool ready = false;     // shared memory past 48 KB, asked for once
   if (!ready) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_wgmma<D, HI_ONLY>,
+        flash_fwd_wgmma<D, DV, HI_ONLY>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     ready = true;
   }
-  const dim3 grid((seq + WQ - 1) / WQ, n_heads, n_b);
-  flash_fwd_wgmma<D, HI_ONLY><<<grid, WTHREADS, T::SMEM, st>>>(
-      qm, km, vm, o, seq, n_heads, n_kv_heads, scale * 1.4426950408889634f,
-      causal);
+  const dim3 grid((sq + WQ - 1) / WQ, n_heads, n_b);
+  flash_fwd_wgmma<D, DV, HI_ONLY><<<grid, WTHREADS, T::SMEM, st>>>(
+      qm, km, vm, o, sq, skv, n_heads, n_kv_heads,
+      scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
 // A tensor map the driver refuses returns 10000 + its CUresult.
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n_b,
-                int seq, int n_heads, int n_kv_heads, int d, float scale,
-                int causal, int bf16_probs, cudaStream_t st) {
-#define PANDADB_FLASH(DIM)                                                    \
-  case DIM:                                                                   \
+                int sq, int skv, int n_heads, int n_kv_heads, int d, int dv,
+                float scale, int causal, int bf16_probs, cudaStream_t st) {
+#define PANDADB_FLASH(DIM, DIMV)                                              \
+  case DIM * 1000 + DIMV:                                                     \
     return bf16_probs                                                         \
-               ? launch_wgmma<DIM, true>(q, k, v, o, n_b, seq, n_heads,       \
-                                         n_kv_heads, scale, causal, st)       \
-               : launch_wgmma<DIM, false>(q, k, v, o, n_b, seq, n_heads,      \
-                                          n_kv_heads, scale, causal, st);
-  switch (d) {
-    PANDADB_FLASH(16)
-    PANDADB_FLASH(32)
-    PANDADB_FLASH(64)
-    PANDADB_FLASH(128)
-    PANDADB_FLASH(160)
+               ? launch_wgmma<DIM, DIMV, true>(q, k, v, o, n_b, sq, skv,      \
+                                               n_heads, n_kv_heads, scale,    \
+                                               causal, st)                    \
+               : launch_wgmma<DIM, DIMV, false>(q, k, v, o, n_b, sq, skv,     \
+                                                n_heads, n_kv_heads, scale,   \
+                                                causal, st);
+  switch (d * 1000 + dv) {
+    PANDADB_FLASH_PAIRS(PANDADB_FLASH)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -643,44 +686,47 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n_b,
 
 }  // namespace
 
-// q [n_b, seq, n_heads, d], k and v [n_b, seq, n_kv_heads, d], o like q, all
-// contiguous, of type dtype (0 float32, 1 bfloat16; bfloat16 pointers
-// 16-byte aligned); d in {16, 32, 64, 128, 160}.  Returns cudaError_t.
+// q [n_b, sq, n_heads, d], k [n_b, skv, n_kv_heads, d], v [n_b, skv,
+// n_kv_heads, dv], o [n_b, sq, n_heads, dv], all contiguous, of type dtype
+// (0 float32, 1 bfloat16; bfloat16 pointers 16-byte aligned); (d, dv) one of
+// PANDADB_FLASH_PAIRS; skv >= 1.  Returns cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int n_b, int seq, int n_heads,
-                               int n_kv_heads, int d, int dtype, float scale,
-                               int causal, int bf16_probs, void* stream) {
-  if (n_b <= 0 || seq <= 0) return 0;
-  if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || n_heads > MAX_GRID ||
-      n_b > MAX_GRID)
+                               void* o, int n_b, int sq, int skv,
+                               int n_heads, int n_kv_heads, int d, int dv,
+                               int dtype, float scale, int causal,
+                               int bf16_probs, void* stream) {
+  if (n_b <= 0 || sq <= 0) return 0;
+  if (skv <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
+      n_heads > MAX_GRID || n_b > MAX_GRID)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == pandadb::DTYPE_F32)
     return (int)launch_f32(static_cast<const float*>(q),
                            static_cast<const float*>(k),
                            static_cast<const float*>(v),
-                           static_cast<float*>(o), n_b, seq, n_heads,
-                           n_kv_heads, d, scale, causal, bf16_probs, st);
+                           static_cast<float*>(o), n_b, sq, skv, n_heads,
+                           n_kv_heads, d, dv, scale, causal, bf16_probs, st);
   if (dtype == pandadb::DTYPE_BF16)
     return launch_bf16(static_cast<const bf16*>(q),
                        static_cast<const bf16*>(k),
                        static_cast<const bf16*>(v), static_cast<bf16*>(o), n_b,
-                       seq, n_heads, n_kv_heads, d, scale, causal, bf16_probs,
-                       st);
+                       sq, skv, n_heads, n_kv_heads, d, dv, scale, causal,
+                       bf16_probs, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Keys per tile of the kernel for dtype at head width d (0 for a width it
-// does not take): with bf16_probs each tile's weights are rounded on its own
-// running max.
-extern "C" int flash_attention_key_tile(int d, int dtype) {
-  if (dtype == pandadb::DTYPE_F32) return BK;
-  switch (d) {
-    case 16: return Tile<16>::WK;
-    case 32: return Tile<32>::WK;
-    case 64: return Tile<64>::WK;
-    case 128: return Tile<128>::WK;
-    case 160: return Tile<160>::WK;
-    default: return 0;
+// Keys per tile of the kernel for dtype at head widths (d, dv) (0 for a pair
+// it does not take): with bf16_probs each tile's weights are rounded on its
+// own running max.
+extern "C" int flash_attention_key_tile(int d, int dv, int dtype) {
+#define PANDADB_FLASH(DIM, DIMV)                                              \
+  case DIM * 1000 + DIMV:                                                     \
+    return dtype == pandadb::DTYPE_F32 ? F32_KEYS<DIM, DIMV>                  \
+                                       : Tile<DIM, DIMV>::WK;
+  switch (d * 1000 + dv) {
+    PANDADB_FLASH_PAIRS(PANDADB_FLASH)
+    default:
+      return 0;
   }
+#undef PANDADB_FLASH
 }

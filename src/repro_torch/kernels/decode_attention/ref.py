@@ -5,7 +5,8 @@ and its oracle ``decode_attention_ref``, which the Pallas
 
 Query head h attends to key head h // G (G = H / KVH) over the cache
 positions <= ``pos[b]``; later positions score -1e30.  The grouped einsum
-reads the cache once (no ``repeat_kv`` copy).  The CPU path and the tests
+reads the cache once (no ``repeat_kv`` copy); v may have its own width Dv,
+and G may be any whole number.  The CPU path and the tests
 use it; a tensor on the card goes to the CUDA kernel instead."""
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ NEG = -1.0e30
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, pos: torch.Tensor,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, 1, H, D]; caches [B, S, KVH, D]; pos [B] -> [B, 1, H, D]."""
+    """q [B, 1, H, D]; k_cache [B, S, KVH, D], v_cache [B, S, KVH, Dv];
+    pos [B] -> [B, 1, H, Dv]."""
     b, _, h, d = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh

@@ -3,12 +3,17 @@ reference's ``chunked_attention`` (``models/attention.py``), which the
 Pallas ``flash_attention_pallas`` kernel replaces on a TPU.
 
 An online softmax (running max m, sum l, accumulator acc, all fp32) over
-key blocks of ``block_kv``, so the S x S score matrix is never built.
+key blocks of ``block_kv``, so the Sq x Skv score matrix is never built.
 Masked scores are -1e30, not -inf, so a fully masked block keeps a finite
 max; l is floored at 1e-30 and the output is in q's dtype.  k and v may
 hold fewer heads than q (grouped-query attention): query head h reads key
-head h // (H / KVH), as ``repeat_kv`` would lay it out.  Any S runs: the
-last block is shorter when S is not a multiple of ``block_kv``.
+head h // (H / KVH), as ``repeat_kv`` would lay it out.  v may be narrower
+or wider than q and k (Dv != D, as MLA's prefill sends).  q may be shorter
+or longer than k and v: as in the reference, query row i sits at position
+i + Skv - Sq (right-aligned), so under ``causal`` a row at a negative
+position sees no key and its -1e30 scores give every key the same weight.
+Any Skv runs: the last block is shorter when Skv is not a multiple of
+``block_kv``.
 
 The CPU path and the tests use it; a tensor on the card goes to the CUDA
 kernel instead.  ``bf16_probs_slack`` gives the checks of the kernel (the
@@ -26,19 +31,20 @@ NEG = -1.0e30
 def _weights(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, scale: Optional[float], block_kv: int):
     """The online softmax's key blocks: yields (p, alpha, v block) for each,
-    p = exp(score - running max) [B, H, S, block] float32 and alpha [B, H,
-    S] the factor that carries what came before onto the new max."""
-    b, s, h, d = q.shape
+    p = exp(score - running max) [B, H, Sq, block] float32 and alpha [B, H,
+    Sq] the factor that carries what came before onto the new max."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
     g = h // k.shape[2]
     scale = scale if scale is not None else d ** -0.5
-    block_kv = max(1, min(block_kv, s))
-    qf = (q.float() * scale).permute(0, 2, 1, 3)              # [B,H,S,D]
+    block_kv = max(1, min(block_kv, skv))
+    qf = (q.float() * scale).permute(0, 2, 1, 3)              # [B,H,Sq,D]
     kf = k.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
     vf = v.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
-    q_pos = torch.arange(s, device=q.device)
-    m = torch.full((b, h, s), NEG, dtype=torch.float32, device=q.device)
-    for start in range(0, s, block_kv):
-        stop = min(start + block_kv, s)
+    q_pos = torch.arange(sq, device=q.device) + (skv - sq)   # right-aligned
+    m = torch.full((b, h, sq), NEG, dtype=torch.float32, device=q.device)
+    for start in range(0, skv, block_kv):
+        stop = min(start + block_kv, skv)
         sc = torch.matmul(qf, kf[:, :, start:stop].transpose(-1, -2))
         if causal:
             k_pos = torch.arange(start, stop, device=q.device)
@@ -54,11 +60,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None,
                         bf16_probs: bool = False, block_kv: int = 1024
                         ) -> torch.Tensor:
-    """q [B, S, H, D]; k, v [B, S, KVH, D] with KVH dividing H ->
-    [B, S, H, D] in q's dtype."""
-    b, s, h, d = q.shape
-    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    """q [B, Sq, H, D]; k [B, Skv, KVH, D], v [B, Skv, KVH, Dv] with KVH
+    dividing H -> [B, Sq, H, Dv] in q's dtype."""
+    b, sq, h, _ = q.shape
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     for p, alpha, vb in _weights(q, k, v, causal, scale, block_kv):
         l = l * alpha + p.sum(dim=-1)
         if bf16_probs:
@@ -77,16 +84,17 @@ def bf16_probs_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention_ref(..., bf16_probs=True, block_kv=block_kv)`` when
     its float32 weights differ from the plain version's by at most ``rel``
     of themselves (float32 noise: scores summed in another order, the scale
-    folded into an exp2): [B, S, H, D] float32.
+    folded into an exp2): [B, Sq, H, Dv] float32.
 
     Only a weight p within ``rel * p`` of a midpoint between two bf16 values
     can round to the other neighbour, one bf16 ulp away; it moves the output
     by ulp * |v| / l.  The slack is the sum of those moves over every such
     weight, so a limit of atol + rtol |want| + slack still fails a kernel
     that drops a key tile on long rows, where l is large."""
-    b, s, h, d = q.shape
-    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
-    slack = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    b, sq, h, _ = q.shape
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    slack = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32,
+                        device=q.device)
     for p, alpha, vb in _weights(q, k, v, causal, scale, block_kv):
         l = l * alpha + p.sum(dim=-1)
         mant, ex = torch.frexp(p)          # p = mant 2^ex, mant in [0.5, 1)

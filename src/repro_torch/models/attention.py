@@ -6,10 +6,14 @@ the card both functions are the hand-written kernels
 their plain versions, which repeat the reference's arithmetic.
 
 * ``chunked_attention`` -- online softmax over KV blocks; never builds the
-  S x S score matrix.  k and v may hold fewer heads than q (GQA): the
+  Sq x Skv score matrix.  k and v may hold fewer heads than q (GQA): the
   kernel reads key head h // (H / KVH), so no ``repeat_kv`` copy is made.
+  v may have its own width Dv (MLA's prefill), and q may be shorter or
+  longer than k and v (its rows right-aligned, as the reference does).
 * ``decode_attention`` -- one query token against the KV cache, masked past
   ``pos``; the cache is read once for the G query heads of each key head.
+
+Both serve head widths up to 256 and raise past them.
 """
 from __future__ import annotations
 
@@ -36,10 +40,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, block_kv: int = 1024,
                       scale: Optional[float] = None,
                       bf16_probs: bool = False) -> torch.Tensor:
-    """q [B, S, H, D]; k, v [B, S, KVH, D] -> [B, S, H, D].  fp32
-    accumulation; ``bf16_probs`` rounds the softmax weights to bf16 before
-    P.V.  Sq must equal Skv (the reference right-aligns the query positions,
-    a no-op at equal lengths)."""
+    """q [B, Sq, H, D]; k [B, Skv, KVH, D], v [B, Skv, KVH, Dv] ->
+    [B, Sq, H, Dv].  Query row i sits at position i + Skv - Sq (causal masks
+    the keys past it).  fp32 accumulation; ``bf16_probs`` rounds the
+    softmax weights to bf16 before P.V."""
     return flash_attention(q, k, v, causal=causal, scale=scale,
                            bf16_probs=bf16_probs, block_kv=block_kv)
 
@@ -47,6 +51,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, 1, H, D]; caches [B, S, KVH, D]; pos [B] (index of the new
-    token) -> [B, 1, H, D], keys past ``pos`` masked."""
+    """q [B, 1, H, D]; k_cache [B, S, KVH, D], v_cache [B, S, KVH, Dv]; pos
+    [B] (index of the new token) -> [B, 1, H, Dv], keys past ``pos``
+    masked."""
     return _decode_kernel(q, k_cache, v_cache, pos, scale=scale)

@@ -418,17 +418,17 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d, causal,
 
 
 @pytest.mark.parametrize("s", [1, 33, 64, 257, 1000])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 192, 256])
 @pytest.mark.parametrize("h,kvh", [(8, 2), (4, 4)])
 @pytest.mark.parametrize("bf16_probs", [False, True])
 def test_flash_wgmma_kernel_every_width(cuda, s, d, h, kvh, bf16_probs):
-    """The bf16 wgmma kernel at every head width of HEAD_DIMS, short and
+    """The bf16 wgmma kernel at every equal width of HEAD_DIMS, short and
     ragged S, GQA and MHA, causal and not, against the plain version
     rounding on the kernel's key tiles."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (bf16_probs_slack,
                                                          flash_attention_ref)
-    assert d in flash_ops.HEAD_DIMS
+    assert (d, d) in flash_ops.HEAD_DIMS
     gen = torch.Generator().manual_seed(s * 1000 + d + h)
     q = _randn(gen, 2, s, h, d, dtype=torch.bfloat16, device=cuda)
     k = _randn(gen, 2, s, kvh, d, dtype=torch.bfloat16, device=cuda)
@@ -446,6 +446,46 @@ def test_flash_wgmma_kernel_every_width(cuda, s, d, h, kvh, bf16_probs):
         torch.cuda.synchronize()
         assert flash_ops.launches.n == before + 1
         _assert_attn_close(got, want, ATTN_TOL[torch.bfloat16], slack)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,dv,causal,bf16_probs", [
+    (1, 100, 300, 8, 2, 128, 128, True, False),   # Sq < Skv
+    (1, 130, 257, 4, 4, 64, 64, False, True),
+    (2, 300, 100, 4, 2, 64, 64, True, False),     # Sq > Skv
+    (1, 200, 200, 8, 2, 192, 128, True, False),   # MLA's prefill widths
+    (1, 200, 333, 8, 2, 192, 128, True, True),
+    (1, 64, 64, 4, 2, 32, 16, True, False),       # Dv padded to 32
+    (1, 100, 100, 4, 1, 80, 80, True, False),     # D padded to 128
+    (1, 129, 129, 4, 2, 256, 256, True, False),
+    (1, 70, 150, 4, 2, 192, 192, False, True),
+    (2, 50, 90, 6, 3, 100, 7, True, False),       # both padded
+])
+def test_flash_kernel_serves_the_reference_shapes(cuda, dtype, b, sq, skv, h,
+                                                  kvh, d, dv, causal,
+                                                  bf16_probs):
+    """Unequal lengths, Dv != D and widths outside the compiled pairs, on
+    the kernel (one launch, any padding made by the wrapper) against the
+    plain version at the true widths."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (bf16_probs_slack,
+                                                         flash_attention_ref)
+    gen = torch.Generator().manual_seed(sq * 7 + skv + d + dv)
+    q = _randn(gen, b, sq, h, d, dtype=dtype, device=cuda)
+    k = _randn(gen, b, skv, kvh, d, dtype=dtype, device=cuda)
+    v = _randn(gen, b, skv, kvh, dv, dtype=dtype, device=cuda)
+    before = flash_ops.launches.n
+    got = flash_ops.flash_attention(q, k, v, causal=causal,
+                                    bf16_probs=bf16_probs)
+    kt = flash_ops.key_tile(d, dtype, dv)
+    want = flash_attention_ref(q, k, v, causal=causal, bf16_probs=bf16_probs,
+                               block_kv=kt)
+    slack = bf16_probs_slack(q, k, v, causal=causal, block_kv=kt) \
+        if bf16_probs else 0.0
+    torch.cuda.synchronize()
+    assert flash_ops.launches.n == before + 1
+    assert got.dtype == dtype and got.shape == (b, sq, h, dv)
+    _assert_attn_close(got, want, ATTN_TOL[dtype], slack)
 
 
 def _select_inputs(case):
@@ -511,28 +551,38 @@ def test_ivf_kernel_query_chunks(cuda, monkeypatch, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,kvh,d,n_splits", [
-    (2, 1000, 8, 2, 64, 8), (3, 4096, 32, 8, 128, 8), (2, 77, 16, 2, 160, 3),
-    (1, 300, 8, 1, 128, 4), (4, 513, 4, 4, 32, 5), (2, 10, 4, 2, 16, 8),
+@pytest.mark.parametrize("b,s,h,kvh,d,dv", [
+    (2, 1000, 8, 2, 64, 64), (3, 4096, 32, 8, 128, 128),
+    (2, 77, 16, 2, 160, 160), (1, 300, 8, 1, 128, 128), (4, 513, 4, 4, 32, 32),
+    (2, 10, 4, 2, 16, 16),
+    (2, 1000, 8, 2, 64, 32),        # Dv != D
+    (2, 700, 16, 2, 192, 128),      # MLA's widths
+    (2, 600, 32, 2, 64, 64),        # G = 16
+    (3, 900, 8, 4, 96, 96),         # a width outside the old list
+    (2, 500, 24, 1, 20, 36),        # G = 24 (two row groups), rows of
+                                    # 40 / 72 bytes in bf16: element copies
+    (2, 333, 4, 1, 256, 256),       # the widest
+    (1, 2000, 2, 2, 8, 8),          # G = 1
 ])
-def test_decode_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d, n_splits):
-    """pos = S - 1 (every key), pos = 0 (one key, every split but the first
-    masked out) and random positions in between."""
+def test_decode_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d, dv):
+    """pos = S - 1 (every key), pos = 0 (one key, every chunk but the first
+    skipped) and random positions in between."""
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     gen = torch.Generator().manual_seed(s + h + d)
     q = _randn(gen, b, 1, h, d, dtype=dtype, device=cuda)
     k = _randn(gen, b, s, kvh, d, dtype=dtype, device=cuda)
-    v = _randn(gen, b, s, kvh, d, dtype=dtype, device=cuda)
+    v = _randn(gen, b, s, kvh, dv, dtype=dtype, device=cuda)
     pos = torch.randint(0, s, (b,), generator=gen, dtype=torch.int32)
     pos[0] = s - 1
     pos[-1] = 0
     pos = pos.to(cuda)
     before = decode_ops.launches.n
-    got = decode_ops.decode_attention(q, k, v, pos, n_splits=n_splits)
+    got = decode_ops.decode_attention(q, k, v, pos)
     want = decode_attention_ref(q, k, v, pos)
     torch.cuda.synchronize()
     assert decode_ops.launches.n == before + 1
+    assert got.shape == (b, 1, h, dv)
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
 
 

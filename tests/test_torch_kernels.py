@@ -710,12 +710,112 @@ def test_flash_limit_fails_a_dropped_key_tile(bf16_probs):
 
 
 def test_flash_rejects_unequal_lengths():
+    """k and v of unequal lengths (or heads) do not fit; q may be shorter
+    or longer than them (test_flash_plain_unequal_lengths_match_chunked)."""
     q = torch.zeros(1, 8, 2, 16)
     k = torch.zeros(1, 12, 2, 16)
-    with pytest.raises(ValueError, match="Sq=8"):
-        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="v \\[B,Skv,KVH,Dv\\]"):
+        flash_attention(q, k, torch.zeros(1, 8, 2, 16))
+    with pytest.raises(ValueError, match="v \\[B,Skv,KVH,Dv\\]"):
+        flash_attention(q, k, torch.zeros(1, 12, 1, 16))
     with pytest.raises(ValueError, match="KVH must divide H"):
         flash_attention(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
+
+
+def _chunked_ref(q, k, v, causal, block_kv=None, bf16_probs=False):
+    """The reference chunked_attention on repeat_kv'd k and v, numpy out."""
+    g = q.shape[2] // k.shape[2]
+    blk = block_kv or k.shape[1]
+    return np.asarray(chunked_jax(
+        jnp.asarray(q), repeat_kv_jax(jnp.asarray(k), g),
+        repeat_kv_jax(jnp.asarray(v), g), causal=causal, block_kv=blk,
+        bf16_probs=bf16_probs))
+
+
+def _qkv(seed, b, sq, skv, h, kvh, d, dv):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, d)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, dv)).astype(np.float32))
+
+
+# the two-sided attention tests below: float32 sums in another order
+ATTN_ABS = dict(rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("sq,skv", [(4, 8), (16, 64), (1, 37)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_unequal_lengths_match_chunked(sq, skv, causal):
+    """q shorter than k and v: its rows right-aligned at i + Skv - Sq, as
+    the reference's chunked_attention places them."""
+    q, k, v = _qkv(sq * 100 + skv, 2, sq, skv, 4, 2, 32, 32)
+    port = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                           causal=causal, block_kv=8)
+    assert port.shape == (2, sq, 4, 32)
+    np.testing.assert_allclose(port.numpy(), _chunked_ref(q, k, v, causal),
+                               **ATTN_ABS)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_longer_queries_match_chunked(causal):
+    """q longer than k and v: under causal the rows at negative positions
+    see no key, and the reference's -1e30 scores weigh every key alike."""
+    q, k, v = _qkv(3, 1, 12, 4, 2, 1, 16, 16)
+    port = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                           causal=causal, block_kv=3)
+    np.testing.assert_allclose(port.numpy(), _chunked_ref(q, k, v, causal),
+                               **ATTN_ABS)
+    if causal:       # row 0 sits at position -8: the mean of the values
+        np.testing.assert_allclose(port.numpy()[0, 0, 0], v[0, :, 0].mean(0),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("d,dv", [(32, 16), (192, 128), (16, 48)])
+@pytest.mark.parametrize("bf16_probs", [False, True])
+def test_flash_plain_value_width_matches_chunked(d, dv, bf16_probs):
+    """v at its own width Dv (MLA's prefill: q and k at 192, v at 128)."""
+    q, k, v = _qkv(d + dv, 2, 40, 40, 4, 2, d, dv)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    port = flash_attention(tq, tk, tv, bf16_probs=bf16_probs, block_kv=8)
+    assert port.shape == (2, 40, 4, dv)
+    want = torch.from_numpy(np.array(_chunked_ref(q, k, v, True, 8,
+                                                  bf16_probs)))
+    # bf16 weights: a weight within float32 noise of a bf16 midpoint may
+    # round either way, by at most the slack
+    slack = bf16_probs_slack(tq, tk, tv, block_kv=8) if bf16_probs else 0.0
+    assert _within(port, want, slack, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,dv", [(80, 80), (80, 48), (100, 7)])
+def test_flash_plain_unlisted_width_matches_chunked(d, dv):
+    """Widths the kernel is not compiled for (on the card they are padded
+    with zero columns) agree with the reference at their own widths, the
+    scale that of the true D."""
+    q, k, v = _qkv(d, 1, 24, 24, 4, 1, d, dv)
+    port = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    np.testing.assert_allclose(port.numpy(), _chunked_ref(q, k, v, True),
+                               **ATTN_ABS)
+
+
+@pytest.mark.parametrize("d,dv,want", [(16, 16, (16, 16)), (80, 80, (128, 128)),
+                                       (192, 100, (192, 128)), (1, 200, (256, 256)),
+                                       (161, 161, (192, 192)), (48, 16, (64, 64))])
+def test_flash_pads_to_the_smallest_compiled_pair(d, dv, want):
+    assert flash_ops.compiled_dims(d, dv) == want
+    assert want in flash_ops.HEAD_DIMS
+
+
+@pytest.mark.parametrize("d,dv", [(288, 288), (64, 320), (0, 16)])
+def test_attention_rejects_heads_past_256(d, dv):
+    """A deliberate narrowing: the kernels take head widths up to 256, so
+    the port serves no wider head, on the CPU either."""
+    with pytest.raises(ValueError, match="not served"):
+        flash_attention(torch.zeros(1, 4, 2, d), torch.zeros(1, 4, 2, d),
+                        torch.zeros(1, 4, 2, dv))
+    if d:
+        with pytest.raises(ValueError, match="not served"):
+            decode_attention(torch.zeros(1, 1, 2, d), torch.zeros(1, 4, 2, d),
+                             torch.zeros(1, 4, 2, dv), torch.tensor([1]))
 
 
 def test_flash_on_cpu_never_launches(monkeypatch):
@@ -747,8 +847,7 @@ def test_decode_plain_matches_pallas_and_model(b, s, h, kvh, d, splits, bs):
     pallas = decode_attention_pallas(*jx, n_splits=splits, block_s=bs,
                                      interpret=True)
     model = decode_jax(*jx)
-    port = decode_attention(*(torch.from_numpy(x) for x in (q, k, v, pos)),
-                            n_splits=splits)
+    port = decode_attention(*(torch.from_numpy(x) for x in (q, k, v, pos)))
     np.testing.assert_allclose(port.numpy(), np.asarray(pallas), **ATTN_F32)
     np.testing.assert_allclose(port.numpy(), np.asarray(model), rtol=1e-5,
                                atol=1e-5)
@@ -790,39 +889,76 @@ def test_decode_plain_bf16_matches_pallas():
 
 def test_decode_split_partials_combine_to_plain():
     """The CUDA design in plain torch: each row's visible keys [0, pos]
-    cut into n_splits splits of ceil((pos + 1) / n_splits) keys, a partial
-    (m, l, acc) per split, a split left without keys giving (-1e30, 0, 0),
-    combined as the reference's epilogue does, equals the plain version,
-    ragged last split and pos past S included."""
+    cut into chunks of C keys (the last one shorter), each chunk's partial
+    (m, l, acc) taken in stages of 64 keys with one online-softmax step a
+    stage, and only the row's ceil(n_vis / C) chunks combined as the
+    reference's epilogue does, equals the plain version, Dv != D and pos
+    past S included."""
     rng = np.random.default_rng(4)
-    b, s, h, kvh, d, n_splits = 4, 1000, 8, 2, 32, 7
+    b, s, h, kvh, d, dv, c, tk = 4, 1000, 8, 2, 32, 24, 256, 64
     q = torch.from_numpy(rng.standard_normal((b, 1, h, d)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((b, s, kvh, d)).astype(np.float32))
-    v = torch.from_numpy(rng.standard_normal((b, s, kvh, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, s, kvh, dv))
+                         .astype(np.float32))
     pos = torch.tensor([0, 3, 500, s + 5], dtype=torch.int32)
     g = h // kvh
     qg = (q * d ** -0.5).reshape(b, kvh, g, d)
-    m = torch.full((n_splits, b, kvh, g), -1e30)
-    l = torch.zeros(n_splits, b, kvh, g)
-    acc = torch.zeros(n_splits, b, kvh, g, d)
+    out = torch.zeros(b, kvh, g, dv)
     for bi in range(b):
         n_vis = min(s, int(pos[bi]) + 1)
-        split = -(-n_vis // n_splits)
-        for sp in range(n_splits):
-            lo, hi = min(sp * split, n_vis), min((sp + 1) * split, n_vis)
-            if hi <= lo:
-                continue                      # no keys: weight 0
-            sc = torch.einsum("kgd,skd->kgs", qg[bi], k[bi, lo:hi])
-            m[sp, bi] = sc.amax(-1)
-            p = torch.exp(sc - m[sp, bi][..., None])
-            l[sp, bi] = p.sum(-1)
-            acc[sp, bi] = torch.einsum("kgs,skd->kgd", p, v[bi, lo:hi])
-    w = torch.exp(m - m.amax(0))
-    out = (acc * w[..., None]).sum(0) / torch.clamp(
-        (l * w).sum(0), min=1e-30)[..., None]
-    np.testing.assert_allclose(out.reshape(b, 1, h, d).numpy(),
+        parts = []
+        for lo in range(0, n_vis, c):          # chunks past n_vis: no block
+            m = torch.full((kvh, g), -1e30)
+            l = torch.zeros(kvh, g)
+            acc = torch.zeros(kvh, g, dv)
+            for t0 in range(lo, min(lo + c, n_vis), tk):
+                t1 = min(t0 + tk, lo + c, n_vis)
+                sc = torch.einsum("kgd,skd->kgs", qg[bi], k[bi, t0:t1])
+                m_new = torch.maximum(m, sc.amax(-1))
+                p = torch.exp(sc - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "kgs,skd->kgd", p, v[bi, t0:t1])
+                m = m_new
+            parts.append((m, l, acc))
+        assert len(parts) == -(-n_vis // c)
+        m, l, acc = (torch.stack(x) for x in zip(*parts))
+        w = torch.exp(m - m.amax(0))
+        out[bi] = (acc * w[..., None]).sum(0) / torch.clamp(
+            (l * w).sum(0), min=1e-30)[..., None]
+    np.testing.assert_allclose(out.reshape(b, 1, h, dv).numpy(),
                                decode_attention_ref(q, k, v, pos).numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,kvh,d,dv", [
+    (8, 2, 64, 32),      # Dv != D
+    (16, 2, 192, 128),   # MLA's widths
+    (32, 2, 64, 64),     # G = 16
+    (8, 4, 96, 96),      # a width the old kernel did not take
+    (24, 1, 20, 36),     # G = 24 (two row groups on the card), odd widths
+])
+def test_decode_plain_widths_and_groups_match_reference(h, kvh, d, dv):
+    """Dv != D, G past 8 and widths outside the old kernel's list, against
+    the reference model's decode_attention and, where v has q's width, the
+    Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(h + d + dv)
+    b, s = 3, 300
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, dv)).astype(np.float32)
+    pos = np.asarray([s - 1, 0, 137], np.int32)
+    jx = [jnp.asarray(x) for x in (q, k, v, pos)]
+    port = decode_attention(*(torch.from_numpy(x) for x in (q, k, v, pos)))
+    assert port.shape == (b, 1, h, dv)
+    np.testing.assert_allclose(port.numpy(), np.asarray(decode_jax(*jx)),
+                               rtol=0, atol=1e-5)
+    if d == dv:
+        pallas = decode_attention_pallas(*jx, n_splits=3, block_s=100,
+                                         interpret=True)
+        np.testing.assert_allclose(port.numpy(), np.asarray(pallas), rtol=0,
+                                   atol=1e-5)
 
 
 def test_decode_on_cpu_never_launches(monkeypatch):

@@ -156,6 +156,52 @@ def test_repeat_kv_matches_reference(n_rep):
         np.asarray(ref_repeat_kv(jnp.asarray(k), n_rep)))
 
 
+@pytest.mark.parametrize("sq,skv,d,dv", [
+    (40, 40, 32, 16), (40, 40, 192, 128),      # Dv != D (MLA's prefill)
+    (4, 8, 32, 32), (16, 64, 32, 32),          # Sq < Skv
+    (24, 24, 80, 80),                           # a width the kernel pads
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_attention_matches_reference(sq, skv, d, dv, causal):
+    """The model layer's chunked_attention at every shape the reference's
+    serves: the reference on repeat_kv'd keys and values (its k takes H
+    heads), the port's on the grouped ones, within 1e-5."""
+    from repro.models.attention import chunked_attention as ref_chunked
+    from repro.models.attention import repeat_kv as ref_repeat_kv
+    from repro_torch.models.attention import chunked_attention
+    rng = np.random.default_rng(sq + skv + d + dv)
+    h, kvh = 4, 2
+    q = rng.standard_normal((2, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((2, skv, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((2, skv, kvh, dv)).astype(np.float32)
+    ref = ref_chunked(jnp.asarray(q), ref_repeat_kv(jnp.asarray(k), 2),
+                      ref_repeat_kv(jnp.asarray(v), 2), causal=causal,
+                      block_kv=8)
+    port = chunked_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                             causal=causal, block_kv=8)
+    assert port.shape == (2, sq, h, dv)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("h,kvh,d,dv", [(8, 2, 64, 32), (16, 2, 192, 128),
+                                        (32, 2, 32, 32), (8, 2, 96, 96)])
+def test_decode_attention_matches_reference(h, kvh, d, dv):
+    """The model layer's decode_attention at Dv != D, G = 16 and D = 96."""
+    from repro.models.attention import decode_attention as ref_decode
+    from repro_torch.models.attention import decode_attention
+    rng = np.random.default_rng(h * d + dv)
+    b, s = 2, 70
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, dv)).astype(np.float32)
+    pos = np.asarray([s - 1, 33], np.int32)
+    ref = ref_decode(*(jnp.asarray(x) for x in (q, k, v, pos)))
+    port = decode_attention(*(torch.from_numpy(x) for x in (q, k, v, pos)))
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5)
+
+
 def test_init_statistics():
     """Truncated normal at +-2 sigma with sigma = fan_in^-1/2; embedding
     0.02 * normal; drawn from the generator given."""
