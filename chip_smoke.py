@@ -5,7 +5,7 @@
                           [--out results.json]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all at once), then runs seven phases and fails if any fails:
+per source, all at once), then runs ten phases and fails if any fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
    version on the card, at the main paths' shapes (IVF: Q in {256, 930}, N =
@@ -22,23 +22,28 @@ per source, all at once), then runs seven phases and fails if any fails:
    masks and int64 ids past 2**31.  Integer-valued vectors keep the IVF sums
    exact, the PQ sums run in the plain version's order and the merge does no
    arithmetic, so ids must be equal and max |delta| <= 1e-4 (0 for the
-   merge).  The attention kernels run at the LM path's shapes (flash: B=8,
-   S=4,096, 32/8 heads of 128, bf16, plus the phi forward's S=64, a ragged
-   S, head width 160, each with the float32-faithful weights and with
-   ``bf16_probs``, and a float32 case; decode: B=8 over a 32,768-position
-   cache with positions spread over it, at the LM path's positions, head
-   width 160, float32) and at the other shapes the reference serves (flash:
-   512 queries against 4,096 keys, MLA's prefill at 128 heads with q and k
-   at 192 and v at 128, a padded width of 80; decode: MLA's widths, 16
-   query heads per key head, width 96 in float32), within rtol=1e-2,
-   atol=1e-4 in bf16 (one bf16 ulp of
+   merge).  The attention kernels run at the LM paths' shapes (flash:
+   llama3-8b's prefill, B=8, S=4,096, 32/8 heads of 128, bf16, plus the phi
+   forward's S=64, a ragged S, head width 160, each with the
+   float32-faithful weights and with ``bf16_probs``, and a float32 case;
+   deepseek-moe-16b's prefill, 16/16 heads; deepseek-v2's MLA prefill at
+   B=8, 128 heads, q and k at 192, v at 128; decode: B=8 over a
+   32,768-position cache with positions spread over it, at the LM path's
+   positions, head width 160, float32; deepseek-moe-16b's decode, B=4, 16/16
+   heads, spread and at its path's positions) and at the other shapes the
+   reference serves (flash: 512 queries against 4,096 keys, MLA's prefill at
+   B=1, a padded width of 80; decode: MLA's widths, 16 query heads per key
+   head, width 96 in float32), within rtol=1e-2, atol=1e-4 in bf16 (one
+   bf16 ulp of
    the output; with ``bf16_probs`` plus the slack of the weights that sit
    within 2^-12 of a bf16 midpoint and may round the other way on either
    side) and 1e-4 in float32; in each bf16 case, in both modes, a planted
    fault, the values of 32 keys zeroed, must fail that limit on the longest
    rows.  Prints kernel, plain and library (one PyTorch call of the same
    function) times and the bounds (for flash also the floor of its
-   two-product P.V, for PQ the shared-memory floor of its gathers).
+   two-product P.V, for PQ the shared-memory floor of its gathers); the
+   MoE and MLA paths' attention cases also in device time (torch.profiler,
+   kernel and SDPA).
 2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
    persons (100,000 by default) with 128-d faces and the IVF-Flat face
    index; a ``QueryServer`` answers the semantic and structured requests
@@ -67,25 +72,42 @@ per source, all at once), then runs seven phases and fails if any fails:
    20 of them near-duplicates of 20 planted anchors, the LM registered as
    ``textvec`` through ``model_embedding_extractor``, the index built; the
    similarity query from the anchors must return every twin.
-6. parity: the serving requests at 5,000 persons, and the cluster's
+6. moe-lm: ``LM(deepseek-moe-16b)`` at full width and depth (28 layers, 64
+   routed + 2 shared experts, top-6, bf16, ~32.8 GB), the same prefill,
+   then 16 greedy steps at B = 4 (decode_32k's B = 128 cut: its cache would
+   take ~960 GB) over a 32,768-position cache holding the prefill's first
+   four rows (~30 GB).  Each decode step's floor, every weight read once
+   (every expert runs over its capacity), is printed beside it.
+7. mla-lm: ``LM(deepseek-v2-236b)`` at full width, cut to 5 layers (the
+   dense layer 0 and 4 MoE layers, ~34.6 GB; all 60 take ~472 GB): MLA at
+   128 heads, 160 routed + 2 shared experts; the same prefill, 16 greedy
+   steps at B = 8 over a 32,768-position latent cache.
+8. distributed: a world of one NCCL rank (NCCL takes one rank per card):
+   ``sharded_topk`` over 200,000 rows (d = 128, Q = 256, k in {10, 100})
+   must return ``scan_topk``'s ids over the whole corpus;
+   ``partial_softmax_combine`` must agree within 1e-4 with
+   ``decode_attention`` on the same q, K, V and with the plain softmax.
+9. parity: the serving requests at 5,000 persons, and the cluster's
    requests and kNN at 5,000 persons, card against CPU: rows identical,
    kNN ids identical wherever neighbouring scores differ by more than 1e-4.
-7. lm parity: a 2-layer float32 cut of llama3-8b with the same weights on
-   the card and the CPU: logits within 1e-4, greedy tokens identical.  Then
-   llama3-8b cut to 2 layers at full width in bf16, on the card through the
-   kernels and through their plain versions: logits within two bf16 ulps of
-   the largest logit, greedy tokens identical wherever the top two logits
-   are further apart than that.
+10. lm parity, for llama3-8b, deepseek-moe-16b and deepseek-v2-236b: a
+   2-layer float32 cut (d_model 128) with the same weights on the card and
+   the CPU: logits within 1e-4, greedy tokens identical.  Then each arch
+   cut to 2 layers at full width in bf16, on the card through the kernels
+   and through their plain versions (the plain run replays the kernel
+   run's expert choices): logits within two bf16 ulps of the largest
+   logit, greedy tokens identical wherever the top two logits are further
+   apart than that.
 
 Launch counts are zeroed just before each main path (phases 2-3, the
-single node; phase 4, the cluster; phase 5, the LM) and read just after it;
-every kernel of a path must have launched on it.  ``--profile`` runs each
-serving request, each PQ search mode, one cluster kNN, one fan-out request,
-one prefill and one decode step once more, after the main path's run and
-uncounted, under ``torch.profiler`` and ``cProfile``: host wall time,
-device busy time (CUDA kernels and copies, which run on one stream), the
-idle share ``1 - busy / wall``, and the kernels and host functions that
-took the most time.
+single node; phase 4, the cluster; phases 5, 6, 7 and 8, each alone) and
+read just after it; every kernel of a path must have launched on it.
+``--profile`` runs each serving request, each PQ search mode, one cluster
+kNN, one fan-out request, and one prefill and one decode step of each LM
+once more, after the main path's run and uncounted, under
+``torch.profiler`` and ``cProfile``: host wall time, device busy time (CUDA
+kernels and copies, which run on one stream), the idle share ``1 - busy /
+wall``, and the kernels and host functions that took the most time.
 
 The second-to-last line holds the kernels' numbers as JSON, the line before
 it the card's name and power limit; the last line is
@@ -163,6 +185,24 @@ def time_ms(torch, fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, runs: int = 20) -> float:
+    """Device time of one call of ``fn``: the time its kernels ran on the
+    card under ``torch.profiler`` over ``runs`` calls after one warm-up,
+    divided by ``runs`` (no host time in it).  ``kernel_phase.py`` keeps
+    its own copy, since it also drives older checkouts' phase 1."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    return us / 1e3 / runs
 
 
 def profiled(torch, fn, top: int = 5) -> dict:
@@ -542,6 +582,10 @@ def kernel_topk_merge(torch, dev):
 # outputs near zero.  float32: sums in another order than the plain version.
 ATTN_TOL = {"bfloat16": (1e-2, 1e-4), "float32": (1e-4, 1e-4)}
 FAULT_KEYS = 32                 # keys a planted fault zeroes (<= a key tile)
+# the attention cases of the MoE and MLA paths, also timed on the device
+# alone (torch.profiler), kernel and SDPA
+DEVICE_MS_CASES = {"moe_prefill", "mla_prefill_b8", "moe_spread",
+                   "moe_lm_path"}
 
 
 def attn_err(got, want, dtype_name: str, slack=0.0):
@@ -595,9 +639,14 @@ def kernel_flash_attention(torch, dev):
              ("parity_f32", 2, 37, 37, 4, 2, 32, 32, f32),
              ("sq_below_skv", 8, 512, 4096, 32, 8, 128, 128, bf),
              ("mla_prefill", 1, 4096, 4096, 128, 128, 192, 128, bf),
-             ("padded_d80", 2, 1024, 1024, 32, 8, 80, 80, bf)]
+             ("padded_d80", 2, 1024, 1024, 32, 8, 80, 80, bf),
+             ("moe_prefill", 8, 4096, 4096, 16, 16, 128, 128, bf),
+             ("mla_prefill_b8", 8, 4096, 4096, 128, 128, 192, 128, bf)]
     worst, main, table = 0.0, None, {}
     for label, b, sq, skv, h, kvh, d, dv, dt in cases:
+        # the plain version's key block for its timing: 256 at MLA's B = 8,
+        # whose [B, H, Sq, 1,024] float32 blocks would take ~17 GB apiece
+        plain_block = 256 if label == "mla_prefill_b8" else 1024
         q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dt)
         k = torch.randn(b, skv, kvh, d, device=dev, generator=gen).to(dt)
         v = torch.randn(b, skv, kvh, dv, device=dev, generator=gen).to(dt)
@@ -621,6 +670,8 @@ def kernel_flash_attention(torch, dev):
             torch.arange(sq, device=dev)[:, None] + (skv - sq)
             >= torch.arange(skv, device=dev)[None, :]))
         lib_ms = time_ms(torch, lambda: sdpa(torch, q, k, v, **mask))
+        lib_dev = device_ms(torch, lambda: sdpa(torch, q, k, v, **mask)) \
+            if label in DEVICE_MS_CASES else None
         modes = (False, True) if dt == torch.bfloat16 else (False,)
         row = {}
         for probs in modes:
@@ -637,7 +688,10 @@ def kernel_flash_attention(torch, dev):
             ms = time_ms(torch, lambda: flash_attention(q, k, v,
                                                         bf16_probs=probs))
             plain_ms = time_ms(torch, lambda: flash_attention_ref(
-                q, k, v, bf16_probs=probs))
+                q, k, v, bf16_probs=probs, block_kv=plain_block))
+            dev_ms = device_ms(torch, lambda: flash_attention(
+                q, k, v, bf16_probs=probs)) \
+                if label in DEVICE_MS_CASES else None
             tag = "bf16_probs" if probs else "f32_probs"
             extra = f" split_floor_ms={split_ms:.4f}" \
                 if dt == torch.bfloat16 and not probs else ""
@@ -651,6 +705,9 @@ def kernel_flash_attention(torch, dev):
                 extra = (f" past_one_ulp={over} slack_max="
                          f"{float(slack.max())} slack_mean="
                          f"{float(slack.mean()):.3g}")
+            if dev_ms is not None:
+                extra += (f" device_ms={dev_ms:.4f} library_device_ms="
+                          f"{lib_dev:.4f}")
             log(f"[kernels] flash_attention {label} B={b} Sq={sq} Skv={skv} "
                 f"H={h} KVH={kvh} D={d} Dv={dv} {name} {tag}: max_abs_err={err} "
                 f"within_tol={ok} ms={ms:.3f} plain_ms={plain_ms:.3f} "
@@ -659,7 +716,8 @@ def kernel_flash_attention(torch, dev):
             check(ok, f"flash_attention {label} {tag} off its plain version "
                   f"by {err}")
             row[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                            device_ms=dev_ms, library_device_ms=lib_dev)
             del got
             fault = {}
             if dt == torch.bfloat16:
@@ -722,7 +780,9 @@ def kernel_decode_attention(torch, dev):
              ("parity_f32", 2, 45, 4, 2, 32, 32, f32, None),
              ("mla_widths", 8, 8192, 32, 8, 192, 128, bf, None),
              ("group_16", 8, 32768, 32, 2, 128, 128, bf, None),
-             ("odd_f32", 4, 4096, 16, 4, 96, 96, f32, None)]
+             ("odd_f32", 4, 4096, 16, 4, 96, 96, f32, None),
+             ("moe_spread", 4, 32768, 16, 16, 128, 128, bf, None),
+             ("moe_lm_path", 4, 32768, 16, 16, 128, 128, bf, 4100)]
     worst, main, table = 0.0, None, {}
     for label, b, s, h, kvh, d, dv, dt, at in cases:
         q = torch.randn(b, 1, h, d, device=dev, generator=gen).to(dt)
@@ -748,6 +808,12 @@ def kernel_decode_attention(torch, dev):
                 )[:, None, None, :]
         lib_ms = time_ms(torch, lambda: sdpa(torch, q, kc, vc,
                                              attn_mask=mask))
+        dev_t = {}
+        if label in DEVICE_MS_CASES:
+            dev_t = dict(device_ms=device_ms(
+                torch, lambda: decode_attention(q, kc, vc, pos)),
+                library_device_ms=device_ms(
+                    torch, lambda: sdpa(torch, q, kc, vc, attn_mask=mask)))
         # the function depends on the cache rows at positions <= pos only:
         # a key row and a value row a key head, 2D + 2Dv operations a head
         vis = float(torch.clamp(pos.long() + 1, max=s).sum())
@@ -760,7 +826,8 @@ def kernel_decode_attention(torch, dev):
             f"KVH={kvh} D={d} Dv={dv} {name} visible_keys={int(vis)}: "
             f"max_abs_err={err} within_tol={ok} ms={ms:.3f} "
             f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"bound_ms={b_ms:.4f} ({b_by})"
+            + "".join(f" {k}={v:.4f}" for k, v in dev_t.items()))
         check(ok, f"decode_attention {label} off its plain version by {err}")
         fault = {}
         if dt == torch.bfloat16:
@@ -784,7 +851,7 @@ def kernel_decode_attention(torch, dev):
             del vf, bad
         table[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                            visible_keys=int(vis), **fault)
+                            visible_keys=int(vis), **fault, **dev_t)
         if label == "spread":
             main = dict(table[label],
                         shape=f"B={b} S={s} H={h} KVH={kvh} D={d} {name}, "
@@ -1238,35 +1305,66 @@ PREFILL_BATCH, PREFILL_LEN = 8, 4096    # prefill_32k cut to B=8, S=4,096
 DECODE_LEN, DECODE_STEPS = 32768, 32    # decode_32k's cache, cut to B=8
 DECODE_WINDOWS = 4                      # the decode steps' timing windows
 PHI_DOCS, PHI_TWINS = 2000, 20
+MOE_ARCH, MLA_ARCH = "deepseek-moe-16b", "deepseek-v2-236b"
+MOE_DECODE_BATCH = 4        # decode_32k's B = 128 cut to 4: ~30 GB of cache
+MLA_DECODE_BATCH = 8
+MLA_LAYERS = 5              # 60 -> the dense layer 0 + 4 MoE layers
+MOE_DECODE_STEPS = 16
 
 
-def phase_lm(torch, prof=None):
-    """llama3-8b at full width and depth on the card: a prefill of 8
-    prompts of 4,096 tokens, 32 greedy decode steps into a 32,768-position
-    cache, then the LM as phi in a PandaDB similarity query."""
+def unlisted_norms(cfg) -> int:
+    """Parameters that ``param_count()`` leaves out: the final norm's
+    d_model scales, and MLA's latent norm scales (kv_a_norm, q_a_norm)."""
+    mla = cfg.n_layers * (cfg.kv_lora_rank + cfg.q_lora_rank) \
+        if cfg.is_mla else 0
+    return cfg.d_model + mla
+
+
+def serve_lm(torch, label: str, cfg, decode_batch: int, steps: int,
+             prof=None):
+    """An LM of the registry at full width on the card, its weights drawn
+    there from a seeded generator: ``prefill_step`` on PREFILL_BATCH
+    prompts of PREFILL_LEN tokens, the first ``decode_batch`` rows of its
+    cache copied into a DECODE_LEN-position cache, ``steps`` greedy
+    ``serve_step``s.  Checks the parameter count against ``param_count()``,
+    finite logits, and that each decode step wrote its cache rows and
+    nothing past them.  Prints tokens/s, step ms (wall against host-thread
+    CPU time in DECODE_WINDOWS windows), the decode step's floor (every
+    weight read once at the memory rate) and peak memory.  Returns (its
+    numbers, the model); the caches are freed."""
     import gc
 
-    from repro_torch.configs import get_arch
     from repro_torch.launch.steps import prefill_step, serve_step
     from repro_torch.models.transformer import LM
 
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     dev = torch.device("cuda")
-    cfg = get_arch(LM_ARCH).model
     out = {}
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     model = LM(cfg, device=dev, generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
     out["init_s"] = time.perf_counter() - t0
-    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers d_model={cfg.d_model} "
-        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff}"
-        f" vocab={cfg.vocab_size} {cfg.dtype}: {n_params} parameters "
-        f"initialised on the card in {out['init_s']:.1f}s")
-    # param_count() leaves out the final norm's d_model scales
-    check(n_params == cfg.param_count() + cfg.d_model,
+    out["params"], out["weight_gb"] = n_params, weight_bytes / 1e9
+    moe = (f" moe_layers={model.n_moe} experts={cfg.n_routed_experts}+"
+           f"{cfg.n_shared_experts} top_k={cfg.top_k} moe_d_ff="
+           f"{cfg.moe_d_ff}" if cfg.is_moe else "")
+    mla = (f" mla kv_lora={cfg.kv_lora_rank} q_lora={cfg.q_lora_rank} "
+           f"qk={cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim} "
+           f"v={cfg.v_head_dim}" if cfg.is_mla else "")
+    heads = f"{cfg.n_heads}" if cfg.is_mla else \
+        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}"
+    log(f"[{label}] {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"heads={heads} d_ff={cfg.d_ff}"
+        f"{moe}{mla} vocab={cfg.vocab_size} {cfg.dtype}: {n_params} "
+        f"parameters ({weight_bytes / 1e9:.2f} GB) initialised on the card "
+        f"in {out['init_s']:.1f}s")
+    check(n_params == cfg.param_count() + unlisted_norms(cfg),
           "parameter count differs from the config's")
 
     b, s = PREFILL_BATCH, PREFILL_LEN
@@ -1281,17 +1379,21 @@ def phase_lm(torch, prof=None):
           bool(torch.isfinite(last).all()), "prefill logits not finite")
     out["prefill"] = {"ms": prefill_s * 1e3,
                       "tokens_per_s": b * s / prefill_s}
-    log(f"[lm] prefill_step B={b} S={s}: ms={prefill_s * 1e3:.1f} "
+    log(f"[{label}] prefill_step B={b} S={s}: ms={prefill_s * 1e3:.1f} "
         f"tokens_per_s={b * s / prefill_s:.1f}")
 
-    cache = model.init_cache(b, DECODE_LEN)
-    for dst, src in zip(cache["dense"], pre["dense"]):
-        dst[:, :, :s] = src
+    db = decode_batch
+    cache = model.init_cache(db, DECODE_LEN)
+    for key in cache:
+        for dst, src in zip(cache[key], pre[key]):
+            dst[:, :, :s] = src[:, :db]
     del pre
-    nxt = last.argmax(-1)
+    cache_gb = sum(t.numel() * t.element_size() for pair in cache.values()
+                   for t in pair) / 1e9
+    nxt = last[:db].argmax(-1)
     steps_ms, cpu_ms, generated = [], [], []
-    for t in range(DECODE_STEPS):
-        pos = torch.full((b,), s + t, dtype=torch.int32, device=dev)
+    for t in range(steps):
+        pos = torch.full((db,), s + t, dtype=torch.int32, device=dev)
         torch.cuda.synchronize()
         t0, c0 = time.perf_counter(), time.thread_time()
         logits, cache = serve_step(model, cache, nxt[:, None], pos)
@@ -1302,49 +1404,91 @@ def phase_lm(torch, prof=None):
         check(bool(torch.isfinite(logits).all()),
               f"decode step {t} logits not finite")
         generated.append(nxt)
-    written = cache["dense"][0][:, :, s:s + DECODE_STEPS]
-    check(bool((written.abs().amax(dim=(0, 2, 3, 4)) > 0).all()),
-          "decode steps left cache rows unwritten")
-    check(bool((cache["dense"][0][:, :, s + DECODE_STEPS:] == 0).all()),
-          "decode wrote past its positions")
+    for key, (first, _) in cache.items():
+        # [L, B, steps, ...] -> each step's largest |value|
+        written = first[:, :, s:s + steps].transpose(0, 2).reshape(steps, -1)
+        check(bool((written.abs().amax(1) > 0).all()),
+              f"decode steps left {key} cache rows unwritten")
+        check(bool((first[:, :, s + steps:] == 0).all()),
+              f"decode wrote past its positions in the {key} cache")
     total = sum(steps_ms) / 1e3
-    out["decode"] = {"steps": DECODE_STEPS, "batch": b,
-                     "cache_len": DECODE_LEN,
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    out["decode"] = {"steps": steps, "batch": db, "cache_len": DECODE_LEN,
+                     "cache_gb": cache_gb,
                      "step_ms_mean": sum(steps_ms) / len(steps_ms),
                      "step_ms_min": min(steps_ms),
                      "step_ms_max": max(steps_ms),
-                     "tokens_per_s": b * DECODE_STEPS / total}
-    log(f"[lm] serve_step x{DECODE_STEPS} B={b} cache={DECODE_LEN} from "
-        f"pos {s}: step_ms mean={out['decode']['step_ms_mean']:.2f} "
-        f"min={min(steps_ms):.2f} max={max(steps_ms):.2f} "
-        f"tokens_per_s={out['decode']['tokens_per_s']:.1f}; first row's "
-        f"tokens {[int(x[0]) for x in generated[:8]]}")
+                     "weights_floor_ms": floor_ms,
+                     "tokens_per_s": db * steps / total}
+    log(f"[{label}] serve_step x{steps} B={db} cache={DECODE_LEN} "
+        f"({cache_gb:.2f} GB) from pos {s}: step_ms "
+        f"mean={out['decode']['step_ms_mean']:.2f} min={min(steps_ms):.2f} "
+        f"max={max(steps_ms):.2f} (floor: the weights once at the memory "
+        f"rate {floor_ms:.2f}) tokens_per_s="
+        f"{out['decode']['tokens_per_s']:.1f}; first row's tokens "
+        f"{[int(x[0]) for x in generated[:8]]}")
     # the step's spread: wall against this thread's CPU time, by window; a
     # step whose CPU time is its wall time is the host issuing work
-    win = DECODE_STEPS // DECODE_WINDOWS
+    win = steps // DECODE_WINDOWS
     out["decode"]["windows"] = [
         {"wall_ms": sum(steps_ms[i:i + win]) / win,
          "thread_cpu_ms": sum(cpu_ms[i:i + win]) / win}
         for i in range(0, win * DECODE_WINDOWS, win)]
-    log(f"[lm] decode windows of {win} steps, wall ms / thread CPU ms a "
-        "step: " + ", ".join(f"{w['wall_ms']:.2f} / {w['thread_cpu_ms']:.2f}"
-                             for w in out["decode"]["windows"]))
+    log(f"[{label}] decode windows of {win} steps, wall ms / thread CPU ms "
+        "a step: " + ", ".join(f"{w['wall_ms']:.2f} / {w['thread_cpu_ms']:.2f}"
+                               for w in out["decode"]["windows"]))
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[lm] peak device memory {out['peak_gb']:.1f} GB")
+    log(f"[{label}] peak device memory {out['peak_gb']:.1f} GB")
     if prof is not None:
-        prof("lm prefill B=8 S=4096", lambda: prefill_step(model, tokens))
-        pos = torch.full((b,), s + DECODE_STEPS, dtype=torch.int32,
-                         device=dev)
-        prof("lm decode step B=8 cache=32768 pos=4128",
+        prof(f"{label} prefill B={b} S={s}",
+             lambda: prefill_step(model, tokens))
+        pos = torch.full((db,), s + steps, dtype=torch.int32, device=dev)
+        prof(f"{label} decode step B={db} cache={DECODE_LEN} pos={s + steps}",
              lambda: serve_step(model, cache, nxt[:, None], pos))
-    del cache, logits, written, last
+    del cache, logits, last, written
     gc.collect()
     torch.cuda.empty_cache()
+    return out, model
 
+
+def phase_lm(torch, prof=None):
+    """llama3-8b at full width and depth on the card: a prefill of 8
+    prompts of 4,096 tokens, 32 greedy decode steps into a 32,768-position
+    cache, then the LM as phi in a PandaDB similarity query."""
+    import gc
+
+    from repro_torch.configs import get_arch
+
+    out, model = serve_lm(torch, "lm", get_arch(LM_ARCH).model,
+                          PREFILL_BATCH, DECODE_STEPS, prof)
     out["phi"] = phase_phi(torch, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_lm(torch, prof=None):
+    """deepseek-moe-16b at full width and depth (28 layers, 64 routed + 2
+    shared experts, top-6): a prefill of 8 prompts of 4,096 tokens, 16
+    greedy decode steps at B = 4 into a 32,768-position cache."""
+    from repro_torch.configs import get_arch
+
+    out, _ = serve_lm(torch, "moe-lm", get_arch(MOE_ARCH).model,
+                      MOE_DECODE_BATCH, MOE_DECODE_STEPS, prof)
+    return out
+
+
+def phase_mla_lm(torch, prof=None):
+    """deepseek-v2-236b at full width, cut to its dense layer 0 and 4 MoE
+    layers: MLA (128 heads, kv_lora 512, q_lora 1,536), 160 routed + 2
+    shared experts, top-6; a prefill of 8 prompts of 4,096 tokens, 16
+    greedy decode steps at B = 8 into a 32,768-position latent cache."""
+    from repro_torch.configs import get_arch, reduced
+
+    cfg = reduced(get_arch(MLA_ARCH).model, n_layers=MLA_LAYERS)
+    out, _ = serve_lm(torch, "mla-lm", cfg, MLA_DECODE_BATCH,
+                      MOE_DECODE_STEPS, prof)
     return out
 
 
@@ -1399,17 +1543,38 @@ def phase_phi(torch, model):
             "rows": len(rows), "other_matches": others}
 
 
-def phase_lm_parity(torch):
-    """llama3-8b cut as launch/train.py's smoke config cuts it (2 layers,
-    d_model 128, head_dim 32, float32), the same weights on the card and on
-    the CPU: prefill and 8 greedy decode steps; logits within 1e-4, tokens
-    identical."""
+# each arch cut as launch/train.py's smoke config cuts llama3-8b (2 layers,
+# d_model 128, float32); the MoE cuts keep their expert count and top-k, a
+# dense first layer and the shared experts
+PARITY_CUTS = {
+    LM_ARCH: dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                  head_dim=32, d_ff=256, vocab_size=512),
+    MOE_ARCH: dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                   head_dim=32, d_ff=256, moe_d_ff=64, vocab_size=512),
+    MLA_ARCH: dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                   d_ff=256, moe_d_ff=64, vocab_size=512, kv_lora_rank=64,
+                   q_lora_rank=96, qk_nope_head_dim=32, qk_rope_head_dim=16,
+                   v_head_dim=32),
+}
+
+
+def fill_cache(cache, pre, s: int) -> None:
+    """Copy a prefill's cache into the first ``s`` positions of a decode
+    cache of the same batch, every stack."""
+    for key in cache:
+        for dst, src in zip(cache[key], pre[key]):
+            dst[:, :, :s] = src
+
+
+def phase_lm_parity(torch, arch: str = LM_ARCH):
+    """``arch`` cut to ``PARITY_CUTS[arch]`` in float32, the same weights on
+    the card and on the CPU: prefill and 8 greedy decode steps; logits
+    within 1e-4, tokens identical."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models.transformer import LM
 
-    cfg = reduced(get_arch(LM_ARCH).model, n_layers=2, d_model=128,
-                  n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
-                  vocab_size=512, dtype="float32", grad_accum=1, fsdp=False)
+    cfg = reduced(get_arch(arch).model, **PARITY_CUTS[arch],
+                  dtype="float32", grad_accum=1, fsdp=False)
     card = LM(cfg, device="cuda",
               generator=torch.Generator(device="cuda").manual_seed(1))
     cpu = LM(cfg, device="cpu")
@@ -1422,8 +1587,7 @@ def phase_lm_parity(torch):
         full, _ = model.forward(toks)
         last, pre = model.prefill(toks)
         cache = model.init_cache(b, s + steps)
-        for dst, src in zip(cache["dense"], pre["dense"]):
-            dst[:, :, :s] = src
+        fill_cache(cache, pre, s)
         logits, tokens = [last.cpu()], [last.argmax(-1).cpu()]
         for t in range(steps):
             lg, cache = model.decode_step(cache, tokens[-1][:, None],
@@ -1434,7 +1598,7 @@ def phase_lm_parity(torch):
     err_full = float((runs[0][0] - runs[1][0]).abs().max())
     err_dec = float((runs[0][1] - runs[1][1]).abs().max())
     same = bool(torch.equal(runs[0][2], runs[1][2]))
-    log(f"[lm parity] 2-layer float32 {LM_ARCH} card vs cpu: forward "
+    log(f"[lm parity] 2-layer float32 {arch} card vs cpu: forward "
         f"max_abs_err={err_full} prefill+decode max_abs_err={err_dec} "
         f"greedy_tokens_identical={same}")
     check(err_full <= 1e-4 and err_dec <= 1e-4,
@@ -1444,37 +1608,56 @@ def phase_lm_parity(torch):
             "tokens_identical": same}
 
 
-def phase_lm_parity_bf16(torch):
-    """The LM's bf16 kernels inside the model: llama3-8b cut to 2 layers at
-    full width (bf16, the lm path's kernel shapes), on the card once through
-    the kernels and once with ``chunked_attention`` / ``decode_attention``
+def phase_lm_parity_bf16(torch, arch: str = LM_ARCH):
+    """The bf16 attention kernels inside the model: ``arch`` cut to 2
+    layers at full width (bf16, its path's kernel shapes; a MoE arch keeps
+    its dense layer 0 and one MoE layer), on the card once through the
+    kernels and once with ``chunked_attention`` / ``decode_attention``
     swapped for their plain versions: a prefill of 2 prompts of 500 tokens
-    and 8 greedy decode steps, the plain run fed the kernel run's tokens.
-    The two runs differ only where the attention's one bf16 rounding falls
-    the other way, which moves a logit by at most an ulp: logits within two
+    and 8 greedy decode steps, the plain run fed the kernel run's tokens
+    and, in MoE layers, the kernel run's expert choices (weights from its
+    own probabilities; a choice is a step function of the router's input,
+    so one ulp of attention could move a token to another expert).  The two
+    runs differ only where the attention's one bf16 rounding falls the
+    other way, which moves a logit by at most an ulp: logits within two
     bf16 ulps of the largest logit (2^-6 max |logit|), and greedy tokens
-    identical wherever the plain run's top two logits are further apart."""
+    identical wherever the plain run's top two logits are further apart.
+    Tokens whose plain run would have chosen other experts are counted."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
     from repro_torch.models.transformer import LM
 
-    cfg = reduced(get_arch(LM_ARCH).model, n_layers=2)
+    cfg = reduced(get_arch(arch).model, n_layers=2)
     dev = torch.device("cuda")
     model = LM(cfg, device=dev,
                generator=torch.Generator(device=dev).manual_seed(5))
     b, s, steps = 2, 500, 8
     toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(6))
+    routes, moved = [], []
+    router_topk = moe.router_topk
+
+    def recording(probs, k):
+        w, idx = router_topk(probs, k)
+        routes.append(idx)
+        return w, idx
+
+    def replaying(probs, k):
+        idx = routes[len(moved)]
+        own = router_topk(probs, k)[1]
+        moved.append(int((own.sort(-1).values != idx.sort(-1).values)
+                         .any(-1).sum()))
+        w = probs.gather(-1, idx)
+        return w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9), idx
 
     def run(feed=None):
         last, pre = model.prefill(toks)
         cache = model.init_cache(b, s + steps)
-        for dst, src in zip(cache["dense"], pre["dense"]):
-            dst[:, :, :s] = src
+        fill_cache(cache, pre, s)
         logits = [last]
         for t in range(steps):
             nxt = logits[-1].argmax(-1) if feed is None else feed[t]
@@ -1487,19 +1670,29 @@ def phase_lm_parity_bf16(torch):
         return (flash_ops.launches.n, decode_ops.launches.n)
 
     n0 = launched()
-    kern = run()
+    moe.router_topk = recording
+    try:
+        kern = run()
+    finally:
+        moe.router_topk = router_topk
     n1 = launched()
     tokens = kern.argmax(-1)
     saved = transformer.chunked_attention, transformer.decode_attention
     transformer.chunked_attention = flash_attention_ref
     transformer.decode_attention = decode_attention_ref
+    moe.router_topk = replaying
     try:
         plain = run(feed=tokens)
     finally:
         transformer.chunked_attention, transformer.decode_attention = saved
+        moe.router_topk = router_topk
+    # MLA's absorbed decode is plain torch: no decode kernel there
+    decode_launches = 0 if cfg.is_mla else cfg.n_layers * steps
     check(n1[0] - n0[0] == cfg.n_layers and
-          n1[1] - n0[1] == cfg.n_layers * steps and launched() == n1,
+          n1[1] - n0[1] == decode_launches and launched() == n1,
           f"bf16 lm parity launches {n0} -> {n1} -> {launched()}")
+    check(len(moved) == len(routes), "the plain run routed another number "
+          "of times than the kernel run")
     check(bool(torch.isfinite(kern).all()), "bf16 lm logits not finite")
     limit = 2.0 ** -6 * float(plain.abs().max())
     err = float((kern - plain).abs().max())
@@ -1507,11 +1700,16 @@ def phase_lm_parity_bf16(torch):
     top2 = plain.topk(2, dim=-1).values
     apart = top2[..., 0] - top2[..., 1] > limit
     same = tokens == plain.argmax(-1)
-    log(f"[lm parity] 2-layer bf16 {LM_ARCH} at full width, kernels vs "
+    n_routed = sum(r.shape[0] * r.shape[1] for r in routes)
+    routed = (f"; routing replayed over {n_routed} tokens, {sum(moved)} of "
+              f"which the plain run would have sent to other experts"
+              if routes else "")
+    log(f"[lm parity] 2-layer bf16 {arch} at full width, kernels vs "
         f"plain on the card: logits max_abs_err={err} limit={limit} "
         f"bitwise_equal={equal:.6f}; greedy tokens identical "
         f"{int(same.sum())} of {same.numel()} (near ties "
-        f"{int((~apart).sum())}, differing there {int((~same).sum())})")
+        f"{int((~apart).sum())}, differing there {int((~same).sum())})"
+        f"{routed}")
     check(err <= limit, f"bf16 lm logits differ by {err} > {limit}")
     check(bool((same | ~apart).all()),
           "bf16 lm greedy tokens differ where the top two logits are apart")
@@ -1519,7 +1717,94 @@ def phase_lm_parity_bf16(torch):
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "limit": limit, "bitwise_equal": equal,
             "tokens_identical": int(same.sum()), "tokens": same.numel(),
-            "near_ties": int((~apart).sum())}
+            "near_ties": int((~apart).sum()),
+            "routing_would_differ": sum(moved)}
+
+
+# ---------------------------------------------------------------------------
+# the collectives on one NCCL rank
+# ---------------------------------------------------------------------------
+
+DIST_ROWS, DIST_QUERIES = 200_000, 256
+
+
+def phase_distributed(torch):
+    """A world of one NCCL rank (NCCL takes one rank per card), joined
+    through a FileStore under ``build/`` (no network).  ``sharded_topk``
+    over 200,000 integer-valued rows (exact sums; the second half repeats
+    the first, so ties break across the corpus), d = 128, Q = 256, k in
+    {10, 100}, int64 ids past 2**32: ids and values equal ``scan_topk`` over
+    the whole corpus.  ``partial_softmax_combine`` of float32 scores
+    q . K^T . scale and values V (B = 4, 16 heads of 128, S = 32,768) within
+    1e-4 of ``decode_attention`` on the same q, K and V (one query head per
+    key head, every position visible), whose chunk combine is the same
+    arithmetic, and of the plain softmax."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.vector_index import scan_topk
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed.collectives import (partial_softmax_combine,
+                                                     sharded_topk)
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    dev = resolve_device("cuda")              # float32 products stay float32
+    store = ROOT / "build" / "nccl_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        log(f"[distributed] backend {dist.get_backend()} world "
+            f"{dist.get_world_size()} on {torch.cuda.get_device_name(0)}")
+        rng = np.random.default_rng(8)
+        half = rng.integers(-3, 4, (DIST_ROWS // 2, FACE_DIM)).astype(
+            np.float32)
+        corpus = torch.from_numpy(np.concatenate([half, half])).to(dev)
+        ids = torch.arange(DIST_ROWS, device=dev) * 3 + (1 << 33)
+        q = torch.from_numpy(rng.integers(-3, 4, (DIST_QUERIES, FACE_DIM))
+                             .astype(np.float32)).to(dev)
+        for k in (10, 100):
+            v, i = sharded_topk(q, corpus, ids, k)
+            wv, wi = scan_topk(q, corpus, ids, k)
+            torch.cuda.synchronize()
+            same, err = bool(torch.equal(i, wi)), float((v - wv).abs().max())
+            ms = time_ms(torch, lambda: sharded_topk(q, corpus, ids, k))
+            log(f"[distributed] sharded_topk N={DIST_ROWS} d={FACE_DIM} "
+                f"Q={DIST_QUERIES} k={k}: ids_equal_whole_corpus={same} "
+                f"max_abs_err={err} ids {i.dtype} ms={ms:.3f}")
+            check(same and err == 0.0 and i.dtype == torch.int64,
+                  f"sharded_topk k={k} differs from the whole-corpus scan")
+            out[f"sharded_topk_k{k}"] = {"ms": ms, "max_abs_err": err}
+        del corpus, ids, q
+        b, s, h, d = 4, 32768, 16, 128
+        gen = torch.Generator(device=dev).manual_seed(9)
+        qd = torch.randn(b, 1, h, d, device=dev, generator=gen)
+        kc = torch.randn(b, s, h, d, device=dev, generator=gen)
+        vc = torch.randn(b, s, h, d, device=dev, generator=gen)
+        scores = torch.einsum("bhd,bshd->bhs", qd[:, 0], kc) * d ** -0.5
+        values = vc.permute(0, 2, 1, 3)
+        got = partial_softmax_combine(scores, values)
+        plain = torch.einsum("bhs,bhsd->bhd", torch.softmax(scores, -1),
+                             values)
+        pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+        n = decode_ops.launches.n        # a comparison: not the path's
+        kern = decode_ops.decode_attention(qd, kc, vc, pos)[:, 0]
+        decode_ops.launches.n = n
+        torch.cuda.synchronize()
+        err_k = float((got - kern).abs().max())
+        err_p = float((got - plain).abs().max())
+        ms = time_ms(torch, lambda: partial_softmax_combine(scores, values))
+        log(f"[distributed] partial_softmax_combine B={b} H={h} S={s} "
+            f"D={d} float32: max_abs_err vs decode_attention={err_k} vs "
+            f"plain softmax={err_p} ms={ms:.3f}")
+        check(err_k <= 1e-4 and err_p <= 1e-4,
+              f"partial_softmax_combine off by {max(err_k, err_p)}")
+        out["partial_softmax_combine"] = {"ms": ms, "vs_decode": err_k,
+                                          "vs_plain": err_p}
+    finally:
+        dist.destroy_process_group()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1628,14 +1913,25 @@ def main() -> int:
         "cluster", ("topk_merge", "ivf_scan"),
         ("cluster", phase_cluster, torch, CLUSTER_PERSONS, shared,
          maybe_prof))
-    lm = main_path(
+    paths = {"single_node": single, "cluster": cluster}
+    paths["lm"] = main_path(
         "lm", ("flash_attention", "decode_attention", "ivf_scan"),
         ("lm", phase_lm, torch, maybe_prof))
-    launches = {name: single[name] + cluster[name] + lm[name]
+    paths["moe_lm"] = main_path(
+        "moe-lm", ("flash_attention", "decode_attention"),
+        ("moe-lm", phase_moe_lm, torch, maybe_prof))
+    paths["mla_lm"] = main_path(
+        "mla-lm", ("flash_attention",),
+        ("mla-lm", phase_mla_lm, torch, maybe_prof))
+    paths["distributed"] = main_path(
+        "distributed", ("topk_merge",),
+        ("distributed", phase_distributed, torch))
+    launches = {name: sum(p[name] for p in paths.values())
                 for name in counters}
     run("parity", phase_parity)
-    run("lm_parity", phase_lm_parity, torch)
-    run("lm_parity_bf16", phase_lm_parity_bf16, torch)
+    for arch, tag in ((LM_ARCH, "lm"), (MOE_ARCH, "moe"), (MLA_ARCH, "mla")):
+        run(f"{tag}_parity", phase_lm_parity, torch, arch)
+        run(f"{tag}_parity_bf16", phase_lm_parity_bf16, torch, arch)
 
     meta = {
         "ivf_scan": ("src/repro_torch/csrc/ivf_scan.cu",
@@ -1665,8 +1961,7 @@ def main() -> int:
                         "library_ms": k.get("library_ms"),
                         "shape": k.get("shape")})
     results["kernels"] = kernels
-    results["launches"] = {"single_node": single, "cluster": cluster,
-                           "lm": lm}
+    results["launches"] = paths
     results["seconds"] = time.perf_counter() - t_start
     results["failed"] = failed
     if args.out:

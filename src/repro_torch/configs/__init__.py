@@ -2,9 +2,9 @@
 ``configs/base.py``, and the architecture registry.
 
 ``get_arch("llama3-8b")`` resolves an :class:`ArchSpec`.  The registry
-holds the dense GQA architectures the port's LM runs; the MoE, MLA, GNN
-and recsys architectures of the reference's registry come with their
-modules (ROADMAP Queue A8)."""
+holds the five transformer architectures of the reference's registry, all
+of which the port's LM runs (dense GQA, qk-norm, DeepSeekMoE, MLA); the
+GNN and recsys architectures come with their modules (ROADMAP Queue A)."""
 from __future__ import annotations
 
 import importlib
@@ -33,6 +33,8 @@ _ARCH_MODULES = {
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
 }
 
 

@@ -1,7 +1,8 @@
 """The LM's serving step functions: the reference's ``prefill_step`` and
 ``serve_step`` (``launch/steps.py``) without meshes, shardings or abstract
-shapes -- one card runs them eagerly.  The training step and the dry-run
-lowering wait for their slices (ROADMAP Queue A8, A9)."""
+shapes -- one card runs them eagerly, for every LM config (dense, MoE,
+MLA).  The training step and the dry-run lowering wait for their slices
+(ROADMAP Queue A)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -12,7 +13,7 @@ from repro_torch.models.transformer import LM, Cache
 
 
 def prefill_step(model: LM, tokens) -> Tuple[torch.Tensor, Cache]:
-    """tokens [B, S] -> (last-position logits [B, V], KV cache of S)."""
+    """tokens [B, S] -> (last-position logits [B, V], cache of S)."""
     return model.prefill(tokens)
 
 

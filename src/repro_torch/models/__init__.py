@@ -1,1 +1,2 @@
-"""The port's models: the dense GQA decoder-only LM (``transformer.LM``)."""
+"""The port's models: the decoder-only LM (``transformer.LM``: dense GQA,
+DeepSeekMoE, MLA) and its MoE layer (``moe``)."""

@@ -12,8 +12,9 @@ from repro_torch.device import DeviceLike
 def build_model(spec_or_cfg: Any, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None):
     """The model of an ArchSpec or a config, on ``device`` (default: the
-    CUDA card).  Only ``TransformerConfig`` is ported; GNN and recsys
-    configs come with their modules (ROADMAP Queue A8)."""
+    CUDA card).  Every ``TransformerConfig`` (dense, MoE, MLA) builds an
+    ``LM``; GNN and recsys configs come with their modules (ROADMAP
+    Queue A)."""
     cfg = spec_or_cfg.model if isinstance(spec_or_cfg, ArchSpec) \
         else spec_or_cfg
     if isinstance(cfg, TransformerConfig):

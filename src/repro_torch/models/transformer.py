@@ -1,19 +1,24 @@
-"""Decoder-only LM, dense grouped-query attention, for serving.
+"""Decoder-only LM for serving: the five transformer configs of the registry.
 
-The reference's ``models/transformer.py`` for its dense configs: GQA with
-optional per-head qk-norm, RoPE, SwiGLU, an untied or tied head.  Parameters
-keep the reference's stacked layout (``wq`` [L, d, H, hd], ``wo``
-[L, H, hd, d], ...), so :func:`params_from_jax` loads a reference param tree
-as it is.  One card has no mesh, so there are no sharding rules.  On the card
-attention runs through the hand-written flash-attention (prefill) and
-decode-attention (decode) kernels; on the CPU through their plain versions.
+The reference's ``models/transformer.py``: GQA with optional per-head
+qk-norm, RoPE, SwiGLU, an untied or tied head; fine-grained MoE with shared
+experts (DeepSeekMoE, ``models/moe.py``) after ``first_dense_layers`` dense
+layers; MLA latent attention with the absorbed decode (DeepSeek-V2).
+Parameters keep the reference's stacked layout, one stack of dense layers
+(``layers``: ``wq`` [L, d, H, hd], ``wo`` [L, H, hd, d], ...) and, for a
+MoE config, one of MoE layers (``moe_layers``), so :func:`params_from_jax`
+loads a reference param tree as it is.  One card has no mesh, so there
+are no sharding rules.  On the card the GQA prefill and MLA's prefill run
+through the hand-written flash-attention kernel and the GQA decode through
+the decode-attention kernel; on the CPU through their plain versions.
+MLA's absorbed decode is plain torch in float32, as the reference's is.
 
-Serving only: parameters do not require gradients.  MoE and MLA configs
-raise; they come with ``models/moe.py`` and the MLA port (ROADMAP Queue A8).
+Serving only: parameters do not require gradients, and the MoE layers'
+aux loss, which only training reads, is not returned.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,38 +35,77 @@ from repro_torch.models.layers import (
     rms_norm,
     rotary_cos_sin,
 )
+from repro_torch.models.moe import (
+    moe_ffn,
+    moe_param_path,
+    moe_param_shapes,
+    nest_moe_params,
+)
 
 Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
-_ATTN_KEYS = ("wq", "wk", "wv", "wo")
-_NORM_KEYS = ("q_norm", "k_norm")
 _MLP_KEYS = ("w_gate", "w_up", "w_down")
 
 
+def _attn_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[Tuple, int]]:
+    """The attention weights of one layer: name -> (shape, fan-in), 0 for a
+    float32 norm scale (initialised to ones)."""
+    d, h = cfg.d_model, cfg.n_heads
+    if cfg.is_mla:
+        dc, dq = cfg.kv_lora_rank, cfg.q_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        p = {"wkv_a": ((d, dc + dr), d), "kv_a_norm": ((dc,), 0),
+             "wkv_b": ((dc, h, dn + dv), dc), "wo": ((h, dv, d), h * dv)}
+        if dq:
+            p.update(wq_a=((d, dq), d), q_a_norm=((dq,), 0),
+                     wq_b=((dq, h, dn + dr), dq))
+        else:
+            p["wq"] = ((d, h, dn + dr), d)
+        return p
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": ((d, h, hd), d), "wk": ((d, kvh, hd), d),
+         "wv": ((d, kvh, hd), d), "wo": ((h, hd, d), h * hd)}
+    if cfg.qk_norm:
+        p.update(q_norm=((hd,), 0), k_norm=((hd,), 0))
+    return p
+
+
+def _ffn_shapes(cfg: TransformerConfig, moe: bool
+                ) -> Dict[str, Tuple[Tuple, int]]:
+    """The FFN weights of one layer, as :func:`_attn_shapes` (a MoE
+    layer's as ``moe_param_shapes`` names them)."""
+    if moe:
+        return moe_param_shapes(cfg)
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": ((d, f), d), "w_up": ((d, f), d), "w_down": ((f, d), f)}
+
+
+def _layer_shapes(cfg: TransformerConfig, moe: bool
+                  ) -> Dict[str, Tuple[Tuple, int]]:
+    """Every weight of one dense or MoE layer, as :func:`_attn_shapes`."""
+    return {"ln1": ((cfg.d_model,), 0), "ln2": ((cfg.d_model,), 0),
+            **_attn_shapes(cfg), **_ffn_shapes(cfg, moe)}
+
+
 class LM(nn.Module):
-    """Dense GQA decoder-only LM on one device.
+    """Decoder-only LM on one device.
 
     ``LM(cfg, device=None)`` allocates the parameters on the CUDA card (or
-    on ``device``) in ``cfg.dtype`` and initialises them there from
-    ``generator`` (default: seed 0 on that device); with no card and no
-    device named it raises."""
+    on ``device``) in ``cfg.dtype`` (norm scales and the router in float32)
+    and initialises them there from ``generator`` (default: seed 0 on that
+    device); with no card and no device named it raises.  ``layers`` holds
+    the dense layers (``first_dense_layers`` of a MoE config, else all),
+    ``moe_layers`` the MoE layers (None without MoE)."""
 
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None) -> None:
-        if cfg.is_moe:
-            raise NotImplementedError(
-                "MoE configs are not ported yet: models/moe.py comes with "
-                "ROADMAP Queue A8 (model stack, MoE)")
-        if cfg.is_mla:
-            raise NotImplementedError(
-                "MLA configs are not ported yet: latent attention comes with "
-                "ROADMAP Queue A8 (model stack, MLA)")
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
-        n, d, h = cfg.n_layers, cfg.d_model, cfg.n_heads
-        kvh, hd, f, v = cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size
+        self.n_dense = cfg.first_dense_layers if cfg.is_moe else cfg.n_layers
+        self.n_moe = cfg.n_layers - self.n_dense if cfg.is_moe else 0
+        d, v = cfg.d_model, cfg.vocab_size
 
         def param(*shape, dtype=self.dtype):
             return nn.Parameter(torch.empty(shape, dtype=dtype,
@@ -72,18 +116,24 @@ class LM(nn.Module):
         self.embed = param(v, d)
         self.final_norm = param(d, dtype=f32)
         self.lm_head = None if cfg.tie_embeddings else param(d, v)
-        layers = {"ln1": param(n, d, dtype=f32), "ln2": param(n, d, dtype=f32),
-                  "wq": param(n, d, h, hd), "wk": param(n, d, kvh, hd),
-                  "wv": param(n, d, kvh, hd), "wo": param(n, h, hd, d),
-                  "w_gate": param(n, d, f), "w_up": param(n, d, f),
-                  "w_down": param(n, f, d)}
-        if cfg.qk_norm:
-            layers["q_norm"] = param(n, hd, dtype=f32)
-            layers["k_norm"] = param(n, hd, dtype=f32)
-        self.layers = nn.ParameterDict(layers)
+
+        def stack(n: int, moe: bool) -> nn.ParameterDict:
+            return nn.ParameterDict({
+                name: param(n, *shape, dtype=f32 if fan == 0
+                            or name == "router" else self.dtype)
+                for name, (shape, fan) in _layer_shapes(cfg, moe).items()})
+
+        self.layers = stack(self.n_dense, False)
+        self.moe_layers = stack(self.n_moe, True) if self.n_moe else None
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.init(generator)
+
+    def _stacks(self) -> Iterator[Tuple[str, nn.ParameterDict, int]]:
+        """(cache key, parameter stack, layers) of each stack, in order."""
+        yield "dense", self.layers, self.n_dense
+        if self.n_moe:
+            yield "moe", self.moe_layers, self.n_moe
 
     # -- init ---------------------------------------------------------------
 
@@ -91,31 +141,34 @@ class LM(nn.Module):
     def init(self, generator: torch.Generator) -> None:
         """The reference's init on this model's device: 0.02-normal
         embedding, truncated-normal fan-in matrices, unit norm scales.  Each
-        layer is drawn on its own, in fp32, then cast to ``cfg.dtype``."""
-        cfg = self.cfg
-        d, h, hd, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+        layer is drawn on its own, in fp32, then cast to its dtype."""
         embed_init_(self.embed, generator)
         self.final_norm.fill_(1.0)
         if self.lm_head is not None:
-            dense_init_(self.lm_head, d, generator)
-        fan_in = {"wq": d, "wk": d, "wv": d, "wo": h * hd, "w_gate": d,
-                  "w_up": d, "w_down": f}
-        for name, p in self.layers.items():
-            if name in fan_in:
-                for layer in range(cfg.n_layers):
-                    dense_init_(p[layer], fan_in[name], generator)
-            else:
-                p.fill_(1.0)
+            dense_init_(self.lm_head, self.cfg.d_model, generator)
+        for key, lp, n in self._stacks():
+            shapes = _layer_shapes(self.cfg, key == "moe")
+            for name, p in lp.items():
+                fan = shapes[name][1]
+                if fan == 0:
+                    p.fill_(1.0)
+                    continue
+                for layer in range(n):
+                    dense_init_(p[layer], fan, generator)
 
     def _norm(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, scale, self.cfg.rms_eps, fused=self.cfg.fused_norm)
 
+    def _rope_dim(self) -> int:
+        cfg = self.cfg
+        return cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
+
     # -- attention ----------------------------------------------------------
 
-    def _gqa(self, i: int, x: torch.Tensor, cos: torch.Tensor,
-             sin: torch.Tensor, cache=None, slot: "_Slot" = None):
+    def _gqa(self, lp: nn.ParameterDict, i: int, x: torch.Tensor,
+             cos: torch.Tensor, sin: torch.Tensor, cache=None,
+             slot: "_Slot" = None):
         cfg = self.cfg
-        lp = self.layers
         b, s, d = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q = (x @ lp["wq"][i].reshape(d, h * hd)).reshape(b, s, h, hd)
@@ -141,19 +194,84 @@ class LM(nn.Module):
         o = out.reshape(b, s, h * hd) @ lp["wo"][i].reshape(h * hd, d)
         return o, new_cache
 
+    def _mla(self, lp: nn.ParameterDict, i: int, x: torch.Tensor,
+             cos: torch.Tensor, sin: torch.Tensor, cache=None,
+             slot: "_Slot" = None):
+        cfg = self.cfg
+        b, s, d = x.shape
+        dc, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+        dr, dv, h = cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.n_heads
+        scale = (dn + dr) ** -0.5
+
+        if cfg.q_lora_rank:
+            qc = self._norm(x @ lp["wq_a"][i], lp["q_a_norm"][i])
+            wq = lp["wq_b"][i]
+        else:
+            qc, wq = x, lp["wq"][i]
+        q = (qc @ wq.reshape(wq.shape[0], h * (dn + dr))).reshape(
+            b, s, h, dn + dr)
+        q_nope, q_rope = q[..., :dn], q[..., dn:]
+        q_rope = apply_rotary(q_rope, cos, sin)
+
+        kv_a = x @ lp["wkv_a"][i]
+        c_kv = self._norm(kv_a[..., :dc], lp["kv_a_norm"][i])
+        k_rope = apply_rotary(kv_a[..., None, dc:], cos, sin)[:, :, 0]
+        wkv_b = lp["wkv_b"][i]                          # [dc, H, dn + dv]
+        wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]
+
+        if cache is None:
+            kv = (c_kv @ wkv_b.reshape(dc, h * (dn + dv))).reshape(
+                b, s, h, dn + dv)
+            k = torch.cat([kv[..., :dn],
+                           k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+            qf = torch.cat([q_nope, q_rope], dim=-1)
+            out = chunked_attention(qf, k, kv[..., dn:].contiguous(),
+                                    causal=True, scale=scale,
+                                    block_kv=min(cfg.attn_block_kv, s),
+                                    bf16_probs=cfg.bf16_probs)
+            new_cache = (c_kv, k_rope)
+        else:
+            # absorbed decode: score/context in the dc-wide latent space
+            ckv_cache, krope_cache = cache
+            _write_rows(ckv_cache, c_kv[:, 0], slot)
+            _write_rows(krope_cache, k_rope[:, 0], slot)
+            ckv = ckv_cache.float()
+            q_lat = torch.einsum("bqhn,chn->bqhc", q_nope, wk_b)
+            s_lat = torch.einsum("bqhc,bsc->bhqs", q_lat.float(), ckv)
+            s_rope = torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                                  krope_cache.float())
+            scores = (s_lat + s_rope) * scale
+            valid = torch.arange(ckv.shape[1], device=x.device)[None, :] \
+                <= slot.pos[:, None]
+            scores = torch.where(valid[:, None, None, :], scores, -1e30)
+            probs = torch.softmax(scores, dim=-1)
+            ctx_lat = torch.einsum("bhqs,bsc->bqhc", probs, ckv).to(x.dtype)
+            out = torch.einsum("bqhc,chv->bqhv", ctx_lat, wv_b)
+            new_cache = cache
+        o = out.reshape(b, s, h * dv) @ lp["wo"][i].reshape(h * dv, d)
+        return o, new_cache
+
     # -- blocks -------------------------------------------------------------
 
-    def _block(self, i: int, x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor, cache=None, slot: "_Slot" = None):
-        lp = self.layers
+    def _block(self, lp: nn.ParameterDict, i: int, x: torch.Tensor,
+               cos: torch.Tensor, sin: torch.Tensor, moe: bool, cache=None,
+               slot: "_Slot" = None):
         h = self._norm(x, lp["ln1"][i])
-        attn_out, new_cache = self._gqa(i, h, cos, sin, cache=cache,
-                                        slot=slot)
+        attn = self._mla if self.cfg.is_mla else self._gqa
+        attn_out, new_cache = attn(lp, i, h, cos, sin, cache=cache, slot=slot)
         x = x + attn_out
         h = self._norm(x, lp["ln2"][i])
-        g = F.silu(h @ lp["w_gate"][i])
-        u = h @ lp["w_up"][i]
-        return x + (g * u) @ lp["w_down"][i], new_cache
+        if moe:
+            ffn_out, _ = moe_ffn(self._moe_params(lp, i), h, self.cfg)
+        else:
+            g = F.silu(h @ lp["w_gate"][i])
+            ffn_out = (g * (h @ lp["w_up"][i])) @ lp["w_down"][i]
+        return x + ffn_out, new_cache
+
+    def _moe_params(self, lp: nn.ParameterDict, i: int) -> Dict[str, Any]:
+        """Layer ``i`` of the MoE stack in ``moe_ffn``'s layout (views)."""
+        return nest_moe_params({n: lp[n][i]
+                                for n in moe_param_shapes(self.cfg)})
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self._norm(x, self.final_norm)
@@ -163,6 +281,23 @@ class LM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _cache_shapes(self, n: int, batch: int, seq: int
+                      ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """The two cache tensors of a stack of ``n`` layers: (k, v) each
+        [n, B, S, KVH, hd], or MLA's (c_kv [n, B, S, dc], k_rope
+        [n, B, S, dr])."""
+        cfg = self.cfg
+        if cfg.is_mla:
+            return ((n, batch, seq, cfg.kv_lora_rank),
+                    (n, batch, seq, cfg.qk_rope_head_dim))
+        kv = (n, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+        return kv, kv
+
+    def _new_cache(self, batch: int, seq: int, alloc) -> Cache:
+        return {key: tuple(alloc(shape, dtype=self.dtype, device=self.device)
+                           for shape in self._cache_shapes(n, batch, seq))
+                for key, _, n in self._stacks()}
+
     # -- full forward (prefill) ----------------------------------------------
 
     @torch.no_grad()
@@ -171,26 +306,22 @@ class LM(nn.Module):
         b, s = tokens.shape
         x = F.embedding(tokens, self.embed)
         cos, sin = rotary_cos_sin(torch.arange(s, device=self.device),
-                                  cfg.head_dim, cfg.rope_theta)
-        cache = None
-        if collect_cache:
-            shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
-            cache = {"dense": (torch.empty(shape, dtype=self.dtype,
-                                           device=self.device),
-                               torch.empty(shape, dtype=self.dtype,
-                                           device=self.device))}
-        for i in range(cfg.n_layers):
-            x, (k, v) = self._block(i, x, cos, sin)
-            if cache is not None:
-                cache["dense"][0][i].copy_(k)
-                cache["dense"][1][i].copy_(v)
+                                  self._rope_dim(), cfg.rope_theta)
+        cache = self._new_cache(b, s, torch.empty) if collect_cache else None
+        for key, lp, n in self._stacks():
+            for i in range(n):
+                x, layer_cache = self._block(lp, i, x, cos, sin, key == "moe")
+                if cache is not None:
+                    for dst, src in zip(cache[key], layer_cache):
+                        dst[i].copy_(src)
         return x, cache
 
     @torch.no_grad()
     def forward(self, tokens, collect_cache: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """tokens [B, S] -> (logits [B, S, V], cache | None).  The cache is
-        ``{"dense": (k, v)}``, each [L, B, S, KVH, hd]."""
+        ``{"dense": ..., "moe": ...}`` ("moe" for a MoE config only), each
+        entry a pair as :meth:`init_cache` lays it out."""
         x, cache = self._trunk(self._tokens(tokens), collect_cache)
         return self._head(x), cache
 
@@ -205,40 +336,39 @@ class LM(nn.Module):
     # -- decode -------------------------------------------------------------
 
     def init_cache(self, batch: int, max_seq: int) -> Cache:
-        """A zeroed KV cache ``{"dense": (k, v)}``, each
-        [L, batch, max_seq, KVH, hd] in ``cfg.dtype``, on this device.  It
-        takes the place of the reference's abstract ``cache_spec``."""
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        return {"dense": tuple(torch.zeros(shape, dtype=self.dtype,
-                                           device=self.device)
-                               for _ in range(2))}
+        """A zeroed cache in ``cfg.dtype`` on this device, one pair a stack
+        as the reference's ``cache_spec`` lays it out: ``{"dense": (k, v)}``
+        (plus ``"moe"`` for a MoE config), each [n, batch, max_seq, KVH,
+        hd]; for MLA (c_kv [n, batch, max_seq, dc], k_rope [n, batch,
+        max_seq, dr]).  It takes the place of the abstract ``cache_spec``."""
+        return self._new_cache(batch, max_seq, torch.zeros)
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, tokens, pos
                     ) -> Tuple[torch.Tensor, Cache]:
         """One serve step: tokens [B, 1], pos [B] -> (logits [B, V], cache).
 
-        Writes each layer's new key and value into ``cache`` at ``pos`` in
-        place and returns the same cache; the reference (JAX) returns a new
-        one.  A row whose pos >= max_seq is dropped, as the reference's
-        ``mode="drop"`` scatter drops it: never wrapped, never raised."""
+        Writes each layer's new cache rows at ``pos`` in place and returns
+        the same cache; the reference (JAX) returns a new one.  A row whose
+        pos >= max_seq is dropped, as the reference's ``mode="drop"``
+        scatter drops it: never wrapped, never raised."""
         cfg = self.cfg
         tokens = self._tokens(tokens)
         pos = torch.as_tensor(pos, device=self.device).to(torch.int32)
         x = F.embedding(tokens, self.embed)
-        cos, sin = rotary_cos_sin(pos[:, None].float(), cfg.head_dim,
+        cos, sin = rotary_cos_sin(pos[:, None].float(), self._rope_dim(),
                                   cfg.rope_theta)
-        k_all, v_all = cache["dense"]
-        slot = _Slot(pos, k_all.shape[2])
-        for i in range(cfg.n_layers):
-            x, _ = self._block(i, x, cos, sin, cache=(k_all[i], v_all[i]),
-                               slot=slot)
+        slot = _Slot(pos, cache["dense"][0].shape[2])
+        for key, lp, n in self._stacks():
+            first, second = cache[key]
+            for i in range(n):
+                x, _ = self._block(lp, i, x, cos, sin, key == "moe",
+                                   cache=(first[i], second[i]), slot=slot)
         return self._head(x)[:, 0], cache
 
 
 class _Slot:
-    """Where one decode step writes each row's new key and value, computed
+    """Where one decode step writes each row's new cache entry, computed
     once a step: row b goes to position pos[b], and a row with
     pos >= max_seq is dropped without a host sync (it writes back the value
     already at max_seq - 1)."""
@@ -247,16 +377,16 @@ class _Slot:
         self.pos = pos
         self.rows = torch.arange(pos.shape[0], device=pos.device)
         self.at = pos.clamp(max=max_seq - 1).long()
-        self.keep = (pos < max_seq)[:, None, None]
+        self.keep = pos < max_seq
 
 
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, slot: _Slot
                 ) -> None:
-    """cache[b, pos[b]] = rows[b] in place ([B, S, KVH, hd] <- [B, KVH, hd])
-    for the rows ``slot`` keeps."""
+    """cache[b, pos[b]] = rows[b] in place ([B, S, ...] <- [B, ...]) for
+    the rows ``slot`` keeps."""
     old = cache[slot.rows, slot.at]
-    cache[slot.rows, slot.at] = torch.where(slot.keep, rows.to(cache.dtype),
-                                            old)
+    keep = slot.keep.view(-1, *([1] * (rows.dim() - 1)))
+    cache[slot.rows, slot.at] = torch.where(keep, rows.to(cache.dtype), old)
 
 
 @torch.no_grad()
@@ -264,10 +394,14 @@ def params_from_jax(model: LM, tree: Dict[str, Any]) -> LM:
     """Load the reference LM's parameter pytree (numpy arrays, or anything
     ``np.asarray`` takes) into ``model``, values cast to each parameter's
     dtype.  The tree has the reference's layout: ``embed``, ``final_norm``,
-    ``lm_head`` unless the embeddings are tied, and ``dense_layers`` with
-    stacked ``ln1``, ``ln2``, ``attn`` (``wq``, ``wk``, ``wv``, ``wo``,
-    ``q_norm``/``k_norm`` under qk-norm) and ``mlp`` (``w_gate``, ``w_up``,
-    ``w_down``)."""
+    ``lm_head`` unless the embeddings are tied, ``dense_layers`` and, for a
+    MoE config, ``moe_layers``, each with stacked ``ln1``, ``ln2``, ``attn``
+    (GQA: ``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``/``k_norm`` under
+    qk-norm; MLA: ``wkv_a``, ``kv_a_norm``, ``wkv_b``, ``wo`` and
+    ``wq_a``/``q_a_norm``/``wq_b`` or ``wq``) and ``mlp`` (``w_gate``,
+    ``w_up``, ``w_down``) or ``moe`` (``router``, ``experts`` and
+    ``shared``, each with ``w_gate``, ``w_up``, ``w_down``).  A key set that
+    does not match the config raises."""
     def put(dst: torch.Tensor, src: Any, name: str) -> None:
         arr = np.array(src, dtype=np.float32)
         if tuple(arr.shape) != tuple(dst.shape):
@@ -275,22 +409,44 @@ def params_from_jax(model: LM, tree: Dict[str, Any]) -> LM:
                              f"{arr.shape}, the model {tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(arr).to(dst.dtype))
 
+    def same_keys(where: str, got: Any, want) -> None:
+        if set(got) != set(want):
+            raise ValueError(f"params_from_jax: {where} keys {sorted(got)} "
+                             f"do not match the config's {sorted(want)}")
+
     cfg = model.cfg
-    layers = tree["dense_layers"]
-    attn_keys = _ATTN_KEYS + (_NORM_KEYS if cfg.qk_norm else ())
-    if set(layers["attn"]) != set(attn_keys) or \
-            set(layers["mlp"]) != set(_MLP_KEYS):
-        raise ValueError(f"params_from_jax: attn keys {sorted(layers['attn'])}"
-                         f" / mlp keys {sorted(layers['mlp'])} do not match "
-                         f"the config")
+    attn_keys = tuple(_attn_shapes(cfg))
+    stacks = {"dense_layers": (model.layers, False)}
+    if model.n_moe:
+        stacks["moe_layers"] = (model.moe_layers, True)
+    same_keys("top-level", [k for k in tree if k.endswith("_layers")],
+              stacks)
     put(model.embed, tree["embed"], "embed")
     put(model.final_norm, tree["final_norm"], "final_norm")
     if model.lm_head is not None:
         put(model.lm_head, tree["lm_head"], "lm_head")
-    for name in ("ln1", "ln2"):
-        put(model.layers[name], layers[name], name)
-    for name in attn_keys:
-        put(model.layers[name], layers["attn"][name], f"attn.{name}")
-    for name in _MLP_KEYS:
-        put(model.layers[name], layers["mlp"][name], f"mlp.{name}")
+    for stack, (lp, moe) in stacks.items():
+        layers = tree[stack]
+        same_keys(stack, layers, ("ln1", "ln2", "attn",
+                                  "moe" if moe else "mlp"))
+        same_keys(f"{stack}.attn", layers["attn"], attn_keys)
+        for name in ("ln1", "ln2"):
+            put(lp[name], layers[name], f"{stack}.{name}")
+        for name in attn_keys:
+            put(lp[name], layers["attn"][name], f"{stack}.attn.{name}")
+        if not moe:
+            same_keys(f"{stack}.mlp", layers["mlp"], _MLP_KEYS)
+            for name in _MLP_KEYS:
+                put(lp[name], layers["mlp"][name], f"{stack}.mlp.{name}")
+            continue
+        want = nest_moe_params(dict.fromkeys(moe_param_shapes(cfg)))
+        same_keys(f"{stack}.moe", layers["moe"], want)
+        for group, names in want.items():
+            if isinstance(names, dict):
+                same_keys(f"{stack}.moe.{group}", layers["moe"][group], names)
+        for name in moe_param_shapes(cfg):
+            src = layers["moe"]
+            for key in moe_param_path(name):
+                src = src[key]
+            put(lp[name], src, f"{stack}.moe.{'.'.join(moe_param_path(name))}")
     return model

@@ -637,3 +637,145 @@ def test_lm_on_card_matches_cpu(cuda):
     assert decode_ops.launches.n > before[1]
     torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-4)
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+# ---------------------------------------------------------------------------
+# MoE, MLA and the collectives on the card
+# ---------------------------------------------------------------------------
+
+# the "moe" and "mla" configs of tests/test_models_lm.py, and the two
+# together with a dense first layer (deepseek-v2's shape, cut small)
+_SMALL_LMS = {
+    "moe": dict(n_layers=3, d_model=64, n_heads=4, n_kv_heads=4,
+                head_dim=16, d_ff=128, moe_d_ff=32, vocab_size=256,
+                n_routed_experts=8, n_shared_experts=2, top_k=2,
+                dtype="float32", capacity_factor=4.0),
+    "mla": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
+                vocab_size=256, kv_lora_rank=32, q_lora_rank=48,
+                qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+                dtype="float32"),
+    "moe_mla": dict(n_layers=3, d_model=64, n_heads=4, n_kv_heads=4,
+                    d_ff=96, moe_d_ff=32, vocab_size=256,
+                    n_routed_experts=8, n_shared_experts=2, top_k=3,
+                    kv_lora_rank=32, q_lora_rank=0, qk_nope_head_dim=16,
+                    qk_rope_head_dim=8, v_head_dim=16, dtype="float32",
+                    capacity_factor=1.0),
+}
+
+
+@pytest.mark.parametrize("capacity_factor", [4.0, 0.5])
+def test_moe_ffn_on_card_matches_cpu(cuda, capacity_factor):
+    """The MoE layer with the same weights on the card and the CPU, with
+    and without experts overflowing: outputs within 1e-5, aux equal."""
+    from repro_torch.configs.base import TransformerConfig
+    from repro_torch.models import moe
+    cfg = TransformerConfig(**dict(_SMALL_LMS["moe"],
+                                   capacity_factor=capacity_factor))
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe_params(cfg, torch.float32, torch.device("cpu"),
+                                 gen)
+    x = torch.randn(3, 40, 64, generator=gen)
+    want, want_aux = moe.moe_ffn(params, x, cfg)
+
+    def to_card(p):
+        return {k: to_card(v) for k, v in p.items()} if isinstance(p, dict) \
+            else p.to(cuda)
+
+    got, aux = moe.moe_ffn(to_card(params), x.to(cuda), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", list(_SMALL_LMS))
+def test_moe_and_mla_lms_on_card_match_cpu(cuda, name):
+    """MoE, MLA and MoE + MLA LMs with the same weights on the card and the
+    CPU: prefill, then 8 greedy decode steps (MLA's through the absorbed
+    decode): logits within 1e-4, the same tokens."""
+    from repro_torch.configs.base import TransformerConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.transformer import LM
+    cfg = TransformerConfig(**_SMALL_LMS[name])
+    card = LM(cfg, device=cuda)
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    b, s, steps = 2, 29, 8
+    toks = torch.randint(0, 256, (b, s), generator=torch.Generator()
+                         .manual_seed(1))
+    before = flash_ops.launches.n
+    outs = []
+    for model in (card, cpu):
+        last, pre = model.prefill(toks)
+        cache = model.init_cache(b, s + steps)
+        for key in cache:
+            for dst, src in zip(cache[key], pre[key]):
+                dst[:, :, :s] = src
+        logits, tokens = [last.cpu()], [last.argmax(-1).cpu()]
+        for t in range(steps):
+            lg, cache = model.decode_step(cache, tokens[-1][:, None],
+                                          torch.full((b,), s + t))
+            logits.append(lg.cpu())
+            tokens.append(lg.argmax(-1).cpu())
+        outs.append((torch.stack(logits), torch.stack(tokens)))
+    assert flash_ops.launches.n - before == cfg.n_layers
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,dv", [(2, 300, 16, 128, 128),
+                                        (1, 257, 8, 192, 128)])
+def test_attention_kernels_one_query_head_per_key_head(cuda, dtype, b, s, h,
+                                                       d, dv):
+    """flash and decode at G = 1 (deepseek-moe-16b's 16 / 16 heads, MLA's
+    prefill widths), against their plain versions."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator().manual_seed(s + h)
+    q = _randn(gen, b, s, h, d, dtype=dtype, device=cuda)
+    k = _randn(gen, b, s, h, d, dtype=dtype, device=cuda)
+    v = _randn(gen, b, s, h, dv, dtype=dtype, device=cuda)
+    got = flash_ops.flash_attention(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    _assert_attn_close(got, want, ATTN_TOL[dtype])
+    pos = torch.randint(0, s, (b,), generator=gen, dtype=torch.int32)
+    pos[0] = s - 1
+    pos = pos.to(cuda)
+    q1 = q[:, :1].contiguous()
+    got = decode_ops.decode_attention(q1, k, v, pos)
+    want = decode_attention_ref(q1, k, v, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def test_collectives_on_a_world_one_nccl_group(cuda, tmp_path):
+    """sharded_topk on one NCCL rank (one card takes one rank) through the
+    topk_merge kernel equals the whole-corpus scan; partial_softmax_combine
+    equals the plain softmax."""
+    import torch.distributed as dist
+    from repro_torch.core.vector_index import scan_topk
+    from repro_torch.distributed.collectives import (partial_softmax_combine,
+                                                     sharded_topk)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        rng = np.random.default_rng(0)
+        half = _int(rng, 500, 32)
+        corpus = torch.cat([half, half]).to(cuda)
+        ids = torch.arange(1000, device=cuda) + (1 << 33)
+        q = _int(rng, 7, 32).to(cuda)
+        for k in (10, 100):
+            before = merge_ops.launches.n
+            v, i = sharded_topk(q, corpus, ids, k)
+            wv, wi = scan_topk(q, corpus, ids, k)
+            torch.cuda.synchronize()
+            assert merge_ops.launches.n == before + 1
+            assert torch.equal(i, wi) and torch.equal(v, wv)
+        s = torch.randn(3, 4, 300, device=cuda)
+        vals = torch.randn(3, 4, 300, 16, device=cuda)
+        got = partial_softmax_combine(s, vals)
+        want = torch.einsum("...s,...sd->...d", torch.softmax(s, -1), vals)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()

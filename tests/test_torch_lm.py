@@ -51,7 +51,31 @@ CFGS = {
     "mha_tied": dict(n_layers=3, d_model=64, n_heads=4, n_kv_heads=4,
                      head_dim=16, d_ff=96, vocab_size=256,
                      tie_embeddings=True, dtype="float32"),
+    # the "moe" and "mla" configs of tests/test_models_lm.py
+    "moe": dict(n_layers=3, d_model=64, n_heads=4, n_kv_heads=4,
+                head_dim=16, d_ff=128, moe_d_ff=32, vocab_size=256,
+                n_routed_experts=8, n_shared_experts=2, top_k=2,
+                dtype="float32", capacity_factor=4.0),
+    "mla": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
+                vocab_size=256, kv_lora_rank=32, q_lora_rank=48,
+                qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+                dtype="float32"),
+    "mla_no_q_lora": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                          d_ff=128, vocab_size=256, kv_lora_rank=32,
+                          q_lora_rank=0, qk_nope_head_dim=16,
+                          qk_rope_head_dim=8, v_head_dim=16,
+                          dtype="float32"),
 }
+
+# deepseek-v2-236b cut to a small size on both sides: MLA and MoE together,
+# a dense first layer, shared experts; every other setting the arch's own
+DSV2_CUT = dict(n_layers=3, d_model=64, n_heads=4, n_kv_heads=4, d_ff=96,
+                moe_d_ff=32, vocab_size=256, n_routed_experts=8, top_k=3,
+                kv_lora_rank=32, q_lora_rank=24, qk_nope_head_dim=16,
+                qk_rope_head_dim=8, v_head_dim=16, dtype="float32",
+                capacity_factor=4.0, grad_accum=1, fsdp=False)
+LM_ARCHS = ["llama3-8b", "qwen3-14b", "stablelm-12b", "deepseek-moe-16b",
+            "deepseek-v2-236b"]
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +84,17 @@ def mesh():
 
 
 def _pair(name, seed=0, **over):
-    """(reference LM, its params, the port's LM holding the same params)."""
+    """(reference LM, its params, the port's LM holding the same params);
+    ``name`` "dsv2_cut" is deepseek-v2-236b reduced to ``DSV2_CUT``."""
+    if name == "dsv2_cut":
+        rcfg = dataclasses.replace(ref_get_arch("deepseek-v2-236b").model,
+                                   **DSV2_CUT, **over)
+        ref = RefLM(rcfg)
+        params = ref.init(jax.random.key(seed))
+        port = LM(reduced(get_arch("deepseek-v2-236b").model, **DSV2_CUT,
+                          **over), device="cpu")
+        params_from_jax(port, jax.tree.map(np.asarray, params))
+        return ref, params, port
     kw = dict(CFGS[name], **over)
     ref = RefLM(RefCfg(**kw))
     params = ref.init(jax.random.key(seed))
@@ -79,7 +113,7 @@ def _tokens(seed, b, s, vocab=256):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-14b", "stablelm-12b"])
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_arch_configs_match_reference(name):
     ref, port = ref_get_arch(name), get_arch(name)
     assert dataclasses.asdict(port.model) == dataclasses.asdict(ref.model)
@@ -90,10 +124,14 @@ def test_arch_configs_match_reference(name):
         (ref.name, ref.family, ref.source)
 
 
-def test_arch_registry_holds_dense_archs_only():
-    assert sorted(arch_names()) == ["llama3-8b", "qwen3-14b", "stablelm-12b"]
-    with pytest.raises(KeyError, match="deepseek"):
-        get_arch("deepseek-v2-236b")
+def test_arch_registry_holds_every_lm_arch():
+    """The five transformer archs of the reference's registry, and no
+    other (GNN and recsys archs come with their modules)."""
+    from repro.configs import arch_names as ref_arch_names
+    lm = [n for n in ref_arch_names() if ref_get_arch(n).family == "lm"]
+    assert sorted(arch_names()) == sorted(lm) == sorted(LM_ARCHS)
+    with pytest.raises(KeyError, match="gcn-cora"):
+        get_arch("gcn-cora")
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -226,21 +264,45 @@ def test_lm_param_shapes_match_reference_tree():
         n_ref = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(tree))
         n_port = sum(p.numel() for p in port.parameters())
         assert n_ref == n_port, name
-        assert tuple(port.layers["wq"].shape) == \
-            tree["dense_layers"]["attn"]["wq"].shape
+        attn = tree["dense_layers"]["attn"]
+        key = "wq_b" if "wq_b" in attn else "wq"
+        assert tuple(port.layers[key].shape) == attn[key].shape
+        for stack, lp in (("dense_layers", port.layers),
+                          ("moe_layers", port.moe_layers)):
+            if stack not in tree:
+                assert lp is None
+                continue
+            ref_leaves = jax.tree_util.tree_leaves_with_path(tree[stack])
+            assert len(ref_leaves) == len(lp)
+            for path, leaf in ref_leaves:
+                names = [p.key for p in path]
+                mine = f"shared_{names[-1]}" if "shared" in names \
+                    else names[-1]
+                assert tuple(lp[mine].shape) == leaf.shape, (stack, names)
+                assert str(lp[mine].dtype).split(".")[1] == str(leaf.dtype)
         assert not any(p.requires_grad for p in port.parameters())
 
 
-@pytest.mark.parametrize("over", [
-    dict(n_routed_experts=8, n_shared_experts=2, top_k=2, moe_d_ff=32),
-    dict(kv_lora_rank=32, q_lora_rank=48),
-])
-def test_moe_and_mla_configs_raise(over):
-    cfg = TransformerConfig(**dict(CFGS["dense"], **over))
-    with pytest.raises(NotImplementedError, match="Queue A8"):
-        LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A8"):
-        build_model(cfg, device="cpu")
+@pytest.mark.parametrize("name", ["moe", "mla", "mla_no_q_lora", "dsv2_cut"])
+def test_moe_and_mla_configs_build(name):
+    """LM and build_model build MoE, MLA and MoE + MLA configs: the two
+    stacks, and the parameters ``param_count()`` counts plus the final norm
+    (and MLA's latent norm scales, which it leaves out)."""
+    cfg = TransformerConfig(**CFGS[name]) if name in CFGS else \
+        reduced(get_arch("deepseek-v2-236b").model, **DSV2_CUT)
+    for model in (LM(cfg, device="cpu"), build_model(cfg, device="cpu")):
+        n_dense = cfg.first_dense_layers if cfg.is_moe else cfg.n_layers
+        assert model.n_dense == n_dense
+        assert model.n_moe == cfg.n_layers - n_dense
+        assert (model.moe_layers is None) == (not cfg.is_moe)
+        norms = cfg.d_model + (cfg.n_layers * (cfg.kv_lora_rank
+                                               + cfg.q_lora_rank)
+                               if cfg.is_mla else 0)
+        assert sum(p.numel() for p in model.parameters()) == \
+            cfg.param_count() + norms
+        cache = model.init_cache(2, 5)
+        assert sorted(cache) == (["dense", "moe"] if cfg.is_moe
+                                 else ["dense"])
 
 
 def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
@@ -258,7 +320,7 @@ def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", list(CFGS))
+@pytest.mark.parametrize("name", list(CFGS) + ["dsv2_cut"])
 def test_forward_and_prefill_cache_match_reference(name, mesh):
     ref, params, port = _pair(name)
     toks = _tokens(1, 2, 24)
@@ -268,15 +330,17 @@ def test_forward_and_prefill_cache_match_reference(name, mesh):
         last, _ = ref.prefill(params, jnp.asarray(toks), base_rules(mesh))
     got, got_cache = port.forward(torch.from_numpy(toks), collect_cache=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(logits), **LOGITS)
-    for r, p in zip(cache["dense"], got_cache["dense"]):
-        np.testing.assert_allclose(p.numpy(), np.asarray(r), **LOGITS)
+    assert sorted(got_cache) == sorted(cache)
+    for key in cache:
+        for r, p in zip(cache[key], got_cache[key]):
+            np.testing.assert_allclose(p.numpy(), np.asarray(r), **LOGITS)
     p_last, p_cache = prefill_step(port, torch.from_numpy(toks))
     np.testing.assert_allclose(p_last.numpy(), np.asarray(last), **LOGITS)
-    assert all(torch.equal(a, b) for a, b in zip(p_cache["dense"],
-                                                 got_cache["dense"]))
+    assert all(torch.equal(a, b) for key in cache
+               for a, b in zip(p_cache[key], got_cache[key]))
 
 
-@pytest.mark.parametrize("name", list(CFGS))
+@pytest.mark.parametrize("name", list(CFGS) + ["dsv2_cut"])
 def test_teacher_forced_decode_matches_reference(name, mesh):
     """16 decode steps from an empty cache, fed the same tokens, give the
     reference's logits and caches."""
@@ -297,8 +361,9 @@ def test_teacher_forced_decode_matches_reference(name, mesh):
                 toks[:, t:t + 1]), torch.from_numpy(pos))
             assert pcache2 is pcache               # updated in place
             np.testing.assert_allclose(plg.numpy(), np.asarray(lg), **LOGITS)
-    for r, p in zip(cache["dense"], pcache["dense"]):
-        np.testing.assert_allclose(p.numpy(), np.asarray(r), **LOGITS)
+    for key in cache:
+        for r, p in zip(cache[key], pcache[key]):
+            np.testing.assert_allclose(p.numpy(), np.asarray(r), **LOGITS)
 
 
 def test_decode_drops_rows_past_the_cache(mesh):
@@ -326,7 +391,35 @@ def test_decode_drops_rows_past_the_cache(mesh):
         assert not np.array_equal(p.numpy()[:, 0, 3], x[:, 0, 3])
 
 
-@pytest.mark.parametrize("name", ["dense", "qknorm"])
+def test_mla_decode_drops_rows_past_the_cache(mesh):
+    """The same for MLA's latent caches ([n, B, S, dc] and [n, B, S, dr]),
+    over both stacks of the deepseek-v2 cut."""
+    ref, params, port = _pair("dsv2_cut", seed=2)
+    b, s = 2, 8
+    toks = _tokens(3, b, 1)
+    pos = np.asarray([s + 2, 5], np.int32)
+    rng = np.random.default_rng(6)
+    init = {key: [rng.standard_normal((n, b, s, w)).astype(np.float32)
+                  for w in (32, 8)]
+            for key, n in (("dense", 1), ("moe", 2))}
+    cache = {k: tuple(jnp.asarray(x) for x in v) for k, v in init.items()}
+    pcache = {k: tuple(torch.from_numpy(x.copy()) for x in v)
+              for k, v in init.items()}
+    with jax.set_mesh(mesh):
+        lg, cache = ref.decode_step(params, cache, jnp.asarray(toks),
+                                    jnp.asarray(pos), decode_rules(mesh))
+    plg, pcache = port.decode_step(pcache, torch.from_numpy(toks),
+                                   torch.from_numpy(pos))
+    np.testing.assert_allclose(plg.numpy(), np.asarray(lg), **LOGITS)
+    for key in init:
+        for r, p, x in zip(cache[key], pcache[key], init[key]):
+            np.testing.assert_allclose(p.numpy(), np.asarray(r), **LOGITS)
+            np.testing.assert_array_equal(p.numpy()[:, 0], x[:, 0])
+            assert not np.array_equal(p.numpy()[:, 1, 5], x[:, 1, 5])
+
+
+@pytest.mark.parametrize("name", ["dense", "qknorm", "moe", "mla",
+                                  "mla_no_q_lora", "dsv2_cut"])
 def test_greedy_generation_matches_reference(name, mesh):
     """Prefill a prompt, then 12 greedy steps: identical tokens."""
     ref, params, port = _pair(name, seed=4)
@@ -347,8 +440,9 @@ def test_greedy_generation_matches_reference(name, mesh):
             nxt = jnp.argmax(lg, axis=-1)
     plast, ppre = port.prefill(torch.from_numpy(toks))
     pcache = port.init_cache(b, max_seq)
-    for dst, src in zip(pcache["dense"], ppre["dense"]):
-        dst[:, :, :prompt] = src
+    for key in pcache:
+        for dst, src in zip(pcache[key], ppre[key]):
+            dst[:, :, :prompt] = src
     port_out, pnxt = [], plast.argmax(-1)
     for t in range(steps):
         port_out.append(pnxt.numpy())
@@ -378,6 +472,26 @@ def test_params_from_jax_rejects_a_mismatched_tree():
     tree = jax.tree.map(np.asarray, params)
     tree["embed"] = tree["embed"][:10]
     with pytest.raises(ValueError, match="embed"):
+        params_from_jax(port, tree)
+
+
+@pytest.mark.parametrize("name,edit,match", [
+    ("moe", lambda t: t["moe_layers"]["moe"].pop("shared"), "moe keys"),
+    ("moe", lambda t: t.pop("moe_layers"), "top-level keys"),
+    ("moe", lambda t: t["moe_layers"]["moe"]["experts"].pop("w_up"),
+     "experts keys"),
+    ("mla", lambda t: t["dense_layers"]["attn"].pop("wq_a"), "attn keys"),
+    ("mla_no_q_lora", lambda t: t["dense_layers"]["attn"].update(
+        wq_a=np.zeros(1)), "attn keys"),
+    ("dsv2_cut", lambda t: t["moe_layers"].update(
+        mlp=t["moe_layers"].pop("moe")), "moe_layers keys"),
+])
+def test_params_from_jax_rejects_mismatched_moe_and_mla_trees(name, edit,
+                                                              match):
+    _, params, port = _pair(name)
+    tree = jax.tree.map(np.asarray, params)
+    edit(tree)
+    with pytest.raises(ValueError, match=match):
         params_from_jax(port, tree)
 
 

@@ -219,6 +219,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.registry, repro_torch.launch.steps\n"
             "import repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.decode_attention.ops\n"
+            "import repro_torch.models.moe, repro_torch.distributed, "
+            "repro_torch.distributed.collectives\n"
             "from repro_torch.configs import get_arch, arch_names\n"
             "[get_arch(n) for n in arch_names()]\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
