@@ -5,7 +5,7 @@
                           [--out results.json]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all at once), then runs ten phases and fails if any fails:
+per source, all at once), then runs eleven phases and fails if any fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
    version on the card, at the main paths' shapes (IVF: Q in {256, 930}, N =
@@ -43,7 +43,15 @@ per source, all at once), then runs ten phases and fails if any fails:
    function) times and the bounds (for flash also the floor of its
    two-product P.V, for PQ the shared-memory floor of its gathers); the
    MoE and MLA paths' attention cases also in device time (torch.profiler,
-   kernel and SDPA).
+   kernel and SDPA).  The flash backward (``flash_attention_bwd``) at the
+   training path's shape (B=2, S=4,096, 32/8 heads of 128, bf16, causal),
+   at MLA's widths, with more queries than keys, unmasked, and in float32:
+   dq, dk and dv against the plain version on the forward kernel's o, m and
+   l (m and l first held against the plain forward's), within rtol 1e-2
+   plus 2^-10 of the tensor's largest value in bf16 (1e-4 and 1e-5 in
+   float32); a planted fault must fail each limit (a key tile of v zeroed:
+   dq and dk; 32 rows of dO zeroed: dv); SDPA's backward (forward +
+   backward minus forward) is its library time.
 2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
    persons (100,000 by default) with 128-d faces and the IVF-Flat face
    index; a ``QueryServer`` answers the semantic and structured requests
@@ -87,24 +95,38 @@ per source, all at once), then runs ten phases and fails if any fails:
    must return ``scan_topk``'s ids over the whole corpus;
    ``partial_softmax_combine`` must agree within 1e-4 with
    ``decode_attention`` on the same q, K, V and with the plain softmax.
-9. parity: the serving requests at 5,000 persons, and the cluster's
+9. train: ``LM(llama3-8b)`` at full width cut to 8 layers (2.8 B
+   parameters; all 32 with AdamW state would need ~128 GB), weights drawn
+   on the card; 4 optimizer steps of ``train_step`` on SyntheticLM batches
+   of 8 x 4,096 tokens (train_4k's global batch 256 cut to 8: the config's
+   4 micro-batches of 2), remat, AdamW: each step's loss (finite), grad
+   norm, ms, tokens/s and MFU ((6 N_matmul + 12 L H D (S + 1) / 2) tokens
+   / step time / 989 TFLOP/s), peak memory, and the flash forward and
+   backward kernels' launches (every layer and micro-batch: two forwards
+   under remat, one backward).
+10. parity: the serving requests at 5,000 persons, and the cluster's
    requests and kNN at 5,000 persons, card against CPU: rows identical,
    kNN ids identical wherever neighbouring scores differ by more than 1e-4.
-10. lm parity, for llama3-8b, deepseek-moe-16b and deepseek-v2-236b: a
+11. lm parity, for llama3-8b, deepseek-moe-16b and deepseek-v2-236b: a
    2-layer float32 cut (d_model 128) with the same weights on the card and
    the CPU: logits within 1e-4, greedy tokens identical.  Then each arch
    cut to 2 layers at full width in bf16, on the card through the kernels
    and through their plain versions (the plain run replays the kernel
    run's expert choices): logits within two bf16 ulps of the largest
    logit, greedy tokens identical wherever the top two logits are further
-   apart than that.
+   apart than that.  Then training: each 2-layer float32 cut's loss and
+   gradients and its parameters after one ``train_step`` (grad_accum 2),
+   card against CPU within 1e-4; and llama3-8b's 2-layer full-width bf16
+   cut (B = 2, S = 500), one step's loss and gradients through the flash
+   forward and backward kernels against the same step through their plain
+   versions: loss within 2^-8 and grad norm within 2^-5 of themselves.
 
 Launch counts are zeroed just before each main path (phases 2-3, the
-single node; phase 4, the cluster; phases 5, 6, 7 and 8, each alone) and
-read just after it; every kernel of a path must have launched on it.
+single node; phase 4, the cluster; phases 5, 6, 7, 8 and 9, each alone)
+and read just after it; every kernel of a path must have launched on it.
 ``--profile`` runs each serving request, each PQ search mode, one cluster
-kNN, one fan-out request, and one prefill and one decode step of each LM
-once more, after the main path's run and uncounted, under
+kNN, one fan-out request, one prefill and one decode step of each LM and
+one training step once more, after the main path's run and uncounted, under
 ``torch.profiler`` and ``cProfile``: host wall time, device busy time (CUDA
 kernels and copies, which run on one stream), the idle share ``1 - busy /
 wall``, and the kernels and host functions that took the most time.
@@ -119,6 +141,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -477,6 +500,7 @@ def phase_kernels(torch, pq_rows: int):
     out["topk_merge"] = kernel_topk_merge(torch, dev)
     out["flash_attention"] = kernel_flash_attention(torch, dev)
     out["decode_attention"] = kernel_decode_attention(torch, dev)
+    out["flash_attention_bwd"] = kernel_flash_attention_bwd(torch, dev)
     return out
 
 
@@ -858,6 +882,154 @@ def kernel_decode_attention(torch, dev):
                               f"pos spread")
         del q, kc, vc, got, want, mask
         torch.cuda.empty_cache()
+    return dict(main, max_abs_err=worst, cases=table)
+
+
+# the backward's limit: |delta| <= rtol |want| + atol * max |want| of the
+# tensor.  bf16: both sides compute float32 gradients (the kernel's P and
+# dS enter its products as bf16 hi + lo) and round them once, so they lie
+# one bf16 ulp apart (rtol 1e-2 keeps a margin) plus float32 noise of sums
+# over thousands of terms, which cancel in small elements (atol, relative
+# to the tensor's largest).  float32: sums in another order.
+BWD_TOL = {"bfloat16": (1e-2, 2.0 ** -10), "float32": (1e-4, 1e-5)}
+
+
+def bwd_err(got, want, dtype_name: str):
+    """(max |delta|, max |delta| / max |want|, every element within the
+    backward's limit)."""
+    rtol, atol = BWD_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    top = float(w.abs().max())
+    return (float(diff.max()), float(diff.max()) / max(top, 1e-30),
+            bool((diff <= rtol * w.abs() + atol * top).all()))
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, causal: bool):
+    """SDPA's backward (``is_causal``, ``enable_gqa``), timed as forward +
+    backward minus forward: the library yardstick, never used by the
+    port."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+    def both():
+        qt.grad = kt.grad = vt.grad = None
+        fwd().backward(dot)
+
+    with torch.no_grad():
+        f_ms = time_ms(torch, fwd)
+    return time_ms(torch, both) - f_ms
+
+
+def kernel_flash_attention_bwd(torch, dev):
+    """flash_attention_bwd at the training path's shape (llama3-8b, B=2,
+    S=4,096, 32 query / 8 key heads of 128, bf16, causal), at MLA's widths
+    (q and k 192, v 128), with more queries than keys (rows that see no
+    key), without the mask, and in float32: dq, dk, dv against the plain
+    version on the same inputs (the forward kernel's o, m and l, whose m
+    and l are first held against the plain forward's).  A planted fault
+    must fail each limit: the values of one key tile zeroed (dq and dk of
+    the rows and keys it meets), and dO zeroed on 32 query rows near the
+    end (dv of the keys they weigh most)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+    # (label, B, Sq, Skv, H, KVH, D, Dv, dtype, causal)
+    cases = [("train", 2, 4096, 4096, 32, 8, 128, 128, bf, True),
+             ("mla_widths", 1, 2048, 2048, 16, 16, 192, 128, bf, True),
+             ("sq_above_skv", 1, 600, 400, 8, 2, 64, 64, bf, True),
+             ("full", 1, 512, 512, 8, 8, 128, 128, bf, False),
+             ("f32", 2, 300, 300, 4, 2, 32, 32, f32, True)]
+    worst, main, table = 0.0, None, {}
+    n_fwd = flash_ops.launches.n            # comparisons: not a path's
+    for label, b, sq, skv, h, kvh, d, dv, dt, causal in cases:
+        q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dt)
+        k = torch.randn(b, skv, kvh, d, device=dev, generator=gen).to(dt)
+        v = torch.randn(b, skv, kvh, dv, device=dev, generator=gen).to(dt)
+        do = torch.randn(b, sq, h, dv, device=dev, generator=gen).to(dt)
+        name = str(dt).split(".")[1]
+        o, m, l = flash_ops.flash_attention(q, k, v, causal=causal,
+                                            return_stats=True)
+        _, pm, pl = flash_attention_ref(q, k, v, causal=causal,
+                                        return_stats=True)
+        m_err = float((m - pm).abs().max())
+        l_err = float(((l - pl).abs() / pl.abs().clamp(min=1e-30)).max())
+        check(m_err <= 1e-4 and l_err <= 1e-4,
+              f"flash_attention {label}: m/l off the plain version's by "
+              f"{m_err} / {l_err} (relative)")
+        n0 = flash_ops.bwd_launches.n
+        got = flash_ops.flash_attention_bwd(q, k, v, o, m, l, do,
+                                            causal=causal)
+        want = flash_attention_bwd_ref(q, k, v, o, m, l, do, causal=causal)
+        torch.cuda.synchronize()
+        check(flash_ops.bwd_launches.n == n0 + 1,
+              "flash_attention_bwd did not count its launch")
+        errs = {}
+        for what, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            err, rel, ok = bwd_err(g_, w_, name)
+            errs[what] = (err, rel)
+            worst = max(worst, err)
+            check(ok, f"flash_attention_bwd {label} {what} off its plain "
+                  f"version by {err} ({rel} of its largest)")
+        # planted faults: a kernel that drops one key tile, and one that
+        # drops 32 query rows
+        tile = fault_tile(skv, skv - 1)
+        vf = v.clone()
+        vf[:, tile] = 0
+        bad_v = flash_attention_bwd_ref(q, k, vf, o, m, l, do, causal=causal)
+        dof = do.clone()
+        dof[:, max(0, sq - 64):max(0, sq - 32)] = 0
+        bad_do = flash_attention_bwd_ref(q, k, v, o, m, l, dof, causal=causal)
+        caught = {"dq": not bwd_err(bad_v[0], want[0], name)[2],
+                  "dk": not bwd_err(bad_v[1], want[1], name)[2],
+                  "dv": not bwd_err(bad_do[2], want[2], name)[2]}
+        check(all(caught.values()), f"flash_attention_bwd {label}: the "
+              f"limit passes a planted fault ({caught})")
+        del vf, bad_v, dof, bad_do, want
+        ms = time_ms(torch, lambda: flash_ops.flash_attention_bwd(
+            q, k, v, o, m, l, do, causal=causal))
+        plain_block = 512 if label == "train" else 1024
+        plain_ms = time_ms(torch, lambda: flash_attention_bwd_ref(
+            q, k, v, o, m, l, do, causal=causal, block_kv=plain_block))
+        dev_ms = device_ms(torch, lambda: flash_ops.flash_attention_bwd(
+            q, k, v, o, m, l, do, causal=causal), runs=5)
+        lib_ms = sdpa_bwd_ms(torch, q, k, v, do, causal) \
+            if sq == skv else None
+        # five products over the (query, key) pairs each row weighs (S and
+        # dS^T q at D, dP and P^T dO at Dv, dS K at D); q, k, v, o, dO, m,
+        # l read once, dq, dk, dv written once
+        pairs = float(b * h) * ((sq * (skv - sq) + sq * (sq + 1) / 2)
+                                if causal and sq <= skv else sq * skv)
+        n_ops = pairs * 2 * (3 * d + 2 * dv)
+        n_bytes = 2 * (b * sq * h * (d + 2 * dv) + b * skv * kvh * (d + dv)) \
+            * q.element_size() + b * h * sq * 8
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
+                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        log(f"[kernels] flash_attention_bwd {label} B={b} Sq={sq} Skv={skv} "
+            f"H={h} KVH={kvh} D={d} Dv={dv} {name} causal={causal}: "
+            + " ".join(f"{w}_max_abs_err={e[0]} ({e[1]:.3g} of max)"
+                       for w, e in errs.items())
+            + f" m_err={m_err} l_rel_err={l_err:.3g} faults_caught={caught} "
+            f"ms={ms:.3f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} "
+            f"library_ms={'-' if lib_ms is None else f'{lib_ms:.3f}'} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        table[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                            errors=errs, m_err=m_err, l_rel_err=l_err)
+        if label == "train":
+            main = dict(table[label], shape=f"B={b} S={sq} H={h} KVH={kvh} "
+                                            f"D={d} {name} causal")
+        del q, k, v, do, o, m, l, got
+        torch.cuda.empty_cache()
+    flash_ops.launches.n = n_fwd
     return dict(main, max_abs_err=worst, cases=table)
 
 
@@ -1722,6 +1894,250 @@ def phase_lm_parity_bf16(torch, arch: str = LM_ARCH):
 
 
 # ---------------------------------------------------------------------------
+# training: llama3-8b at full width, and 2-layer parity
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 8            # 32 -> 8: weights, grads and AdamW state fit
+TRAIN_BATCH, TRAIN_LEN = 8, 4096   # train_4k's global batch 256 cut to 8
+TRAIN_STEPS = 4
+
+
+def train_flops(cfg, tokens: int, seq: int) -> dict:
+    """Model FLOPs of a training step (no recompute counted): 6 N_matmul
+    per token for the weight products (N_matmul: every matrix a token
+    multiplies -- wq, wk, wv, wo, w_gate, w_up, w_down of each layer and
+    the head; not the embedding gather), plus attention's 3 x 4 H D
+    operations per visible (query, key) pair and layer (forward S and P V,
+    backward twice that), (S + 1) / 2 visible keys a query under causal."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    per_layer = d * h * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * cfg.d_ff
+    n_matmul = cfg.n_layers * per_layer + d * cfg.vocab_size
+    attn = 12 * cfg.n_layers * h * hd * (seq + 1) / 2
+    return {"n_matmul": n_matmul,
+            "flops": (6 * n_matmul + attn) * tokens,
+            "formula": "(6 N_matmul + 12 L H D (S + 1) / 2) tokens"}
+
+
+def phase_train(torch, prof=None):
+    """llama3-8b at full width (d_model 4,096, 32 / 8 heads of 128, d_ff
+    14,336, vocab 128,256, bf16) cut to TRAIN_LAYERS layers, weights drawn
+    on the card from a seeded generator; TRAIN_STEPS optimizer steps of
+    ``train_step`` on SyntheticLM batches of 8 x 4,096 tokens, each the
+    config's grad_accum = 4 micro-batches of 2, under remat, AdamW: loss
+    (finite), grad norm, step ms, tokens/s, MFU, peak memory, and the flash
+    forward and backward kernels' launches."""
+    import gc
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    cfg = reduced(get_arch(LM_ARCH).model, n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev,
+               generator=torch.Generator(device=dev).manual_seed(0))
+    opt_cfg = AdamWConfig()
+    opt_state = init_opt_state(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] llama3-8b cut to {cfg.n_layers} layers, d_model="
+        f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}: {n_params} "
+        f"parameters, grad_accum={cfg.grad_accum} remat={cfg.remat}; model "
+        f"and AdamW state on the card in {time.perf_counter() - t0:.1f}s")
+    data = SyntheticLM(LMDataConfig(cfg.vocab_size, TRAIN_LEN, TRAIN_BATCH))
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    fl = train_flops(cfg, tokens, TRAIN_LEN)
+    n0 = (flash_ops.launches.n, flash_ops.bwd_launches.n)
+    steps = []
+    for step in range(TRAIN_STEPS):
+        batch = data.batch(step)
+        toks = torch.from_numpy(batch["tokens"]).to(dev)
+        labs = torch.from_numpy(batch["labels"]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt_state, met = train_step(model, opt_state, toks, labs, opt_cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        row = {k: float(v) for k, v in met.items()}
+        row.update(ms=ms, tokens_per_s=tokens / ms * 1e3,
+                   mfu=fl["flops"] / (ms / 1e3) / BF16_OPS_PER_S)
+        steps.append(row)
+        log(f"[train] step {step}: loss={row['loss']:.6f} ce={row['ce']:.6f} "
+            f"grad_norm={row['grad_norm']:.6f} lr={row['lr']:.3g} "
+            f"step_ms={ms:.1f} tokens_per_s={row['tokens_per_s']:.1f} "
+            f"mfu={row['mfu']:.4f}")
+        check(all(math.isfinite(row[k]) for k in ("loss", "grad_norm")),
+              f"train step {step}: loss or grad norm not finite")
+    n1 = (flash_ops.launches.n, flash_ops.bwd_launches.n)
+    launches = {"flash_attention": n1[0] - n0[0],
+                "flash_attention_bwd": n1[1] - n0[1]}
+    # each of the L layers, per micro-batch: a forward, its recompute under
+    # remat, and one backward
+    micro = TRAIN_STEPS * cfg.grad_accum
+    want = {"flash_attention": micro * cfg.n_layers * (2 if cfg.remat else 1),
+            "flash_attention_bwd": micro * cfg.n_layers}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] {TRAIN_STEPS} steps of {tokens} tokens: launches {launches} "
+        f"(expected {want}); peak device memory {peak:.1f} GB; MFU = "
+        f"{fl['formula']} / step time / 989 TFLOP/s, N_matmul="
+        f"{fl['n_matmul']}, {fl['flops'] / 1e12:.1f} TFLOP a step")
+    check(launches == want, f"train launches {launches}, expected {want}")
+    if prof is not None:
+        batch = data.batch(TRAIN_STEPS)
+        toks = torch.from_numpy(batch["tokens"]).to(dev)
+        labs = torch.from_numpy(batch["labels"]).to(dev)
+        prof(f"train step llama3-8b {cfg.n_layers}L B={TRAIN_BATCH} "
+             f"S={TRAIN_LEN}",
+             lambda: train_step(model, opt_state, toks, labs, opt_cfg))
+    del model, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches": launches, "peak_gb": peak,
+            "n_params": n_params, **fl}
+
+
+def train_cut(arch: str):
+    """``arch`` cut to ``PARITY_CUTS[arch]`` in float32, grad_accum 2."""
+    from repro_torch.configs import get_arch, reduced
+    return reduced(get_arch(arch).model, **PARITY_CUTS[arch],
+                   dtype="float32", grad_accum=2, fsdp=False)
+
+
+def grads_of(model, toks, labs):
+    """(loss, {name: gradient}) of ``model.loss_fn``."""
+    from repro_torch.training.optimizer import gradients
+    loss, _ = model.loss_fn(toks, labs)
+    return loss.detach(), gradients(loss, dict(model.named_parameters()))
+
+
+def phase_train_parity(torch, arch: str = LM_ARCH):
+    """The 2-layer float32 cut of ``arch``, the same weights on the card
+    and on the CPU: the loss and every gradient, then every parameter
+    after one ``train_step`` (grad_accum 2), card against CPU within
+    1e-4 (float32 sums in another order)."""
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.optimizer import init_opt_state
+
+    cfg = train_cut(arch)
+    card = LM(cfg, device="cuda",
+              generator=torch.Generator(device="cuda").manual_seed(7))
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    gen = torch.Generator().manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen)
+    labs = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen)
+    res = []
+    for model in (card, cpu):
+        loss, grads = grads_of(model, toks, labs)
+        opt = init_opt_state(dict(model.named_parameters()))
+        _, met = train_step(model, opt, toks, labs)
+        res.append((float(loss), {k: g.cpu() for k, g in grads.items()},
+                    float(met["loss"]),
+                    {k: p.detach().cpu() for k, p in model.named_parameters()}))
+    err_loss = max(abs(res[0][0] - res[1][0]), abs(res[0][2] - res[1][2]))
+    err_grad = max(float((res[0][1][k] - res[1][1][k]).abs().max())
+                   for k in res[0][1])
+    err_par = max(float((res[0][3][k] - res[1][3][k]).abs().max())
+                  for k in res[0][3])
+    log(f"[train parity] 2-layer float32 {arch} card vs cpu: loss "
+        f"max_abs_err={err_loss} gradients max_abs_err={err_grad} params "
+        f"after one train_step max_abs_err={err_par}")
+    check(max(err_loss, err_grad, err_par) <= 1e-4,
+          f"train parity {arch} off by {max(err_loss, err_grad, err_par)}")
+    return {"loss_err": err_loss, "grad_err": err_grad, "param_err": err_par}
+
+
+# the bf16 training cut, kernels against plain: the two runs differ only
+# where attention's one bf16 rounding (forward output, backward gradients)
+# falls the other way, a relative 2^-8 on some elements; the mean loss
+# moves far less than that, the gradients' norm by less than 2^-5 of itself
+TRAIN_BF16_LOSS_REL, TRAIN_BF16_GNORM_REL = 2.0 ** -8, 2.0 ** -5
+
+
+def phase_train_parity_bf16(torch):
+    """llama3-8b cut to 2 layers at full width, bf16, B = 2, S = 500: the
+    loss and gradients of one step through the flash kernels (forward and
+    backward) against the same step with both swapped for their plain
+    versions, on the card.  Limits: loss within 2^-8 of itself, grad norm
+    within 2^-5 of itself; the largest gradient |delta| is reported."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import LM
+
+    cfg = reduced(get_arch(LM_ARCH).model, n_layers=2)
+    dev = torch.device("cuda")
+    model = LM(cfg, device=dev,
+               generator=torch.Generator(device=dev).manual_seed(9))
+    gen = torch.Generator(device=dev).manual_seed(10)
+    toks = torch.randint(0, cfg.vocab_size, (2, 500), device=dev,
+                         generator=gen)
+    labs = torch.randint(0, cfg.vocab_size, (2, 500), device=dev,
+                         generator=gen)
+    n0 = (flash_ops.launches.n, flash_ops.bwd_launches.n)
+    k_loss, k_grads = grads_of(model, toks, labs)
+    n1 = (flash_ops.launches.n, flash_ops.bwd_launches.n)
+    saved = attention.flash_attention, attention.flash_attention_bwd
+
+    def plain_fwd(q, k, v, **kw):
+        return flash_attention_ref(q, k, v, **kw)
+
+    def plain_bwd(*a, **kw):
+        return flash_attention_bwd_ref(*a, **kw)
+
+    attention.flash_attention = plain_fwd
+    attention.flash_attention_bwd = plain_bwd
+    try:
+        p_loss, p_grads = grads_of(model, toks, labs)
+    finally:
+        attention.flash_attention, attention.flash_attention_bwd = saved
+    per_pass = cfg.n_layers * (2 if cfg.remat else 1)
+    check(n1[0] - n0[0] == per_pass and n1[1] - n0[1] == cfg.n_layers and
+          (flash_ops.launches.n, flash_ops.bwd_launches.n) == n1,
+          f"bf16 train parity launches {n0} -> {n1}")
+    k_norm = float(torch.sqrt(sum(g.float().square().sum()
+                                  for g in k_grads.values())))
+    p_norm = float(torch.sqrt(sum(g.float().square().sum()
+                                  for g in p_grads.values())))
+    d_loss = abs(float(k_loss) - float(p_loss))
+    worst, where = 0.0, ""
+    for name, g in k_grads.items():
+        e = float((g.float() - p_grads[name].float()).abs().max())
+        if e > worst:
+            worst, where = e, name
+    top = float(p_grads[where].float().abs().max()) if where else 0.0
+    log(f"[train parity] 2-layer bf16 llama3-8b at full width, B=2 S=500, "
+        f"kernels vs plain on the card: loss {float(k_loss):.6f} vs "
+        f"{float(p_loss):.6f} (|delta| {d_loss}, limit "
+        f"{TRAIN_BF16_LOSS_REL * abs(float(p_loss)):.3g}); grad norm "
+        f"{k_norm:.6f} vs {p_norm:.6f} (limit "
+        f"{TRAIN_BF16_GNORM_REL * p_norm:.3g}); largest gradient |delta| "
+        f"{worst} in {where} (its largest |grad| {top})")
+    check(math.isfinite(float(k_loss)) and math.isfinite(k_norm),
+          "bf16 train parity: loss or grad norm not finite")
+    check(d_loss <= TRAIN_BF16_LOSS_REL * abs(float(p_loss)),
+          f"bf16 train parity: loss differs by {d_loss}")
+    check(abs(k_norm - p_norm) <= TRAIN_BF16_GNORM_REL * p_norm,
+          f"bf16 train parity: grad norm {k_norm} vs {p_norm}")
+    del model, k_grads, p_grads
+    torch.cuda.empty_cache()
+    return {"loss": float(k_loss), "plain_loss": float(p_loss),
+            "grad_norm": k_norm, "plain_grad_norm": p_norm,
+            "max_grad_abs_err": worst, "at": where}
+
+
+# ---------------------------------------------------------------------------
 # the collectives on one NCCL rank
 # ---------------------------------------------------------------------------
 
@@ -1851,7 +2267,8 @@ def main() -> int:
                 "pq_scan_ext": pq_ops.ext_launches,
                 "topk_merge": merge_ops.launches,
                 "flash_attention": flash_ops.launches,
-                "decode_attention": decode_ops.launches}
+                "decode_attention": decode_ops.launches,
+                "flash_attention_bwd": flash_ops.bwd_launches}
     failed = []
     t0 = time.perf_counter()
     build.build_all()
@@ -1926,12 +2343,17 @@ def main() -> int:
     paths["distributed"] = main_path(
         "distributed", ("topk_merge",),
         ("distributed", phase_distributed, torch))
+    paths["train"] = main_path(
+        "train", ("flash_attention", "flash_attention_bwd"),
+        ("train", phase_train, torch, maybe_prof))
     launches = {name: sum(p[name] for p in paths.values())
                 for name in counters}
     run("parity", phase_parity)
     for arch, tag in ((LM_ARCH, "lm"), (MOE_ARCH, "moe"), (MLA_ARCH, "mla")):
         run(f"{tag}_parity", phase_lm_parity, torch, arch)
         run(f"{tag}_parity_bf16", phase_lm_parity_bf16, torch, arch)
+        run(f"{tag}_train_parity", phase_train_parity, torch, arch)
+    run("train_parity_bf16", phase_train_parity_bf16, torch)
 
     meta = {
         "ivf_scan": ("src/repro_torch/csrc/ivf_scan.cu",
@@ -1948,6 +2370,11 @@ def main() -> int:
         "decode_attention": (
             "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/decode_attention.py:65"),
+        # no Pallas kernel: XLA differentiates the reference's
+        # chunked_attention, whose gradient this kernel computes
+        "flash_attention_bwd": (
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "src/repro/models/attention.py:35"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

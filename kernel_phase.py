@@ -3,11 +3,13 @@
 timed) for one checkout of the repository, to compare two trees on one
 card in one run:
 
-    python3 kernel_phase.py <tree root> <label> <out.json>
+    python3 kernel_phase.py <tree root> <label> <out.json> [--attention-only]
 
 Builds the tree's kernels, prints ptxas' register and spill lines and each
 kernel case's line, and writes the phase's numbers to ``out.json``.  Run
-it for parent, change, change, parent in one run on the card.
+it for parent, change, change, parent in one run on the card.  With
+``--attention-only`` it skips phase 1 and takes only the attention
+kernels' device times below.
 
 Phase 1 times each call with CUDA events around three back-to-back runs,
 so a kernel of a few tens of microseconds also carries the host's time to
@@ -15,7 +17,11 @@ enqueue it.  The attention kernels at the LM's shapes are timed a second
 way as well (``device_ms``, under ``device_ms`` in ``out.json``): the sum
 of the kernels' own device time under ``torch.profiler``, with no host
 time in it, the tree's wrapper against ``scaled_dot_product_attention``.
+Where the tree has them, the flash forward is also timed with its row
+statistics written (``return_stats``), and the flash backward at the
+training shape (B=2, S=4,096) beside SDPA's forward + backward.
 """
+import inspect
 import json
 import os
 import sys
@@ -54,6 +60,7 @@ def attention_device_times(torch, label: str) -> dict:
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
+    stats = "return_stats" in inspect.signature(flash_attention).parameters
     for case, b, s in (("prefill", 8, 4096), ("phi", 8, 64)):
         q = torch.randn(b, s, 32, 128, device=dev, generator=gen).to(bf)
         k = torch.randn(b, s, 8, 128, device=dev, generator=gen).to(bf)
@@ -61,9 +68,35 @@ def attention_device_times(torch, label: str) -> dict:
         for probs in (False, True):
             out[f"flash {case} bf16_probs={probs}"] = device_ms(
                 torch, lambda: flash_attention(q, k, v, bf16_probs=probs))
+        if stats:
+            out[f"flash {case} return_stats"] = device_ms(
+                torch, lambda: flash_attention(q, k, v, return_stats=True))
         out[f"flash {case} sdpa"] = device_ms(
             torch, lambda: sdpa(torch, q, k, v, is_causal=True))
         del q, k, v
+    if stats:
+        from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+        q, do = (torch.randn(2, 4096, 32, 128, device=dev, generator=gen)
+                 .to(bf) for _ in range(2))
+        k, v = (torch.randn(2, 4096, 8, 128, device=dev, generator=gen)
+                .to(bf) for _ in range(2))
+        o, m, l = flash_attention(q, k, v, return_stats=True)
+        out["flash_bwd train"] = device_ms(
+            torch, lambda: flash_attention_bwd(q, k, v, o, m, l, do))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True).backward(
+                    do.transpose(1, 2))
+
+        out["flash_bwd train sdpa fwd+bwd"] = device_ms(torch, sdpa_fwd_bwd)
+        with torch.no_grad():
+            out["flash_bwd train sdpa fwd"] = device_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+        del q, k, v, o, m, l, do, qt, kt, vt
     gen = torch.Generator(device=dev).manual_seed(4)
     b, s = 8, 32768
     q = torch.randn(b, 1, 32, 128, device=dev, generator=gen).to(bf)
@@ -88,6 +121,7 @@ def attention_device_times(torch, label: str) -> dict:
 def main() -> int:
     root, label, out = (os.path.abspath(sys.argv[1]), sys.argv[2],
                         os.path.abspath(sys.argv[3]))
+    attention_only = "--attention-only" in sys.argv[4:]
     os.chdir(root)
     sys.path.insert(0, os.path.join(root, "src"))
     sys.path.insert(0, root)
@@ -105,7 +139,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[{label}] {name}: {line.strip()}", flush=True)
     t = time.time()
-    res = chip_smoke.phase_kernels(torch, 1_000_000)
+    res = {} if attention_only else chip_smoke.phase_kernels(torch, 1_000_000)
     print(f"[{label}] phase_kernels s {time.time() - t:.1f}", flush=True)
     for extra in (None, "device_ms"):
         if extra:

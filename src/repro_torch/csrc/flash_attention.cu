@@ -22,6 +22,10 @@
 // causal diagonal of a
 // query tile are not loaded at all (the Pallas kernel's `run` skip), and the
 // heaviest query tiles start first so the short ones fill the tail.
+// Given m and l pointers (float32, [B, H, Sq]), each row's softmax
+// statistics are written there for the backward (flash_attention_bwd.cu):
+// m its largest scaled score (-1e30 for a row that sees no key), l the sum
+// of exp(score - m) over the row; with null pointers nothing is written.
 //
 // Bound: at the prefill's shapes (S = 4,096, D = 128) attention does
 // 2 B H S^2 D causal operations on 2 B S (H + 2 KVH) D bytes, so it is bound
@@ -183,7 +187,8 @@ __global__ void __launch_bounds__(WTHREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
-                bf16* __restrict__ o, int sq, int skv, int n_heads,
+                bf16* __restrict__ o, float* __restrict__ m_out,
+                float* __restrict__ l_out, int sq, int skv, int n_heads,
                 int n_kv_heads, float scale_log2, int causal) {
   using T = Tile<D, DV>;
   constexpr int WK = T::WK;
@@ -418,6 +423,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     l0 += __shfl_xor_sync(0xffffffffu, l0, w);
     l1 += __shfl_xor_sync(0xffffffffu, l1, w);
   }
+  if (m_out != nullptr && t4 == 0) {
+    // m runs in base 2 on scaled scores; a row that saw no key keeps the
+    // unscaled -1e30
+    const size_t st = ((size_t)b * n_heads + h) * sq;
+    if (r0 < sq) {
+      m_out[st + r0] = m0 == ATTN_NEG ? ATTN_NEG : m0 * 0.6931471805599453f;
+      l_out[st + r0] = l0;
+    }
+    if (r1 < sq) {
+      m_out[st + r1] = m1 == ATTN_NEG ? ATTN_NEG : m1 * 0.6931471805599453f;
+      l_out[st + r1] = l1;
+    }
+  }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
   const size_t o_stride = (size_t)n_heads * DV;
@@ -442,8 +460,9 @@ constexpr int F32_KEYS = 32 * (D + DV) * 4 <= 40960 ? 32 : 16;
 template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int sq, int skv,
-          int n_heads, int n_kv_heads, float scale, int causal,
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ m_out, float* __restrict__ l_out, int sq,
+          int skv, int n_heads, int n_kv_heads, float scale, int causal,
           int bf16_probs) {
   constexpr int C = D / (4 * LANES);   // float4 chunks of q per thread
   constexpr int CV = DV / (4 * LANES); // and of the accumulator
@@ -552,6 +571,11 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (!live) return;
+  if (m_out != nullptr && lane == 0) {
+    const size_t st = ((size_t)b * n_heads + h) * sq + qp;
+    m_out[st] = m;
+    l_out[st] = l;
+  }
   const float inv = 1.f / fmaxf(l, 1e-30f);
   const size_t o_off = (((size_t)b * sq + qp) * n_heads + h) * DV;
 #pragma unroll
@@ -570,15 +594,15 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   X(256, 256) X(192, 128)
 
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       float* o, int n_b, int sq, int skv, int n_heads,
-                       int n_kv_heads, int d, int dv, float scale, int causal,
-                       int bf16_probs, cudaStream_t st) {
+                       float* o, float* m, float* l, int n_b, int sq, int skv,
+                       int n_heads, int n_kv_heads, int d, int dv, float scale,
+                       int causal, int bf16_probs, cudaStream_t st) {
   const dim3 grid((sq + BQ - 1) / BQ, n_heads, n_b);
 #define PANDADB_FLASH(DIM, DIMV)                                              \
   case DIM * 1000 + DIMV:                                                     \
-    flash_fwd<DIM, DIMV><<<grid, THREADS, 0, st>>>(q, k, v, o, sq, skv,       \
-                                                   n_heads, n_kv_heads,       \
-                                                   scale, causal, bf16_probs);\
+    flash_fwd<DIM, DIMV><<<grid, THREADS, 0, st>>>(                           \
+        q, k, v, o, m, l, sq, skv, n_heads, n_kv_heads, scale, causal,        \
+        bf16_probs);                                                          \
     break;
   switch (d * 1000 + dv) {
     PANDADB_FLASH_PAIRS(PANDADB_FLASH)
@@ -639,8 +663,8 @@ int make_map(CUtensorMap* map, const bf16* base, int n_b, int seq, int heads,
 
 template <int D, int DV, bool HI_ONLY>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                 int n_b, int sq, int skv, int n_heads, int n_kv_heads,
-                 float scale, int causal, cudaStream_t st) {
+                 float* m, float* l, int n_b, int sq, int skv, int n_heads,
+                 int n_kv_heads, float scale, int causal, cudaStream_t st) {
   using T = Tile<D, DV>;
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, q, n_b, sq, n_heads, D, T::W, WQ);
@@ -658,24 +682,25 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   }
   const dim3 grid((sq + WQ - 1) / WQ, n_heads, n_b);
   flash_fwd_wgmma<D, DV, HI_ONLY><<<grid, WTHREADS, T::SMEM, st>>>(
-      qm, km, vm, o, sq, skv, n_heads, n_kv_heads,
+      qm, km, vm, o, m, l, sq, skv, n_heads, n_kv_heads,
       scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
 // A tensor map the driver refuses returns 10000 + its CUresult.
-int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n_b,
-                int sq, int skv, int n_heads, int n_kv_heads, int d, int dv,
-                float scale, int causal, int bf16_probs, cudaStream_t st) {
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* m,
+                float* l, int n_b, int sq, int skv, int n_heads, int n_kv_heads,
+                int d, int dv, float scale, int causal, int bf16_probs,
+                cudaStream_t st) {
 #define PANDADB_FLASH(DIM, DIMV)                                              \
   case DIM * 1000 + DIMV:                                                     \
     return bf16_probs                                                         \
-               ? launch_wgmma<DIM, DIMV, true>(q, k, v, o, n_b, sq, skv,      \
+               ? launch_wgmma<DIM, DIMV, true>(q, k, v, o, m, l, n_b, sq, skv,\
                                                n_heads, n_kv_heads, scale,    \
                                                causal, st)                    \
-               : launch_wgmma<DIM, DIMV, false>(q, k, v, o, n_b, sq, skv,     \
-                                                n_heads, n_kv_heads, scale,   \
-                                                causal, st);
+               : launch_wgmma<DIM, DIMV, false>(q, k, v, o, m, l, n_b, sq,    \
+                                                skv, n_heads, n_kv_heads,     \
+                                                scale, causal, st);
   switch (d * 1000 + dv) {
     PANDADB_FLASH_PAIRS(PANDADB_FLASH)
     default:
@@ -689,11 +714,12 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n_b,
 // q [n_b, sq, n_heads, d], k [n_b, skv, n_kv_heads, d], v [n_b, skv,
 // n_kv_heads, dv], o [n_b, sq, n_heads, dv], all contiguous, of type dtype
 // (0 float32, 1 bfloat16; bfloat16 pointers 16-byte aligned); (d, dv) one of
-// PANDADB_FLASH_PAIRS; skv >= 1.  Returns cudaError_t.
+// PANDADB_FLASH_PAIRS; skv >= 1.  m and l, float32 [n_b, n_heads, sq] or
+// both null, receive the row statistics.  Returns cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int n_b, int sq, int skv,
-                               int n_heads, int n_kv_heads, int d, int dv,
-                               int dtype, float scale, int causal,
+                               void* o, float* m, float* l, int n_b, int sq,
+                               int skv, int n_heads, int n_kv_heads, int d,
+                               int dv, int dtype, float scale, int causal,
                                int bf16_probs, void* stream) {
   if (n_b <= 0 || sq <= 0) return 0;
   if (skv <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
@@ -704,13 +730,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return (int)launch_f32(static_cast<const float*>(q),
                            static_cast<const float*>(k),
                            static_cast<const float*>(v),
-                           static_cast<float*>(o), n_b, sq, skv, n_heads,
+                           static_cast<float*>(o), m, l, n_b, sq, skv, n_heads,
                            n_kv_heads, d, dv, scale, causal, bf16_probs, st);
   if (dtype == pandadb::DTYPE_BF16)
     return launch_bf16(static_cast<const bf16*>(q),
                        static_cast<const bf16*>(k),
-                       static_cast<const bf16*>(v), static_cast<bf16*>(o), n_b,
-                       sq, skv, n_heads, n_kv_heads, d, dv, scale, causal,
+                       static_cast<const bf16*>(v), static_cast<bf16*>(o), m, l,
+                       n_b, sq, skv, n_heads, n_kv_heads, d, dv, scale, causal,
                        bf16_probs, st);
   return (int)cudaErrorInvalidValue;
 }

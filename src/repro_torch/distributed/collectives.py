@@ -8,6 +8,10 @@ process group (``group=None``: the default group).
 per shard, all-gather of the tiny (val, id) pairs, final merge.  One
 collective of O(shards * k) instead of gathering O(corpus).
 
+``all_reduce_sum``: one sum over the group, the reference's ``psum`` (the
+compressed gradient all-reduce of ``training/compression.py`` sums its
+int8 payloads in int32 through it).
+
 ``partial_softmax_combine``: the flash-decoding combine used when the KV
 cache is sequence-sharded (long_500k): an all-reduce of the max, then one
 of (max-shifted sum, accumulator).  It is the arithmetic of the
@@ -25,6 +29,15 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.topk import stable_topk
+
+
+def all_reduce_sum(x: torch.Tensor,
+                   group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The sum of ``x`` over every rank of the group, on every rank (a new
+    tensor; ``x`` is left as it was)."""
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
 
 
 def sharded_topk(q: torch.Tensor, corpus_local: torch.Tensor,

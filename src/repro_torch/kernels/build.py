@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES: Dict[str, str] = {"ivf_scan": "ivf_scan.cu", "pq_scan": "pq_scan.cu",
                            "topk_merge": "topk_merge.cu",
                            "flash_attention": "flash_attention.cu",
-                           "decode_attention": "decode_attention.cu"}
+                           "decode_attention": "decode_attention.cu",
+                           "flash_attention_bwd": "flash_attention_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

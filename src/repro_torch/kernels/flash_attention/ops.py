@@ -13,7 +13,13 @@ The kernel is compiled for the (D, Dv) pairs of ``HEAD_DIMS``; any other
 pair up to ``MAX_HEAD_DIM`` is zero-padded to the smallest compiled pair
 that holds it (zero columns leave q . k unchanged; the output's padded
 columns are cut off) with the scale of the true D.  Wider heads raise, on
-the CPU as on the card."""
+the CPU as on the card.
+
+``flash_attention_bwd`` is the gradient: the CUDA kernel of
+``csrc/flash_attention_bwd.cu`` on the card, ``flash_attention_bwd_ref``
+on the CPU.  It takes the forward's row statistics m and l, which
+``flash_attention(..., return_stats=True)`` returns beside the output, and
+serves every shape the forward serves, padded alike."""
 from __future__ import annotations
 
 import ctypes
@@ -23,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.build import LaunchCounter, check_launch, load
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 
 #: (D, Dv) pairs the kernel is compiled for: equal widths, and MLA's
 #: prefill (q and k at 128 + 64, v at 128)
@@ -33,12 +40,15 @@ MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter("flash_attention")
+bwd_launches = LaunchCounter("flash_attention_bwd")
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _I, _I, _P],
+_SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _F, _I, _I, _P],
                "flash_attention_key_tile": [_I, _I, _I]}
+_BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 8
+                   + [_F, _I, _P]}
 
 
 def compiled_dims(d: int, dv: int) -> Tuple[int, int]:
@@ -65,18 +75,49 @@ def key_tile(d: int, dtype: torch.dtype = torch.bfloat16,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
-                    bf16_probs: bool = False, block_kv: int = 1024
-                    ) -> torch.Tensor:
+                    bf16_probs: bool = False, block_kv: int = 1024,
+                    return_stats: bool = False):
     """q [B, Sq, H, D]; k [B, Skv, KVH, D], v [B, Skv, KVH, Dv], KVH
-    dividing H -> [B, Sq, H, Dv] in q's dtype.  ``block_kv`` is the plain
+    dividing H -> [B, Sq, H, Dv] in q's dtype; with ``return_stats`` also
+    the row statistics (m, l), each [B, H, Sq] float32, as
+    ``flash_attention_ref`` defines them.  ``block_kv`` is the plain
     version's key block; the kernel's tile is fixed."""
     _check_shapes(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
+    if _on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
-                                   bf16_probs=bf16_probs, block_kv=block_kv)
-    return _launch(q, k, v, causal, scale, bf16_probs)
+                                   bf16_probs=bf16_probs, block_kv=block_kv,
+                                   return_stats=return_stats)
+    return _launch(q, k, v, causal, scale, bf16_probs, return_stats)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True,
+                        scale: Optional[float] = None, block_kv: int = 1024
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention`` (its float32 weights): q, k, v as
+    there, o [B, Sq, H, Dv] its output, (m, l) [B, H, Sq] its row
+    statistics, do [B, Sq, H, Dv] the gradient of o -> (dq, dk, dv) in q's,
+    k's and v's dtypes.  ``block_kv`` is the plain version's key block."""
+    _check_shapes(q, k, v)
+    b, sq, h, _ = q.shape
+    dv_w = v.shape[3]
+    for name, t, shape in (("o", o, (b, sq, h, dv_w)),
+                           ("do", do, (b, sq, h, dv_w)),
+                           ("m", m, (b, h, sq)), ("l", l, (b, h, sq))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)}, "
+                             f"expected {shape}")
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _on_cpu(q, k, v, o, m, l, do):
+        return flash_attention_bwd_ref(q, k, v, o, m, l, do, causal=causal,
+                                       scale=scale, block_kv=block_kv)
+    return _launch_bwd(q, k, v, o, m, l, do, causal, scale)
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -92,38 +133,94 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     compiled_dims(d, v.shape[3])
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            scale: float, bf16_probs: bool) -> torch.Tensor:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device or t.dtype != q.dtype \
+def _check_card(fn: str, **tensors: torch.Tensor) -> None:
+    """Every tensor contiguous on q's CUDA device in q's dtype (float32 for
+    the row statistics m, l)."""
+    q = tensors["q"]
+    for name, t in tensors.items():
+        want = torch.float32 if name in ("m", "l") else q.dtype
+        if not t.is_cuda or t.device != q.device or t.dtype != want \
                 or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be a contiguous "
-                             f"tensor on q's CUDA device in q's dtype, got "
-                             f"{t.device} {t.dtype}")
+            raise ValueError(f"{fn}: {name} must be a contiguous tensor on "
+                             f"q's CUDA device in {want}, got {t.device} "
+                             f"{t.dtype}")
     if q.dtype not in DTYPES:
-        raise ValueError(f"flash_attention: dtype {q.dtype} not in "
-                         f"{list(DTYPES)}")
+        raise ValueError(f"{fn}: dtype {q.dtype} not in {list(DTYPES)}")
+
+
+def _check_aligned(fn: str, *tensors: torch.Tensor) -> None:
+    if tensors[0].dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{fn}: bf16 tensors must start on a 16-byte "
+                         "boundary (the kernel loads 16 bytes at once)")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float, bf16_probs: bool, return_stats: bool = False):
+    _check_card("flash_attention", q=q, k=k, v=v)
     b, sq, h, d = q.shape
     skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     if sq == 0 or skv == 0:
         # no query, or no key to weigh: the plain version's acc / 1e-30 = 0
-        return q.new_zeros(b, sq, h, dv)
+        out = q.new_zeros(b, sq, h, dv)
+        stats = (torch.full((b, h, sq), -1.0e30, device=q.device),
+                 torch.zeros((b, h, sq), device=q.device))
+        return (out, *stats) if return_stats else out
     dp, dvp = compiled_dims(d, dv)
     if dp != d:
         q, k = F.pad(q, (0, dp - d)), F.pad(k, (0, dp - d))
     if dvp != dv:
         v = F.pad(v, (0, dvp - dv))
     out = q.new_empty(b, sq, h, dvp)
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in (q, k, v, out)):
-        raise ValueError("flash_attention: bf16 tensors must start on a "
-                         "16-byte boundary (the kernel loads 16 bytes at once)")
+    _check_aligned("flash_attention", q, k, v, out)
+    m = l = None
+    if return_stats:
+        m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     lib = load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, h, kvh, dp, dvp, DTYPES[q.dtype], float(scale), int(causal),
-            int(bf16_probs), torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            0 if m is None else m.data_ptr(), 0 if l is None else l.data_ptr(),
+            b, sq, skv, h, kvh, dp, dvp, DTYPES[q.dtype], float(scale),
+            int(causal), int(bf16_probs),
+            torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
     launches.add()
-    return out if dvp == dv else out[..., :dv].contiguous()
+    out = out if dvp == dv else out[..., :dv].contiguous()
+    return (out, m, l) if return_stats else out
+
+
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                do: torch.Tensor, causal: bool, scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    do = do.contiguous()
+    _check_card("flash_attention_bwd", q=q, k=k, v=v, o=o, do=do, m=m, l=l)
+    b, sq, h, d = q.shape
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    if sq == 0 or skv == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dp, dvp = compiled_dims(d, dv)
+    if dp != d:
+        q, k = F.pad(q, (0, dp - d)), F.pad(k, (0, dp - d))
+    if dvp != dv:
+        v, o, do = (F.pad(t, (0, dvp - dv)) for t in (v, o, do))
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _check_aligned("flash_attention_bwd", q, k, v, o, do, dq, dk, dvv)
+    lib = load("flash_attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, sq, skv, h,
+            kvh, dp, dvp, DTYPES[q.dtype], float(scale), int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("flash_attention_bwd", err)
+    bwd_launches.add()
+    if dp != d:
+        dq, dk = dq[..., :d].contiguous(), dk[..., :d].contiguous()
+    if dvp != dv:
+        dvv = dvv[..., :dv].contiguous()
+    return dq, dk, dvv

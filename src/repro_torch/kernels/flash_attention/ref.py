@@ -30,9 +30,10 @@ NEG = -1.0e30
 
 def _weights(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, scale: Optional[float], block_kv: int):
-    """The online softmax's key blocks: yields (p, alpha, v block) for each,
-    p = exp(score - running max) [B, H, Sq, block] float32 and alpha [B, H,
-    Sq] the factor that carries what came before onto the new max."""
+    """The online softmax's key blocks: yields (p, alpha, v block, m) for
+    each, p = exp(score - running max) [B, H, Sq, block] float32, alpha [B,
+    H, Sq] the factor that carries what came before onto the new max, and m
+    that running max."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     g = h // k.shape[2]
@@ -53,27 +54,88 @@ def _weights(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(sc - m_new[..., None])
         alpha = torch.exp(m - m_new)
         m = m_new
-        yield p, alpha, vf[:, :, start:stop]
+        yield p, alpha, vf[:, :, start:stop], m
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None,
-                        bf16_probs: bool = False, block_kv: int = 1024
-                        ) -> torch.Tensor:
+                        bf16_probs: bool = False, block_kv: int = 1024,
+                        return_stats: bool = False):
     """q [B, Sq, H, D]; k [B, Skv, KVH, D], v [B, Skv, KVH, Dv] with KVH
-    dividing H -> [B, Sq, H, Dv] in q's dtype."""
+    dividing H -> [B, Sq, H, Dv] in q's dtype.  With ``return_stats`` also
+    the softmax's row statistics, each [B, H, Sq] float32: m, the largest
+    scaled score of the row (-1e30 for a row that sees no key), and l, the
+    sum of exp(score - m) over the row, so that the weights are
+    exp(score - m) / l."""
     b, sq, h, _ = q.shape
+    m = torch.full((b, h, sq), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32,
                       device=q.device)
-    for p, alpha, vb in _weights(q, k, v, causal, scale, block_kv):
+    for p, alpha, vb, m in _weights(q, k, v, causal, scale, block_kv):
         l = l * alpha + p.sum(dim=-1)
         if bf16_probs:
             # softmax weights rounded to bf16; products and sums stay fp32
             p = p.to(torch.bfloat16).float()
         acc = acc * alpha[..., None] + torch.matmul(p, vb)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    out = out.permute(0, 2, 1, 3).to(q.dtype)
+    return (out, m, l) if return_stats else out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor, m: torch.Tensor,
+                            l: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True,
+                            scale: Optional[float] = None,
+                            block_kv: int = 1024):
+    """The gradient of :func:`flash_attention_ref` (float32 weights):
+    q, k, v as there, o [B, Sq, H, Dv] its output, m and l [B, H, Sq] its
+    row statistics, do [B, Sq, H, Dv] the gradient of o -> (dq, dk, dv) in
+    q's, k's and v's dtypes.  The flash-attention backward, key block by
+    key block: the weights recomputed as P = exp(s - m) / l from m and l
+    kept apart (a row that sees no key has m = -1e30, which a single
+    logsumexp m + log l would round back to -1e30, giving it weights of 1
+    where the forward gave 1 / Skv); D = rowsum(dO o) in float32;
+    dS = P (dO V^T - D), zero where the mask replaced the score by a
+    constant; dq = scale dS K, dk = scale dS^T q, dv = P^T dO.  A key
+    head's dk and dv sum over its G query heads."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    block_kv = max(1, min(block_kv, skv))
+    qf = (q.float() * scale).permute(0, 2, 1, 3)              # [B,H,Sq,D]
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    dof = do.float().permute(0, 2, 1, 3)                      # [B,H,Sq,Dv]
+    delta = (dof * o.float().permute(0, 2, 1, 3)).sum(dim=-1)  # [B,H,Sq]
+    q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for start in range(0, skv, block_kv):
+        stop = min(start + block_kv, skv)
+        sc = torch.matmul(qf, kf[:, :, start:stop].transpose(-1, -2))
+        masked = None
+        if causal:
+            k_pos = torch.arange(start, stop, device=q.device)
+            masked = q_pos[:, None] < k_pos[None, :]
+            sc = sc.masked_fill(masked, NEG)
+        p = torch.exp(sc - m[..., None]) / l[..., None]
+        dv[:, :, start:stop] = torch.matmul(p.transpose(-1, -2), dof)
+        ds = p * (torch.matmul(dof, vf[:, :, start:stop].transpose(-1, -2))
+                  - delta[..., None])
+        if masked is not None:
+            ds = ds.masked_fill(masked, 0.0)
+        dq += torch.matmul(ds, kf[:, :, start:stop])
+        dk[:, :, start:stop] = torch.matmul(ds.transpose(-1, -2), qf)
+
+    def heads(x, width):            # [B, H, S, W] -> [B, S, KVH, W], summed
+        return x.reshape(b, kvh, g, -1, width).sum(dim=2).permute(0, 2, 1, 3)
+
+    return ((dq * scale).permute(0, 2, 1, 3).to(q.dtype),
+            heads(dk, d).to(k.dtype), heads(dv, v.shape[-1]).to(v.dtype))
 
 
 def bf16_probs_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,7 +157,7 @@ def bf16_probs_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     slack = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32,
                         device=q.device)
-    for p, alpha, vb in _weights(q, k, v, causal, scale, block_kv):
+    for p, alpha, vb, _ in _weights(q, k, v, causal, scale, block_kv):
         l = l * alpha + p.sum(dim=-1)
         mant, ex = torch.frexp(p)          # p = mant 2^ex, mant in [0.5, 1)
         ulp = torch.ldexp(torch.ones_like(p), ex - 8)   # bf16 keeps 8 bits

@@ -14,6 +14,15 @@ their plain versions, which repeat the reference's arithmetic.
   ``pos``; the cache is read once for the G query heads of each key head.
 
 Both serve head widths up to 256 and raise past them.
+
+``chunked_attention`` is differentiable: where a gradient is wanted it runs
+as a ``torch.autograd.Function`` whose forward keeps the softmax's row
+statistics (m, l) beside q, k, v and the output, and whose backward is
+``flash_attention_bwd`` -- the hand-written backward kernel on the card,
+its plain version on the CPU.  The backward is the gradient of the
+float32-weight attention; with ``bf16_probs`` the forward rounds its
+weights and the backward recomputes them unrounded.  ``decode_attention``
+serves only and takes no gradient.
 """
 from __future__ import annotations
 
@@ -24,7 +33,8 @@ import torch
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention as _decode_kernel,
 )
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_bwd)
 
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -44,8 +54,34 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Sq, H, Dv].  Query row i sits at position i + Skv - Sq (causal masks
     the keys past it).  fp32 accumulation; ``bf16_probs`` rounds the
     softmax weights to bf16 before P.V."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale, bf16_probs,
+                                     block_kv)
     return flash_attention(q, k, v, causal=causal, scale=scale,
                            bf16_probs=bf16_probs, block_kv=block_kv)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with ``flash_attention_bwd`` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, bf16_probs, block_kv):
+        out, m, l = flash_attention(q, k, v, causal=causal, scale=scale,
+                                    bf16_probs=bf16_probs, block_kv=block_kv,
+                                    return_stats=True)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.args = (causal, scale, block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        causal, scale, block_kv = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout,
+                                         causal=causal, scale=scale,
+                                         block_kv=block_kv)
+        return dq, dk, dv, None, None, None, None
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

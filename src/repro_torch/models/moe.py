@@ -20,7 +20,11 @@ Two departures, both where the reference's result is not defined:
   whose order of summation on the card is run-dependent.  A dropped pair
   adds nothing; in the reference it adds 0 x a value to token 0.
 
-Routing, the aux loss and the expert einsums are the reference's.
+Routing, the aux loss and the expert einsums are the reference's, and so
+are their gradients where no expert overflows: the output differentiates
+through the gathers and the gate weights into the router, the aux loss
+through the mean router probabilities (the expert counts, as the
+reference's one-hot, carry none).
 """
 from __future__ import annotations
 

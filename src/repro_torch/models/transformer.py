@@ -13,8 +13,16 @@ through the hand-written flash-attention kernel and the GQA decode through
 the decode-attention kernel; on the CPU through their plain versions.
 MLA's absorbed decode is plain torch in float32, as the reference's is.
 
-Serving only: parameters do not require gradients, and the MoE layers'
-aux loss, which only training reads, is not returned.
+Training: ``loss_fn`` is the reference's (float32 logits, cross-entropy
+plus ``AUX_LOSS_COEF`` times the MoE layers' summed aux loss), and its
+gradient runs through every layer, attention through the flash kernel's
+``torch.autograd.Function`` (``models/attention.py``).  Under
+``cfg.remat`` each block is recomputed in the backward
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` with ``nothing_saveable``).  ``forward``, ``prefill``
+and ``decode_step`` serve under ``torch.no_grad``: they build no graph.
+:func:`params_to_jax_tree` maps the parameters, or their gradients, back
+to the reference's tree.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -43,6 +53,9 @@ from repro_torch.models.moe import (
 )
 
 Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+Layer = Dict[str, torch.Tensor]
+
+AUX_LOSS_COEF = 0.003  # DeepSeekMoE expert-level balance coefficient
 
 _MLP_KEYS = ("w_gate", "w_up", "w_down")
 
@@ -109,8 +122,7 @@ class LM(nn.Module):
 
         def param(*shape, dtype=self.dtype):
             return nn.Parameter(torch.empty(shape, dtype=dtype,
-                                            device=self.device),
-                                requires_grad=False)
+                                            device=self.device))
 
         f32 = torch.float32
         self.embed = param(v, d)
@@ -134,6 +146,15 @@ class LM(nn.Module):
         yield "dense", self.layers, self.n_dense
         if self.n_moe:
             yield "moe", self.moe_layers, self.n_moe
+
+    @staticmethod
+    def _unstack(lp: nn.ParameterDict) -> Iterator[Layer]:
+        """Each layer of a stack as {name: its slice} (views).  ``unbind``
+        gives every slice at once, so the backward stacks one gradient for
+        the whole stack instead of one full-size gradient a slice."""
+        cols = {name: t.unbind(0) for name, t in lp.items()}
+        for i in range(len(next(iter(cols.values())))):
+            yield {name: c[i] for name, c in cols.items()}
 
     # -- init ---------------------------------------------------------------
 
@@ -165,18 +186,17 @@ class LM(nn.Module):
 
     # -- attention ----------------------------------------------------------
 
-    def _gqa(self, lp: nn.ParameterDict, i: int, x: torch.Tensor,
-             cos: torch.Tensor, sin: torch.Tensor, cache=None,
-             slot: "_Slot" = None):
+    def _gqa(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
+             sin: torch.Tensor, cache=None, slot: "_Slot" = None):
         cfg = self.cfg
         b, s, d = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (x @ lp["wq"][i].reshape(d, h * hd)).reshape(b, s, h, hd)
-        k = (x @ lp["wk"][i].reshape(d, kvh * hd)).reshape(b, s, kvh, hd)
-        v = (x @ lp["wv"][i].reshape(d, kvh * hd)).reshape(b, s, kvh, hd)
+        q = (x @ p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
+        k = (x @ p["wk"].reshape(d, kvh * hd)).reshape(b, s, kvh, hd)
+        v = (x @ p["wv"].reshape(d, kvh * hd)).reshape(b, s, kvh, hd)
         if cfg.qk_norm:
-            q = self._norm(q, lp["q_norm"][i])
-            k = self._norm(k, lp["k_norm"][i])
+            q = self._norm(q, p["q_norm"])
+            k = self._norm(k, p["k_norm"])
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         if cache is None:
@@ -191,12 +211,11 @@ class LM(nn.Module):
             _write_rows(v_cache, v[:, 0], slot)
             out = decode_attention(q, k_cache, v_cache, slot.pos)
             new_cache = cache
-        o = out.reshape(b, s, h * hd) @ lp["wo"][i].reshape(h * hd, d)
+        o = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, d)
         return o, new_cache
 
-    def _mla(self, lp: nn.ParameterDict, i: int, x: torch.Tensor,
-             cos: torch.Tensor, sin: torch.Tensor, cache=None,
-             slot: "_Slot" = None):
+    def _mla(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
+             sin: torch.Tensor, cache=None, slot: "_Slot" = None):
         cfg = self.cfg
         b, s, d = x.shape
         dc, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
@@ -204,19 +223,19 @@ class LM(nn.Module):
         scale = (dn + dr) ** -0.5
 
         if cfg.q_lora_rank:
-            qc = self._norm(x @ lp["wq_a"][i], lp["q_a_norm"][i])
-            wq = lp["wq_b"][i]
+            qc = self._norm(x @ p["wq_a"], p["q_a_norm"])
+            wq = p["wq_b"]
         else:
-            qc, wq = x, lp["wq"][i]
+            qc, wq = x, p["wq"]
         q = (qc @ wq.reshape(wq.shape[0], h * (dn + dr))).reshape(
             b, s, h, dn + dr)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
         q_rope = apply_rotary(q_rope, cos, sin)
 
-        kv_a = x @ lp["wkv_a"][i]
-        c_kv = self._norm(kv_a[..., :dc], lp["kv_a_norm"][i])
+        kv_a = x @ p["wkv_a"]
+        c_kv = self._norm(kv_a[..., :dc], p["kv_a_norm"])
         k_rope = apply_rotary(kv_a[..., None, dc:], cos, sin)[:, :, 0]
-        wkv_b = lp["wkv_b"][i]                          # [dc, H, dn + dv]
+        wkv_b = p["wkv_b"]                              # [dc, H, dn + dv]
         wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]
 
         if cache is None:
@@ -248,30 +267,29 @@ class LM(nn.Module):
             ctx_lat = torch.einsum("bhqs,bsc->bqhc", probs, ckv).to(x.dtype)
             out = torch.einsum("bqhc,chv->bqhv", ctx_lat, wv_b)
             new_cache = cache
-        o = out.reshape(b, s, h * dv) @ lp["wo"][i].reshape(h * dv, d)
+        o = out.reshape(b, s, h * dv) @ p["wo"].reshape(h * dv, d)
         return o, new_cache
 
     # -- blocks -------------------------------------------------------------
 
-    def _block(self, lp: nn.ParameterDict, i: int, x: torch.Tensor,
-               cos: torch.Tensor, sin: torch.Tensor, moe: bool, cache=None,
+    def _block(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor, moe: bool, cache=None,
                slot: "_Slot" = None):
-        h = self._norm(x, lp["ln1"][i])
+        """One layer -> (x, its aux loss (0 for a dense layer), its cache
+        entry)."""
+        h = self._norm(x, p["ln1"])
         attn = self._mla if self.cfg.is_mla else self._gqa
-        attn_out, new_cache = attn(lp, i, h, cos, sin, cache=cache, slot=slot)
+        attn_out, new_cache = attn(p, h, cos, sin, cache=cache, slot=slot)
         x = x + attn_out
-        h = self._norm(x, lp["ln2"][i])
+        h = self._norm(x, p["ln2"])
         if moe:
-            ffn_out, _ = moe_ffn(self._moe_params(lp, i), h, self.cfg)
+            ffn_out, aux = moe_ffn(nest_moe_params(
+                {n: p[n] for n in moe_param_shapes(self.cfg)}), h, self.cfg)
         else:
-            g = F.silu(h @ lp["w_gate"][i])
-            ffn_out = (g * (h @ lp["w_up"][i])) @ lp["w_down"][i]
-        return x + ffn_out, new_cache
-
-    def _moe_params(self, lp: nn.ParameterDict, i: int) -> Dict[str, Any]:
-        """Layer ``i`` of the MoE stack in ``moe_ffn``'s layout (views)."""
-        return nest_moe_params({n: lp[n][i]
-                                for n in moe_param_shapes(self.cfg)})
+            g = F.silu(h @ p["w_gate"])
+            ffn_out = (g * (h @ p["w_up"])) @ p["w_down"]
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + ffn_out, aux, new_cache
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self._norm(x, self.final_norm)
@@ -298,23 +316,38 @@ class LM(nn.Module):
                            for shape in self._cache_shapes(n, batch, seq))
                 for key, _, n in self._stacks()}
 
-    # -- full forward (prefill) ----------------------------------------------
+    # -- full forward (train / prefill) ---------------------------------------
 
-    @torch.no_grad()
-    def _trunk(self, tokens: torch.Tensor, collect_cache: bool):
+    def _trunk(self, tokens: torch.Tensor, collect_cache: bool,
+               remat: bool = False):
+        """tokens [B, S] -> (final hidden [B, S, d], summed aux loss, cache
+        | None); under ``remat`` each block is recomputed in the backward
+        (no cache then)."""
         cfg = self.cfg
         b, s = tokens.shape
         x = F.embedding(tokens, self.embed)
         cos, sin = rotary_cos_sin(torch.arange(s, device=self.device),
                                   self._rope_dim(), cfg.rope_theta)
         cache = self._new_cache(b, s, torch.empty) if collect_cache else None
-        for key, lp, n in self._stacks():
-            for i in range(n):
-                x, layer_cache = self._block(lp, i, x, cos, sin, key == "moe")
-                if cache is not None:
-                    for dst, src in zip(cache[key], layer_cache):
-                        dst[i].copy_(src)
-        return x, cache
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for key, lp, _ in self._stacks():
+            moe = key == "moe"
+            for i, p in enumerate(self._unstack(lp)):
+                if remat:
+                    x, aux_i = checkpoint(self._remat_block, p, x, cos, sin,
+                                          moe, use_reentrant=False)
+                else:
+                    x, aux_i, layer_cache = self._block(p, x, cos, sin, moe)
+                    if cache is not None:
+                        for dst, src in zip(cache[key], layer_cache):
+                            dst[i].copy_(src)
+                aux = aux + aux_i
+        return x, aux, cache
+
+    def _remat_block(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
+                     sin: torch.Tensor, moe: bool):
+        x, aux, _ = self._block(p, x, cos, sin, moe)
+        return x, aux
 
     @torch.no_grad()
     def forward(self, tokens, collect_cache: bool = False
@@ -322,7 +355,7 @@ class LM(nn.Module):
         """tokens [B, S] -> (logits [B, S, V], cache | None).  The cache is
         ``{"dense": ..., "moe": ...}`` ("moe" for a MoE config only), each
         entry a pair as :meth:`init_cache` lays it out."""
-        x, cache = self._trunk(self._tokens(tokens), collect_cache)
+        x, _, cache = self._trunk(self._tokens(tokens), collect_cache)
         return self._head(x), cache
 
     @torch.no_grad()
@@ -330,8 +363,26 @@ class LM(nn.Module):
         """tokens [B, S] -> (last-position logits [B, V], cache).  The head
         runs on the last position only: the same values as the reference's
         ``logits[:, -1]``, without the [B, S, V] logits."""
-        x, cache = self._trunk(self._tokens(tokens), True)
+        x, _, cache = self._trunk(self._tokens(tokens), True)
         return self._head(x[:, -1:])[:, 0], cache
+
+    # -- loss ---------------------------------------------------------------
+
+    def loss_fn(self, tokens, labels
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens, labels [B, S] -> (loss, {"ce", "aux"}), the reference's
+        arithmetic: float32 logits, ce = mean(logsumexp - label logit),
+        loss = ce + AUX_LOSS_COEF * aux.  The loss is differentiable (call
+        it with gradients enabled), ce and aux are detached; blocks are
+        recomputed in the backward under ``cfg.remat``."""
+        tokens, labels = self._tokens(tokens), self._tokens(labels)
+        x, aux, _ = self._trunk(tokens, False, remat=self.cfg.remat)
+        logits = self._head(x).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ce = torch.mean(lse - ll)
+        return ce + AUX_LOSS_COEF * aux, {"ce": ce.detach(),
+                                           "aux": aux.detach()}
 
     # -- decode -------------------------------------------------------------
 
@@ -359,11 +410,11 @@ class LM(nn.Module):
         cos, sin = rotary_cos_sin(pos[:, None].float(), self._rope_dim(),
                                   cfg.rope_theta)
         slot = _Slot(pos, cache["dense"][0].shape[2])
-        for key, lp, n in self._stacks():
+        for key, lp, _ in self._stacks():
             first, second = cache[key]
-            for i in range(n):
-                x, _ = self._block(lp, i, x, cos, sin, key == "moe",
-                                   cache=(first[i], second[i]), slot=slot)
+            for i, p in enumerate(self._unstack(lp)):
+                x, _, _ = self._block(p, x, cos, sin, key == "moe",
+                                      cache=(first[i], second[i]), slot=slot)
         return self._head(x)[:, 0], cache
 
 
@@ -450,3 +501,34 @@ def params_from_jax(model: LM, tree: Dict[str, Any]) -> LM:
                 src = src[key]
             put(lp[name], src, f"{stack}.moe.{'.'.join(moe_param_path(name))}")
     return model
+
+
+def params_to_jax_tree(model: LM, tensors: Optional[Dict[str, Any]] = None
+                       ) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: the model's parameters in the
+    reference's tree (``embed``, ``final_norm``, ``lm_head`` unless tied,
+    ``dense_layers`` and ``moe_layers`` with ``ln1``, ``ln2``, ``attn`` and
+    ``mlp`` or ``moe``), each leaf the parameter itself (no copy) or, given
+    ``tensors`` keyed as ``model.named_parameters()`` names them (their
+    ``.grad``, for example), that tensor."""
+    def leaf(name: str) -> Any:
+        return model.get_parameter(name) if tensors is None else tensors[name]
+
+    cfg = model.cfg
+    tree: Dict[str, Any] = {"embed": leaf("embed"),
+                            "final_norm": leaf("final_norm")}
+    if model.lm_head is not None:
+        tree["lm_head"] = leaf("lm_head")
+    for stack, attr, moe in (("dense_layers", "layers", False),
+                             ("moe_layers", "moe_layers", True)):
+        if moe and not model.n_moe:
+            continue
+        node = {"ln1": leaf(f"{attr}.ln1"), "ln2": leaf(f"{attr}.ln2"),
+                "attn": {k: leaf(f"{attr}.{k}") for k in _attn_shapes(cfg)}}
+        if moe:
+            node["moe"] = nest_moe_params({n: leaf(f"{attr}.{n}")
+                                           for n in moe_param_shapes(cfg)})
+        else:
+            node["mlp"] = {k: leaf(f"{attr}.{k}") for k in _MLP_KEYS}
+        tree[stack] = node
+    return tree

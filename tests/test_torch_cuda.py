@@ -779,3 +779,162 @@ def test_collectives_on_a_world_one_nccl_group(cuda, tmp_path):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the attention backward and the training path on the card
+# ---------------------------------------------------------------------------
+
+# the backward's limit (chip_smoke.py's BWD_TOL): rtol |want| + atol * max
+# |want|.  bf16: both sides compute float32 gradients and round them once,
+# one bf16 ulp apart, plus float32 noise of long sums that cancel in small
+# elements; float32: sums in another order.
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 2.0 ** -10)}
+
+
+def _assert_grad_close(got, want, dtype):
+    rtol, atol = BWD_TOL[dtype]
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    over = (g - w).abs() - (rtol * w.abs() + atol * float(w.abs().max()))
+    assert float(over.max()) <= 0.0, (
+        f"max |delta| {float((g - w).abs().max())} against max |want| "
+        f"{float(w.abs().max())}")
+
+
+def _bwd_case(cuda, dtype, b, sq, skv, h, kvh, d, dv, causal, seed):
+    """q, k, v, dO on the card and the forward kernel's (o, m, l)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    gen = torch.Generator().manual_seed(seed)
+    q = _randn(gen, b, sq, h, d, dtype=dtype, device=cuda)
+    k = _randn(gen, b, skv, kvh, d, dtype=dtype, device=cuda)
+    v = _randn(gen, b, skv, kvh, dv, dtype=dtype, device=cuda)
+    do = _randn(gen, b, sq, h, dv, dtype=dtype, device=cuda)
+    o, m, l = flash_ops.flash_attention(q, k, v, causal=causal,
+                                        return_stats=True)
+    return q, k, v, do, o, m, l
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,dv", [
+    (2, 96, 96, 4, 4, 32, 32),        # G = 1
+    (1, 130, 130, 8, 2, 32, 32),      # G = 4, ragged
+    (1, 64, 64, 4, 1, 48, 32),        # D padded to 64
+    (1, 100, 100, 4, 1, 192, 128),    # MLA's widths
+    (2, 40, 150, 4, 1, 64, 64),       # Sq < Skv
+    (1, 150, 60, 8, 2, 32, 32),       # Sq > Skv: rows that see no key
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, skv, h, kvh, d,
+                                        dv, causal):
+    """dq, dk, dv of the backward kernel against flash_attention_bwd_ref on
+    the same (o, m, l), one launch; and m, l of the forward kernel against
+    the plain version's."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    q, k, v, do, o, m, l = _bwd_case(cuda, dtype, b, sq, skv, h, kvh, d, dv,
+                                     causal, sq + skv + d + dv + h)
+    _, pm, pl = flash_attention_ref(q, k, v, causal=causal,
+                                    return_stats=True)
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, pl, rtol=1e-4, atol=0)
+    before = flash_ops.bwd_launches.n
+    got = flash_ops.flash_attention_bwd(q, k, v, o, m, l, do, causal=causal)
+    want = flash_attention_bwd_ref(q, k, v, o, m, l, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.bwd_launches.n == before + 1
+    for g, w in zip(got, want):
+        _assert_grad_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("d,dv", [(16, 16), (32, 32), (64, 64), (128, 128),
+                                  (160, 160), (192, 192), (256, 256),
+                                  (192, 128)])
+def test_flash_bwd_kernel_every_compiled_pair(cuda, d, dv):
+    """The bf16 mma.sync backward at every compiled (D, Dv) pair, causal,
+    GQA, a ragged S."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    q, k, v, do, o, m, l = _bwd_case(cuda, torch.bfloat16, 2, 77, 77, 4, 2,
+                                     d, dv, True, d + dv)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, m, l, do)
+    want = flash_attention_bwd_ref(q, k, v, o, m, l, do)
+    for g, w in zip(got, want):
+        _assert_grad_close(g, w, torch.bfloat16)
+
+
+def test_flash_bwd_on_card_never_takes_the_plain_version(cuda, monkeypatch):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    def refuse(*a, **k):
+        raise AssertionError("plain backward on the card")
+
+    monkeypatch.setattr(flash_ops, "flash_attention_bwd_ref", refuse)
+    q, k, v, do, o, m, l = _bwd_case(cuda, torch.bfloat16, 1, 64, 64, 2, 1,
+                                     64, 64, True, 0)
+    flash_ops.flash_attention_bwd(q, k, v, o, m, l, do)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_attention_gradient_on_card_matches_cpu(cuda, dtype):
+    """Autograd through the model's chunked_attention: on the card the
+    forward and backward kernels (one launch each), on the CPU the plain
+    versions; the gradients agree within the backward's limit."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.attention import chunked_attention
+    gen = torch.Generator().manual_seed(3)
+    xs = [torch.randn(2, 70, h, 64, generator=gen).to(dtype)
+          for h in (8, 2, 2)]
+    do = torch.randn(2, 70, 8, 64, generator=gen).to(dtype)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_() for x in xs]
+        before = (flash_ops.launches.n, flash_ops.bwd_launches.n)
+        out = chunked_attention(*leaves, causal=True)
+        out.backward(do.to(dev))
+        after = (flash_ops.launches.n, flash_ops.bwd_launches.n)
+        assert after == ((before[0] + 1, before[1] + 1) if dev.type == "cuda"
+                         else before)
+        grads.append([x.grad.cpu() for x in leaves])
+    for g, w in zip(*grads):
+        _assert_grad_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("name", ["dense", "moe", "mla"])
+def test_lm_loss_and_train_step_on_card_match_cpu(cuda, name):
+    """loss_fn's loss and gradients, and the parameters after one
+    train_step at grad_accum 2, with the same weights on the card (the
+    attention kernels, forward and backward) and on the CPU: within 1e-4."""
+    from repro_torch.configs.base import TransformerConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.optimizer import init_opt_state
+    kw = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
+              d_ff=256, vocab_size=512, dtype="float32") \
+        if name == "dense" else _SMALL_LMS[name]
+    cfg = TransformerConfig(**dict(kw, grad_accum=2))
+    card = LM(cfg, device=cuda)
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (4, 31), generator=gen)
+    labs = torch.randint(0, cfg.vocab_size, (4, 31), generator=gen)
+    res = []
+    for model in (card, cpu):
+        before = flash_ops.bwd_launches.n
+        loss, _ = model.loss_fn(toks, labs)
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        if model is card:
+            assert flash_ops.bwd_launches.n == before + cfg.n_layers
+        _, met = train_step(model, init_opt_state(params), toks, labs)
+        res.append((loss.detach().cpu(), [g.cpu() for g in grads],
+                    met["loss"].cpu(),
+                    [p.detach().cpu() for p in params.values()]))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(res[0][2], res[1][2], rtol=1e-4, atol=1e-4)
+    for a, b in zip(res[0][1] + res[0][3], res[1][1] + res[1][3]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

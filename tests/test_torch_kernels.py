@@ -828,6 +828,198 @@ def test_flash_on_cpu_never_launches(monkeypatch):
     assert flash_ops.launches.n == before and not calls
 
 
+# ---------------------------------------------------------------------------
+# the flash-attention backward (plain version) and the forward's statistics
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention_bwd,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_bwd_ref,
+)
+from repro_torch.models.attention import (  # noqa: E402
+    chunked_attention as chunked_port,
+)
+
+
+def _bwd_inputs(seed, b, sq, skv, h, kvh, d, dv, dtype):
+    """q, k, v, dO as numpy float32 (rounded to bf16 values for bf16)."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal(shape).astype(np.float32)
+          for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, dv),
+                        (b, sq, h, dv))]
+    if dtype == "bfloat16":
+        xs = [np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+              for x in xs]
+    return xs
+
+
+def _jax_grads(q, k, v, do, causal, dtype, bf16_probs=False):
+    """jax.grad of the reference's chunked_attention (repeat_kv'd k, v) at
+    <dO, out>, in the inputs' dtype, as numpy float32."""
+    import jax
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    g = q.shape[2] // k.shape[2]
+    dof = jnp.asarray(do, jd).astype(jnp.float32)
+
+    def f(q, k, v):
+        out = chunked_jax(q, repeat_kv_jax(k, g), repeat_kv_jax(v, g),
+                          causal=causal, block_kv=k.shape[1],
+                          bf16_probs=bf16_probs)
+        return jnp.sum(out.astype(jnp.float32) * dof)
+
+    grads = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(x, jd)
+                                              for x in (q, k, v)))
+    return [np.asarray(x.astype(jnp.float32)) for x in grads]
+
+
+def _torch(x, dtype):
+    return torch.from_numpy(np.array(x)).to(getattr(torch, dtype))
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of |x| (2^-7 of the power of two at or below it)."""
+    x = np.maximum(np.abs(x), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(x)) - 7).astype(np.float32)
+
+
+def _assert_grads_close(got, want, dtype):
+    """float32: within 1e-5.  bf16: within two bf16 ulps of the tensor's
+    largest gradient: one for rounding either side's float32 gradient to
+    bf16, one for D = rowsum(dO o) taken from the forward's bf16 output o,
+    where the reference differentiates through its float32 o (and, for dk
+    and dv, sums the G heads of repeat_kv in bf16).  Measured: at most 1.125
+    ulps over this file's cases."""
+    for g, w in zip(got, want):
+        g = g.float().numpy() if isinstance(g, torch.Tensor) else g
+        assert g.shape == w.shape
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
+        else:
+            limit = 2 * _bf16_ulp(np.abs(w).max())
+            assert np.abs(g - w).max() <= limit, float(np.abs(g - w).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 2)])          # G 1 and 4
+@pytest.mark.parametrize("d,dv", [(32, 32), (48, 32), (192, 128)])
+@pytest.mark.parametrize("sq,skv", [(24, 24), (12, 40), (40, 12)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_plain_matches_jax_grad_and_autograd(dtype, h, kvh, d, dv,
+                                                       sq, skv, causal):
+    """flash_attention_bwd_ref (fed the plain forward's o, m, l) against
+    jax.grad of the reference's chunked_attention and torch autograd of
+    flash_attention_ref: G = 1 and 4, a padded width (48), MLA's (192,
+    128), Sq < Skv and Sq > Skv (rows that see no key under causal)."""
+    q, k, v, do = _bwd_inputs(sq * 7 + skv + d + h, 2, sq, skv, h, kvh, d,
+                              dv, dtype)
+    tq, tk, tv, tdo = (_torch(x, dtype) for x in (q, k, v, do))
+    o, m, l = flash_attention(tq, tk, tv, causal=causal, block_kv=7,
+                              return_stats=True)
+    got = flash_attention_bwd(tq, tk, tv, o, m, l, tdo, causal=causal,
+                              block_kv=5)
+    assert [x.dtype for x in got] == [tq.dtype] * 3
+    assert [x.shape for x in got] == [tq.shape, tk.shape, tv.shape]
+    _assert_grads_close(got, _jax_grads(q, k, v, do, causal, dtype), dtype)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out = flash_attention_ref(*leaves, causal=causal, block_kv=9)
+    (out.float() * tdo.float()).sum().backward()
+    _assert_grads_close(got, [x.grad.float().numpy() for x in leaves], dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_attention_autograd_uses_the_backward(causal):
+    """The model's chunked_attention under autograd (the forward with its
+    statistics, flash_attention_bwd as the gradient) against the
+    reference's jax.grad; no graph without gradients."""
+    q, k, v, do = _bwd_inputs(31, 2, 20, 20, 8, 2, 32, 32, "float32")
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = chunked_port(*leaves, causal=causal, block_kv=8)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(do))
+    _assert_grads_close([x.grad for x in leaves],
+                        _jax_grads(q, k, v, do, causal, "float32"),
+                        "float32")
+    with torch.no_grad():
+        assert chunked_port(*leaves, causal=causal).grad_fn is None
+
+
+def test_flash_bwd_bf16_probs_is_the_unrounded_gradient():
+    """With bf16_probs the forward rounds its weights to bf16 and the
+    backward recomputes them in float32: dv is the unrounded function's
+    gradient (jax.grad with float32 weights, within 1e-5); dq and dk lie
+    within 2^-8 of their largest value from it, since D = rowsum(dO o)
+    takes the forward's o, whose weights moved by at most 2^-9 of
+    themselves (measured: ~1e-3); and all three within 2^-7 of the largest
+    value from jax.grad through the rounded weights (measured: ~4e-3)."""
+    q, k, v, do = _bwd_inputs(41, 2, 64, 64, 4, 2, 32, 32, "float32")
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = chunked_port(*leaves, causal=True, block_kv=16, bf16_probs=True)
+    out.backward(torch.from_numpy(do))
+    got = [x.grad.numpy() for x in leaves]
+    unrounded = _jax_grads(q, k, v, do, True, "float32")
+    np.testing.assert_allclose(got[2], unrounded[2], rtol=0, atol=1e-5)
+    for g, w in zip(got[:2], unrounded[:2]):
+        assert np.abs(g - w).max() <= 2.0 ** -8 * np.abs(w).max()
+    rounded = _jax_grads(q, k, v, do, True, "float32", bf16_probs=True)
+    for g, w in zip(got, rounded):
+        assert np.abs(g - w).max() <= 2.0 ** -7 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_stats_are_the_row_max_and_sum(causal):
+    """m = the row's largest scaled score (-1e30 for a row that sees no
+    key), l = sum of exp(score - m), from scores built outright."""
+    q, k, v, _ = _bwd_inputs(5, 1, 12, 8, 4, 2, 16, 16, "float32")
+    _, m, l = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              causal=causal, block_kv=3, return_stats=True)
+    kk = np.repeat(k, 2, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q, kk) * 16 ** -0.5
+    if causal:
+        s = np.where(np.arange(12)[:, None] + 8 - 12 >= np.arange(8)[None],
+                     s, -1e30)
+    want_m = s.max(-1)
+    np.testing.assert_allclose(m.numpy(), want_m, rtol=1e-6)
+    np.testing.assert_allclose(
+        l.numpy(), np.exp(s - want_m[..., None]).sum(-1), rtol=1e-5)
+    if causal:                  # rows 0-3 sit before key 0: weights 1 / 8
+        assert (m.numpy()[:, :, :4] == np.float32(-1e30)).all()
+        np.testing.assert_array_equal(l.numpy()[:, :, :4], 8.0)
+
+
+@pytest.mark.parametrize("d,dv", [(288, 288), (64, 320)])
+def test_flash_bwd_rejects_heads_past_256(d, dv):
+    z = torch.zeros
+    with pytest.raises(ValueError, match="not served"):
+        flash_attention_bwd(z(1, 4, 2, d), z(1, 4, 2, d), z(1, 4, 2, dv),
+                            z(1, 4, 2, dv), z(1, 2, 4), z(1, 2, 4),
+                            z(1, 4, 2, dv))
+
+
+def test_flash_launch_wrappers_refuse_cpu_tensors():
+    """The card paths' own checks run (and refuse CPU tensors) before any
+    library is loaded."""
+    q, k, v, do = (torch.from_numpy(x) for x in _bwd_inputs(
+        3, 1, 16, 16, 2, 1, 16, 16, "float32"))
+    o, m, l = flash_attention(q, k, v, return_stats=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_ops._launch(q, k, v, True, 0.25, False, True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_ops._launch_bwd(q, k, v, o, m, l, do, True, 0.25)
+
+
+def test_flash_bwd_on_cpu_never_launches(monkeypatch):
+    monkeypatch.setattr(flash_ops, "_launch_bwd",
+                        lambda *a: pytest.fail("launched"))
+    before = flash_ops.bwd_launches.n
+    q, k, v, do = (torch.from_numpy(x) for x in _bwd_inputs(
+        2, 1, 16, 16, 2, 1, 16, 16, "float32"))
+    o, m, l = flash_attention(q, k, v, return_stats=True)
+    flash_attention_bwd(q, k, v, o, m, l, do)
+    assert flash_ops.bwd_launches.n == before
+
+
 @pytest.mark.parametrize("b,s,h,kvh,d,splits,bs", [
     (1, 512, 4, 4, 64, 1, 512),
     (2, 2048, 8, 2, 64, 4, 256),
