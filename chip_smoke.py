@@ -935,7 +935,11 @@ def kernel_flash_attention_bwd(torch, dev):
     and l are first held against the plain forward's).  A planted fault
     must fail each limit: the values of one key tile zeroed (dq and dk of
     the rows and keys it meets), and dO zeroed on 32 query rows near the
-    end (dv of the keys they weigh most)."""
+    end (dv of the keys they weigh most).  The bf16 kernel's layout is
+    logged; dq's float32 sums are added by TMA reductions (atomics for the
+    widest heads) in no fixed order, so a second launch of the training
+    case must agree with the first within the same limit, not bitwise (dk
+    and dv are summed in a fixed order)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
@@ -994,6 +998,28 @@ def kernel_flash_attention_bwd(torch, dev):
         check(all(caught.values()), f"flash_attention_bwd {label}: the "
               f"limit passes a planted fault ({caught})")
         del vf, bad_v, dof, bad_do, want
+        rerun = {}
+        if label == "train":
+            # a second launch on the same inputs: dq's sums add in
+            # another order, dk and dv come out the same
+            again = flash_ops.flash_attention_bwd(q, k, v, o, m, l, do,
+                                                  causal=causal)
+            torch.cuda.synchronize()
+            for what, g_, a_ in zip(("dq", "dk", "dv"), got, again):
+                err, _, ok = bwd_err(a_, g_, name)
+                rerun[what] = dict(bitwise=bool(torch.equal(a_, g_)),
+                                   max_abs_diff=err)
+                check(ok, f"flash_attention_bwd {label}: a second launch's "
+                      f"{what} off the first by {err}")
+            log(f"[kernels] flash_attention_bwd {label}: second launch "
+                + " ".join(f"{w}_bitwise={r['bitwise']} "
+                           f"{w}_max_abs_diff={r['max_abs_diff']}"
+                           for w, r in rerun.items())
+                + " (dq's float32 sums added in no fixed order: not "
+                  "deterministic)")
+            del again
+        layout = flash_ops.bwd_layout(d, dv) if dt == torch.bfloat16 \
+            else None
         ms = time_ms(torch, lambda: flash_ops.flash_attention_bwd(
             q, k, v, o, m, l, do, causal=causal))
         plain_block = 512 if label == "train" else 1024
@@ -1005,7 +1031,9 @@ def kernel_flash_attention_bwd(torch, dev):
             if sq == skv else None
         # five products over the (query, key) pairs each row weighs (S and
         # dS^T q at D, dP and P^T dO at Dv, dS K at D); q, k, v, o, dO, m,
-        # l read once, dq, dk, dv written once
+        # l read once, dq, dk, dv written once.  The bf16 kernel feeds P
+        # and dS to its tensor cores as hi + lo: eight products' worth
+        # (S, dP, and dV, dK, dQ twice), its own floor beside the bound
         pairs = float(b * h) * ((sq * (skv - sq) + sq * (sq + 1) / 2)
                                 if causal and sq <= skv else sq * skv)
         n_ops = pairs * 2 * (3 * d + 2 * dv)
@@ -1013,6 +1041,10 @@ def kernel_flash_attention_bwd(torch, dev):
             * q.element_size() + b * h * sq * 8
         b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
                            if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        split_ms = None
+        if dt == torch.bfloat16:
+            split_ms = bound(n_bytes, pairs * 2 * (5 * d + 3 * dv),
+                             BF16_OPS_PER_S)[0]
         log(f"[kernels] flash_attention_bwd {label} B={b} Sq={sq} Skv={skv} "
             f"H={h} KVH={kvh} D={d} Dv={dv} {name} causal={causal}: "
             + " ".join(f"{w}_max_abs_err={e[0]} ({e[1]:.3g} of max)"
@@ -1020,9 +1052,20 @@ def kernel_flash_attention_bwd(torch, dev):
             + f" m_err={m_err} l_rel_err={l_err:.3g} faults_caught={caught} "
             f"ms={ms:.3f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} "
             f"library_ms={'-' if lib_ms is None else f'{lib_ms:.3f}'} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"bound_ms={b_ms:.4f} ({b_by})"
+            + ("" if split_ms is None else
+               f" hi_lo_bound_ms={split_ms:.4f} (8 products)")
+            + ("" if layout is None else
+               f" layout={layout} (bwd_delta, bwd_pack_stats, "
+               f"flash_bwd_wgmma grid (KVH, B, ceil(Skv / "
+               f"{layout['keys_per_block']})), bwd_dq_cast; dq's float32 "
+               f"sums added by TMA reductions or atomics, not "
+               f"deterministic)"))
         table[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                            hi_lo_bound_ms=split_ms, layout=layout,
+                            dq_deterministic=dt != torch.bfloat16,
+                            second_launch=rerun or None,
                             errors=errs, m_err=m_err, l_rel_err=l_err)
         if label == "train":
             main = dict(table[label], shape=f"B={b} S={sq} H={h} KVH={kvh} "

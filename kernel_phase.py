@@ -19,7 +19,8 @@ of the kernels' own device time under ``torch.profiler``, with no host
 time in it, the tree's wrapper against ``scaled_dot_product_attention``.
 Where the tree has them, the flash forward is also timed with its row
 statistics written (``return_stats``), and the flash backward at the
-training shape (B=2, S=4,096) beside SDPA's forward + backward.
+training shape (B=2, S=4,096) beside SDPA's forward + backward, and
+split into its launches kernel by kernel.
 """
 import inspect
 import json
@@ -31,10 +32,10 @@ import time
 RUNS = 20
 
 
-def device_ms(torch, fn, runs: int = RUNS) -> float:
-    """Device time of one call of ``fn``: the time its kernels ran on the
-    card under ``torch.profiler`` over ``runs`` calls after one warm-up,
-    divided by ``runs``."""
+def device_ms_by_kernel(torch, fn, runs: int = RUNS) -> dict:
+    """Device time of one call of ``fn`` by kernel (name: ms): the time
+    each ran on the card under ``torch.profiler`` over ``runs`` calls
+    after one warm-up, divided by ``runs``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -43,9 +44,16 @@ def device_ms(torch, fn, runs: int = RUNS) -> float:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
-    return us / 1e3 / runs
+    return {ev.key: ev.self_device_time_total / 1e3 / runs
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+
+
+def device_ms(torch, fn, runs: int = RUNS) -> float:
+    """Device time of one call of ``fn``: the time its kernels ran on the
+    card under ``torch.profiler`` over ``runs`` calls after one warm-up,
+    divided by ``runs``."""
+    return sum(device_ms_by_kernel(torch, fn, runs).values())
 
 
 def attention_device_times(torch, label: str) -> dict:
@@ -81,8 +89,12 @@ def attention_device_times(torch, label: str) -> dict:
         k, v = (torch.randn(2, 4096, 8, 128, device=dev, generator=gen)
                 .to(bf) for _ in range(2))
         o, m, l = flash_attention(q, k, v, return_stats=True)
-        out["flash_bwd train"] = device_ms(
+        parts = device_ms_by_kernel(
             torch, lambda: flash_attention_bwd(q, k, v, o, m, l, do))
+        out["flash_bwd train"] = sum(parts.values())
+        for name, ms in parts.items():     # its launches, kernel by kernel
+            short = name.replace("(anonymous namespace)::", "")
+            out[f"flash_bwd train: {short.split('(')[0][:60]}"] = ms
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
 

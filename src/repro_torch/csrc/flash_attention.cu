@@ -63,10 +63,9 @@
 //   by two warp shuffles.
 #include <cmath>
 
-#include <cuda.h>
-
 #include "attention_dtype.cuh"
 #include "hopper.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -89,9 +88,8 @@ constexpr int CONSUMERS = 256;        // two warpgroups
 constexpr int WTHREADS = CONSUMERS + 128;  // and a producer warpgroup
 constexpr int SMEM_MAX = 232448;      // shared memory a block may use
 
-// The column chunk of a width: 64 bf16 (128-byte rows) where 64 divides it,
-// else 32 or 16.
-constexpr int chunk_of(int d) { return d % 64 == 0 ? 64 : d % 32 == 0 ? 32 : 16; }
+using pandadb::chunk_of;
+using pandadb::make_map;
 
 // The tiles of head widths D (q, k) and DV (v, o).  Each is read in column
 // chunks (hopper.cuh): W of D, WV of DV; Q, K and V tiles are stored chunk
@@ -611,54 +609,6 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   }
 #undef PANDADB_FLASH
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, taken from the driver through the runtime, so
-// the library links no libcuda of its own
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) == cudaSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a [n_b, seq, heads, d] bf16 tensor read in boxes of `rows`
-// positions of one head, in chunks of w columns: dimensions (w, seq, d / w,
-// heads, n_b), swizzled over 2 w bytes.
-int make_map(CUtensorMap* map, const bf16* base, int n_b, int seq, int heads,
-             int d, int w, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t e = sizeof(bf16);
-  const cuuint64_t dims[5] = {(cuuint64_t)w, (cuuint64_t)seq,
-                              (cuuint64_t)(d / w), (cuuint64_t)heads,
-                              (cuuint64_t)n_b};
-  const cuuint64_t strides[4] = {(cuuint64_t)heads * d * e, w * e,
-                                 (cuuint64_t)d * e,
-                                 (cuuint64_t)seq * heads * d * e};
-  const cuuint32_t box[5] = {(cuuint32_t)w, (cuuint32_t)rows,
-                             (cuuint32_t)(d / w), 1, 1};
-  const CUtensorMapSwizzle swizzle = w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<bf16*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
 template <int D, int DV, bool HI_ONLY>

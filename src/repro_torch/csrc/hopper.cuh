@@ -1,7 +1,8 @@
 // Hopper building blocks of the port's kernels: warpgroup matrix
 // multiplies (wgmma, sm_90a only) with operands in shared memory, TMA tile
-// loads and the mbarriers they complete on, named barriers, cp.async, and
-// the warp-level mma.sync with its ldmatrix loads.
+// loads, bulk copies and tile reductions and the mbarriers and bulk groups
+// they complete on, named barriers, cp.async, and the warp-level mma.sync
+// with its ldmatrix loads.
 //
 // Shared-memory operands of wgmma are "swizzled" tiles, as the TMA unit
 // writes them: a tile of R rows by W bf16 columns (W = 16, 32 or 64, so a
@@ -128,6 +129,53 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const void* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory by the TMA unit, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// adds a tile in shared memory into global memory by the TMA unit (a 5-d
+// tensor map, as tma_load_5d; positions outside the tensor are skipped),
+// as a bulk group of this thread
+__device__ __forceinline__ void tma_reduce_add_5d(const void* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3,
+                                                  int c4) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.5d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      :: "l"(map), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared
+// memory (bulk_wait_read) or are still in flight at all (bulk_wait)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma and TMA read through it); then a barrier for the readers
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // swizzle modes of a wgmma descriptor, by row bytes
 __host__ __device__ constexpr uint32_t wgmma_swizzle(int row_bytes) {
@@ -170,7 +218,43 @@ __device__ __forceinline__ void fence_regs(float* d) {
 // registers hold bf16 pairs: (row gr, k 2t4), (row gr + 8, k 2t4),
 // (row gr, k 8 + 2t4), (row gr + 8, k 8 + 2t4), as mma.sync m16n8k16.
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B in shared memory, K-major
+// by default; TA = 1 reads A MN-major (stored as rows of K, each holding
+// M; SBO steps over 8 of those rows, LBO over 64-wide chunks of M), TB = 1
+// B likewise (rows of K, each holding N), as dQ = dS K reads dS^T and K.
+
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
                                             int accumulate) {
   asm volatile(
@@ -181,7 +265,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -190,10 +274,10 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
                                             int accumulate) {
   asm volatile(
@@ -208,7 +292,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -225,7 +309,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B N-major
@@ -478,6 +562,11 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
         "r"(accumulate));
 }
 
+// two float32 sums added to global memory at p (8-byte aligned) by one
+// vector atomic (sm_90); its result unused, it compiles to a reduction
+__device__ __forceinline__ void red_add2(float* p, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
 
 // -- warp-level mma.sync (sm_80 and later) --------------------------------------
 

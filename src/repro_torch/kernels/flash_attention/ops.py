@@ -47,8 +47,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _F, _I, _I, _P],
                "flash_attention_key_tile": [_I, _I, _I]}
-_BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 8
-                   + [_F, _I, _P]}
+_BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 13 + [_I] * 8
+                   + [_F, _I, _P],
+                   "flash_attention_bwd_layout": [_I, _I, _P]}
+_BWD_LAYOUT = ("keys_per_block", "query_rows_per_step", "stages",
+               "smem_bytes", "threads", "split_dk_dv")
 
 
 def compiled_dims(d: int, dv: int) -> Tuple[int, int]:
@@ -71,6 +74,20 @@ def key_tile(d: int, dtype: torch.dtype = torch.bfloat16,
     dp, dvp = compiled_dims(d, d if dv is None else dv)
     return load("flash_attention", _SIGNATURES).flash_attention_key_tile(
         dp, dvp, DTYPES[dtype])
+
+
+def bwd_layout(d: int, dv: int) -> dict:
+    """The bf16 backward kernel's layout at the compiled pair holding
+    (d, dv), from the CUDA library (the card must be there): keys a block,
+    query rows a step, stages of its Q / dO ring, dynamic shared memory
+    bytes, threads a block, and whether its two consumer warpgroups split
+    dK and dV over the same keys."""
+    dp, dvp = compiled_dims(d, dv)
+    out = (ctypes.c_int * len(_BWD_LAYOUT))()
+    err = load("flash_attention_bwd", _BWD_SIGNATURES
+               ).flash_attention_bwd_layout(dp, dvp, out)
+    check_launch("flash_attention_bwd_layout", err)
+    return dict(zip(_BWD_LAYOUT, out), d=dp, dv=dvp)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,7 +116,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of ``flash_attention`` (its float32 weights): q, k, v as
     there, o [B, Sq, H, Dv] its output, (m, l) [B, H, Sq] its row
     statistics, do [B, Sq, H, Dv] the gradient of o -> (dq, dk, dv) in q's,
-    k's and v's dtypes.  ``block_kv`` is the plain version's key block."""
+    k's and v's dtypes.  ``block_kv`` is the plain version's key block.
+    On the card in bf16, dq's float32 sums are added in no fixed order, so
+    its last bits may differ from run to run; dk and dv do not."""
     _check_shapes(q, k, v)
     b, sq, h, _ = q.shape
     dv_w = v.shape[3]
@@ -207,13 +226,23 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dvp != dv:
         v, o, do = (F.pad(t, (0, dvp - dv)) for t in (v, o, do))
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, sq), **f32)
+    stats = dq_accum = None
+    if q.dtype == torch.bfloat16:
+        # each query tile's packed row statistics, and dq's float32 sums,
+        # which the kernel adds to by TMA reductions (or atomics)
+        rows = bwd_layout(dp, dvp)["query_rows_per_step"]
+        stats = torch.empty(b * h * -(-sq // rows) * 3 * rows, **f32)
+        dq_accum = torch.zeros((b, sq, h, dp), **f32)
     _check_aligned("flash_attention_bwd", q, k, v, o, do, dq, dk, dvv)
     lib = load("flash_attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+            0 if stats is None else stats.data_ptr(),
+            0 if dq_accum is None else dq_accum.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, sq, skv, h,
             kvh, dp, dvp, DTYPES[q.dtype], float(scale), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -88,7 +88,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             l: torch.Tensor, do: torch.Tensor,
                             causal: bool = True,
                             scale: Optional[float] = None,
-                            block_kv: int = 1024):
+                            block_kv: int = 1024, p_terms: int = 0,
+                            ds_terms: int = 0):
     """The gradient of :func:`flash_attention_ref` (float32 weights):
     q, k, v as there, o [B, Sq, H, Dv] its output, m and l [B, H, Sq] its
     row statistics, do [B, Sq, H, Dv] the gradient of o -> (dq, dk, dv) in
@@ -99,7 +100,11 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     where the forward gave 1 / Skv); D = rowsum(dO o) in float32;
     dS = P (dO V^T - D), zero where the mask replaced the score by a
     constant; dq = scale dS K, dk = scale dS^T q, dv = P^T dO.  A key
-    head's dk and dv sum over its G query heads."""
+    head's dk and dv sum over its G query heads.
+
+    ``p_terms`` and ``ds_terms`` (0: float32, the default) round P before
+    P^T dO and dS before dS K and dS^T q to that many bf16 terms
+    (:func:`bf16_terms`), as the bf16 kernel feeds its tensor cores."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -123,11 +128,13 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
             masked = q_pos[:, None] < k_pos[None, :]
             sc = sc.masked_fill(masked, NEG)
         p = torch.exp(sc - m[..., None]) / l[..., None]
-        dv[:, :, start:stop] = torch.matmul(p.transpose(-1, -2), dof)
+        dv[:, :, start:stop] = torch.matmul(
+            bf16_terms(p, p_terms).transpose(-1, -2), dof)
         ds = p * (torch.matmul(dof, vf[:, :, start:stop].transpose(-1, -2))
                   - delta[..., None])
         if masked is not None:
             ds = ds.masked_fill(masked, 0.0)
+        ds = bf16_terms(ds, ds_terms)
         dq += torch.matmul(ds, kf[:, :, start:stop])
         dk[:, :, start:stop] = torch.matmul(ds.transpose(-1, -2), qf)
 
@@ -136,6 +143,21 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
     return ((dq * scale).permute(0, 2, 1, 3).to(q.dtype),
             heads(dk, d).to(k.dtype), heads(dv, v.shape[-1]).to(v.dtype))
+
+
+def bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """float32 x as the sum of ``terms`` bf16 values, as a kernel feeds a
+    float32 operand to bf16 tensor cores: 1 gives bf16(x), 2 gives hi + lo
+    with hi = bf16(x), lo = bf16(x - hi) (16 bits of x); 0 leaves x as it
+    is."""
+    if terms == 0:
+        return x
+    hi = x.to(torch.bfloat16).float()
+    if terms == 1:
+        return hi
+    if terms == 2:
+        return hi + (x - hi).to(torch.bfloat16).float()
+    raise ValueError(f"bf16_terms: terms must be 0, 1 or 2, got {terms}")
 
 
 def bf16_probs_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -823,6 +823,12 @@ def _bwd_case(cuda, dtype, b, sq, skv, h, kvh, d, dv, causal, seed):
     (1, 100, 100, 4, 1, 192, 128),    # MLA's widths
     (2, 40, 150, 4, 1, 64, 64),       # Sq < Skv
     (1, 150, 60, 8, 2, 32, 32),       # Sq > Skv: rows that see no key
+    (1, 4096, 4096, 32, 8, 128, 128),  # the training shape's S and heads
+    (2, 200, 200, 4, 1, 128, 128),    # S ragged against 64 and 128
+    (1, 1000, 1000, 8, 2, 64, 64),    # likewise, more tiles
+    (1, 300, 300, 16, 2, 128, 128),   # G = 8
+    (1, 400, 200, 8, 2, 64, 64),      # Sq > Skv by three query tiles
+    (1, 100, 400, 8, 2, 64, 64),      # Sq < Skv by more than a key tile
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, skv, h, kvh, d,
@@ -852,7 +858,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, skv, h, kvh, d,
                                   (160, 160), (192, 192), (256, 256),
                                   (192, 128)])
 def test_flash_bwd_kernel_every_compiled_pair(cuda, d, dv):
-    """The bf16 mma.sync backward at every compiled (D, Dv) pair, causal,
+    """The bf16 wgmma backward at every compiled (D, Dv) pair, causal,
     GQA, a ragged S."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
@@ -862,6 +868,26 @@ def test_flash_bwd_kernel_every_compiled_pair(cuda, d, dv):
     want = flash_attention_bwd_ref(q, k, v, o, m, l, do)
     for g, w in zip(got, want):
         _assert_grad_close(g, w, torch.bfloat16)
+
+
+def test_flash_bwd_two_launches_agree_within_the_limit(cuda):
+    """Two launches of the bf16 backward on the same inputs agree within
+    the backward's limit.  They need not agree bitwise: dq's float32 sums
+    are added to by TMA reductions (atomics for the widest heads) from
+    every key tile's block, in whatever order the blocks reach them, and
+    float32 addition is not associative.  dk and dv are summed in
+    registers in a fixed order and written once, so they do agree
+    bitwise."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    q, k, v, do, o, m, l = _bwd_case(cuda, torch.bfloat16, 2, 1000, 1000, 8,
+                                     2, 128, 128, True, 11)
+    first = flash_ops.flash_attention_bwd(q, k, v, o, m, l, do)
+    second = flash_ops.flash_attention_bwd(q, k, v, o, m, l, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        _assert_grad_close(b, a, torch.bfloat16)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
 
 
 def test_flash_bwd_on_card_never_takes_the_plain_version(cuda, monkeypatch):

@@ -967,6 +967,53 @@ def test_flash_bwd_bf16_probs_is_the_unrounded_gradient():
         assert np.abs(g - w).max() <= 2.0 ** -7 * np.abs(w).max()
 
 
+# the limit the card holds the bf16 backward kernel to (chip_smoke.py's
+# BWD_TOL): |delta| <= rtol |want| + atol max |want| of the tensor
+BWD_BF16_TOL = (1e-2, 2.0 ** -10)
+
+
+def _bwd_over_limit(got, want):
+    """For each of dq, dk, dv: the largest |delta| over its limit (> 1
+    fails)."""
+    rtol, atol = BWD_BF16_TOL
+    return [float(((g.float() - w.float()).abs()
+                   / (rtol * w.float().abs()
+                      + atol * w.float().abs().max())).max())
+            for g, w in zip(got, want)]
+
+
+def _bwd_rounding_case(seed, **terms):
+    """The float32 plain gradient of a causal GQA case in bf16 (S = 1,024,
+    8 query heads on 2 key heads of 64) and the same with the kernel's
+    operand rounding (flash_attention_bwd_ref's p_terms, ds_terms)."""
+    q, k, v, do = (_torch(x, "bfloat16") for x in _bwd_inputs(
+        seed, 1, 1024, 1024, 8, 2, 64, 64, "bfloat16"))
+    o, m, l = flash_attention(q, k, v, return_stats=True)
+    return (flash_attention_bwd_ref(q, k, v, o, m, l, do, **terms),
+            flash_attention_bwd_ref(q, k, v, o, m, l, do))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flash_bwd_kernel_rounding_within_the_card_limit(seed):
+    """The bf16 kernel's operand rounding, emulated in plain torch: P
+    enters dv and dS enters dq and dk as bf16 hi + lo (p_terms=2,
+    ds_terms=2).  Against the float32 plain gradient of the same bf16
+    inputs it stays within the card's limit, three seeds.  The rounding
+    must move the result, or the case would guard nothing."""
+    got, want = _bwd_rounding_case(seed, p_terms=2, ds_terms=2)
+    assert any(not torch.equal(g, w) for g, w in zip(got, want))
+    assert max(_bwd_over_limit(got, want)) <= 1.0
+
+
+def test_flash_bwd_p_as_one_bf16_term_breaks_the_card_limit():
+    """Why the kernel keeps P's lo term: P rounded once to bf16 before
+    P^T dO (p_terms=1) puts dv past the card's limit on this seed, while
+    dq and dk, whose dS keeps two terms, stay within it."""
+    got, want = _bwd_rounding_case(7, p_terms=1, ds_terms=2)
+    over = _bwd_over_limit(got, want)
+    assert over[0] <= 1.0 and over[1] <= 1.0 and over[2] > 1.0, over
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_stats_are_the_row_max_and_sum(causal):
     """m = the row's largest scaled score (-1e30 for a row that sees no
