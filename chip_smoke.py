@@ -5,7 +5,8 @@
                           [--out results.json]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all at once), then runs eleven phases and fails if any fails:
+per source, all at once), then runs thirteen phases and fails if any
+fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
    version on the card, at the main paths' shapes (IVF: Q in {256, 930}, N =
@@ -51,7 +52,17 @@ per source, all at once), then runs eleven phases and fails if any fails:
    plus 2^-10 of the tensor's largest value in bf16 (1e-4 and 1e-5 in
    float32); a planted fault must fail each limit (a key tile of v zeroed:
    dq and dk; 32 rows of dO zeroed: dv); SDPA's backward (forward +
-   backward minus forward) is its library time.
+   backward minus forward) is its library time.  ``gather_scatter``, the
+   GNN's SpMM, at ogb_products' two GraphSAGE layers (2,449,029 nodes,
+   61,859,328 power-law edges, d = 100 and 128, float32, sum and mean, the
+   backward at d = 128), at E = 1,000,000 bit for bit against the plain
+   version on the CPU, at the minibatch block (169,984 nodes, 168,960
+   edges, d = 602 and 128, also bf16) and at Cora (d = 16, 7 and 1,433;
+   empty rows, masked edges): within 1e-5 of each element's sum |w x| of
+   the plain version on the card (bf16 stores: plus one bf16 rounding), the
+   backward likewise; a planted fault, one edge's term dropped, must fail
+   that limit; kernel, device, plain (where its [E, d] messages fit) and
+   library (``torch.sparse.mm``) times, the bound and the gather floor.
 2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
    persons (100,000 by default) with 128-d faces and the IVF-Flat face
    index; a ``QueryServer`` answers the semantic and structured requests
@@ -104,10 +115,21 @@ per source, all at once), then runs eleven phases and fails if any fails:
    / step time / 989 TFLOP/s), peak memory, and the flash forward and
    backward kernels' launches (every layer and micro-batch: two forwards
    under remat, one backward).
-10. parity: the serving requests at 5,000 persons, and the cluster's
+10. gnn: the GNN family trains through ``gnn_train_step`` (AdamW),
+   GNN_STEPS steps each, weights drawn on the card: gnn-products,
+   graphsage-reddit at full width on ogb_products' full graph (2,449,029
+   nodes, 61,859,140 power-law edges padded to 61,859,328, 100 features
+   stored in bf16, 41 classes); gnn-reddit-minibatch, graphsage-reddit on
+   ``NeighborSampler`` blocks (fanout (15, 10), 1,024 seeds) of a
+   Reddit-sized graph (232,965 nodes, 114,615,892 edges, 602 features);
+   gnn-small, gcn-cora, gat-bonus and gin-bonus on full_graph_sm and
+   schnet and equiformer-v2 (12 layers, 128 channels, l_max 6) on molecule
+   (128 graphs of 30 nodes and 64 edges, graph-level MSE).  Loss (finite),
+   step ms, edges/s, peak memory; the graphs' making is timed apart.
+11. parity: the serving requests at 5,000 persons, and the cluster's
    requests and kNN at 5,000 persons, card against CPU: rows identical,
    kNN ids identical wherever neighbouring scores differ by more than 1e-4.
-11. lm parity, for llama3-8b, deepseek-moe-16b and deepseek-v2-236b: a
+12. lm parity, for llama3-8b, deepseek-moe-16b and deepseek-v2-236b: a
    2-layer float32 cut (d_model 128) with the same weights on the card and
    the CPU: logits within 1e-4, greedy tokens identical.  Then each arch
    cut to 2 layers at full width in bf16, on the card through the kernels
@@ -120,13 +142,17 @@ per source, all at once), then runs eleven phases and fails if any fails:
    cut (B = 2, S = 500), one step's loss and gradients through the flash
    forward and backward kernels against the same step through their plain
    versions: loss within 2^-8 and grad norm within 2^-5 of themselves.
+13. gnn parity: each GNN architecture cut to 2 layers, float32, the same
+   weights on the card and the CPU: logits, loss, gradients and the
+   parameters after one ``gnn_train_step`` within 1e-4; Equiformer's
+   chunked path (grouped remat) against its flat path on the card.
 
 Launch counts are zeroed just before each main path (phases 2-3, the
-single node; phase 4, the cluster; phases 5, 6, 7, 8 and 9, each alone)
-and read just after it; every kernel of a path must have launched on it.
-``--profile`` runs each serving request, each PQ search mode, one cluster
-kNN, one fan-out request, one prefill and one decode step of each LM and
-one training step once more, after the main path's run and uncounted, under
+single node; phase 4, the cluster; phases 5, 6, 7, 8, 9 and 10, each
+alone) and read just after it; every kernel of a path must have launched
+on it.  ``--profile`` runs each serving request, each PQ search mode, one
+cluster kNN, one fan-out request, one prefill and one decode step of each
+LM, one training step and one gnn-products step once more, after the main path's run and uncounted, under
 ``torch.profiler`` and ``cProfile``: host wall time, device busy time (CUDA
 kernels and copies, which run on one stream), the idle share ``1 - busy /
 wall``, and the kernels and host functions that took the most time.
@@ -501,6 +527,7 @@ def phase_kernels(torch, pq_rows: int):
     out["flash_attention"] = kernel_flash_attention(torch, dev)
     out["decode_attention"] = kernel_decode_attention(torch, dev)
     out["flash_attention_bwd"] = kernel_flash_attention_bwd(torch, dev)
+    out["gather_scatter"] = kernel_gather_scatter(torch, dev)
     return out
 
 
@@ -2267,6 +2294,589 @@ def phase_distributed(torch):
 
 
 # ---------------------------------------------------------------------------
+# the GNN family: gather_scatter (phase 1), the gnn main path, gnn parity
+# ---------------------------------------------------------------------------
+
+PRODUCTS_NODES, PRODUCTS_EDGES = 2_449_029, 61_859_140   # ogb_products
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892         # Reddit
+GS_REL = 1e-5            # kernel vs plain: |delta| <= GS_REL x sum |w x|
+GS_BF16_REL = 2.0 ** -8  # plus one bf16 rounding of the stored value
+GNN_STEPS = 4
+
+
+def power_law_edges_dev(torch, rng, n_nodes: int, n_edges: int, dev):
+    """``data.sampler.power_law_edges(rng, n_nodes, n_edges)`` with the
+    binary search of ``rng.choice`` run on the card: the same draws from
+    ``rng`` in the same order (Pareto weights, the uniforms, then the
+    destinations) and the same float64 cdf, so the same endpoints (int64 on
+    ``dev``; phase 1 holds the two equal)."""
+    w = rng.pareto(2.0, n_nodes) + 1.0
+    cdf = (w / w.sum()).cumsum()
+    cdf /= cdf[-1]
+    u = torch.from_numpy(rng.random(n_edges)).to(dev)
+    src = torch.searchsorted(torch.from_numpy(cdf).to(dev), u, right=True)
+    del u
+    dst = torch.from_numpy(rng.integers(0, n_nodes, n_edges)).to(dev)
+    return src, dst
+
+
+def random_graph_dev(torch, n_nodes: int, n_edges: int, d_feat: int,
+                     n_classes: int, seed: int, dev):
+    """``data.sampler.random_graph``'s CSRGraph, its endpoints drawn by
+    ``power_law_edges_dev`` and its stable sort by destination run on the
+    card (``n_edges`` need not be a multiple of the nodes; at n_nodes x
+    avg_degree the arrays are random_graph's own)."""
+    import numpy as np
+    from repro_torch.data.sampler import CSRGraph
+
+    rng = np.random.default_rng(seed)
+    src, dst = power_law_edges_dev(torch, rng, n_nodes, n_edges, dev)
+    feats = rng.standard_normal((n_nodes, d_feat)).astype(np.float32)
+    labels = rng.integers(0, n_classes, n_nodes).astype(np.int64)
+    order = torch.sort(dst, stable=True).indices
+    ptr = torch.zeros(n_nodes + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(dst, minlength=n_nodes), 0, out=ptr[1:])
+    idx = src[order].cpu().numpy()
+    return CSRGraph(ptr.cpu().numpy(), idx, feats, labels)
+
+
+def gs_mag(torch, x, src, dst, n, w, reduce, transposed=False):
+    """Each output element's sum |w x| (over its count for the mean; for the
+    gradient of x, |w| / count of the edge's destination times |g|), by the
+    plain version on the card: the scale of the kernel's limit."""
+    aw = None if w is None else w.abs()
+    if not transposed:
+        return plain_or_pieces(torch, x.abs().float(), src, dst, n, aw,
+                               reduce)[0]
+    cnt = torch.bincount(dst.long(), minlength=x.shape[0]).clamp(min=1)
+    wb = (torch.ones_like(src, dtype=torch.float32) if aw is None else aw)
+    if reduce == "mean":
+        wb = wb / cnt[dst.long()]
+    return plain_or_pieces(torch, x.abs().float(), dst, src, n, wb,
+                           "sum")[0]
+
+
+def plain_or_pieces(torch, x, src, dst, n, w, reduce, pieces: int = 8):
+    """(the plain version on the card, True), or, where its [E, d] messages
+    do not fit, (the same sums added piece by piece over the edges,
+    False)."""
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    try:
+        return gather_scatter_ref(x, src, dst, n, w, reduce), True
+    except torch.cuda.OutOfMemoryError:
+        pass
+    torch.cuda.empty_cache()
+    e = src.shape[0]
+    step = -(-e // pieces)
+    acc = None
+    for i in range(0, e, step):
+        part = gather_scatter_ref(x, src[i:i + step], dst[i:i + step], n,
+                                  None if w is None else w[i:i + step], "sum")
+        acc = part if acc is None else acc.add_(part)
+    if reduce == "mean":
+        cnt = torch.bincount(dst.long(), minlength=n).clamp(min=1)
+        acc = acc / cnt.reshape((-1,) + (1,) * (acc.dim() - 1)).to(acc.dtype)
+    return acc, False
+
+
+def gs_case(torch, label: str, x, src, dst, n: int, w, reduce: str, *,
+            backward: bool = False, cpu_bitwise: bool = False,
+            timing: bool = False) -> dict:
+    """One gather_scatter case: the kernel against the plain version on the
+    card within GS_REL x each element's sum |w x| (bf16 input with no weight
+    stores bf16: plus GS_BF16_REL of the value, its one rounding, against
+    the plain version in float32); a planted fault, the largest-weight
+    edge's term dropped, must fail that limit.  ``backward``: the gradient
+    of x against the plain version's autograd (in float32 for bf16 x), or
+    where its messages do not fit, against the same sums over the reversed
+    edges added piece by piece, the same way.
+    ``cpu_bitwise``: the float32 result against the plain version on the
+    CPU, bit for bit.  ``timing``: kernel ms (3-run events and
+    torch.profiler device time), the CSR's build, the plain version (where
+    its messages fit), ``torch.sparse.mm`` on a CSR tensor of the same
+    weights (the mean as a row scale after it), the bound and the gather
+    floor."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+
+    torch.cuda.empty_cache()
+    ops = gs_ops.EdgeCSR
+    e, d = src.shape[0], x[0].numel()
+    csr = ops.build(src, dst, n, x.shape[0])
+    got = gs_ops.gather_scatter(x, src, dst, n, w, reduce, csr)
+    lowp = x.dtype == torch.bfloat16 and w is None
+    xw = x.float() if lowp else x
+    plain, fits = plain_or_pieces(torch, xw, src, dst, n, w, reduce)
+    mag = gs_mag(torch, x, src, dst, n, w, reduce)
+    lim = GS_REL * mag + (GS_BF16_REL * plain.abs() if lowp else 0.0)
+    err = (got.float() - plain.float()).abs()
+    ok = bool((err <= lim).all())
+    out = {"max_abs_err": float(err.max()), "plain_fits": fits,
+           "worst_rel_to_mag": float((err / mag.clamp(min=1e-30)).max()),
+           "dtype": str(x.dtype).split(".")[1], "out_dtype":
+           str(got.dtype).split(".")[1]}
+    # planted fault: the term of the edge of largest |w| (first edge if
+    # unweighted) dropped
+    wf = (torch.ones(e, device=x.device) if w is None else w.clone())
+    row_max = x.reshape(x.shape[0], -1).abs().amax(1).float()
+    e0 = int(torch.argmax(wf.abs() * row_max[src.long()]))
+    wf[e0] = 0.0
+    bad = gs_ops.gather_scatter(x, src, dst, n, wf, reduce, csr)
+    caught = not bool(((bad.float() - plain.float()).abs() <= lim).all())
+    del bad, wf
+    out["fault_caught"] = caught
+    if cpu_bitwise:
+        ref_cpu = gather_scatter_ref(x.cpu(), src.cpu(), dst.cpu(), n,
+                                     None if w is None else w.cpu(), reduce)
+        out["bitwise_cpu"] = bool(torch.equal(got.cpu(), ref_cpu))
+        out["max_abs_err_cpu"] = float((got.cpu() - ref_cpu).abs().max())
+        del ref_cpu
+    del plain, mag, lim, err
+    if timing:
+        out["csr_build_ms"] = time_ms(torch, lambda: ops.build(
+            src, dst, n, x.shape[0]))
+        out["ms"] = time_ms(torch, lambda: gs_ops.gather_scatter(
+            x, src, dst, n, w, reduce, csr))
+        out["device_ms"] = device_ms(torch, lambda: gs_ops.gather_scatter(
+            x, src, dst, n, w, reduce, csr), runs=5)
+        out["plain_ms"] = None
+        if fits:
+            torch.cuda.empty_cache()
+            try:
+                out["plain_ms"] = time_ms(torch, lambda: gather_scatter_ref(
+                    x, src, dst, n, w, reduce))
+            except torch.cuda.OutOfMemoryError:
+                out["plain_note"] = "timing the plain version ran out of memory"
+            torch.cuda.empty_cache()
+        x2 = x.reshape(x.shape[0], -1).float()
+        vals = (torch.ones(e, device=x.device) if w is None
+                else w.float()[csr.perm])
+        a = torch.sparse_csr_tensor(csr.ptr, csr.col.long(), vals,
+                                    size=(n, x.shape[0]))
+        scale = (1.0 / csr.count.clamp(min=1.0))[:, None]
+
+        def library():
+            y = torch.sparse.mm(a, x2)
+            return y * scale if reduce == "mean" else y
+
+        out["library_ms"] = time_ms(torch, library)
+        del a, vals, x2
+        xb, ob = x.element_size(), got.element_size()
+        n_bytes = (x.shape[0] * d * xb + n * d * ob
+                   + (4 if w is None else 8) * e + 8 * (n + 1))
+        out["bound_ms"], out["bound_by"] = bound(n_bytes, 2.0 * e * d)
+        out["gather_floor_ms"] = (n_bytes + e * d * xb
+                                  - x.shape[0] * d * xb) / HBM_BYTES_PER_S * 1e3
+    if backward:
+        # against the plain version's autograd (in float32 for bf16 x,
+        # whose plain backward rounds at every add), or, where its [E, d]
+        # messages do not fit, against the same sums over the reversed
+        # edges added piece by piece
+        xg = (x.float() if lowp else x).detach().requires_grad_()
+        # the cotangent in the output's type, the same values for both
+        g = torch.randn(got.shape, device=x.device, dtype=torch.float32,
+                        generator=torch.Generator(device=x.device)
+                        .manual_seed(e)).to(got.dtype).float()
+        xk = x.detach().requires_grad_()
+        (dk,) = torch.autograd.grad(
+            gs_ops.gather_scatter(xk, src, dst, n, w, reduce, csr), xk,
+            g.to(got.dtype))
+        try:
+            (dp,) = torch.autograd.grad(
+                gather_scatter_ref(xg, src, dst, n, w, reduce), xg, g)
+            out["bwd_plain"] = "autograd"
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            cnt = torch.bincount(dst.long(), minlength=n).clamp(min=1)
+            wb = torch.ones(e, device=x.device) if w is None else w.float()
+            if reduce == "mean":
+                wb = wb / cnt[dst.long()]
+            dp = plain_or_pieces(torch, g, dst, src, x.shape[0], wb,
+                                 "sum")[0].reshape(dk.shape)
+            out["bwd_plain"] = "reversed edges, in pieces"
+        bmag = gs_mag(torch, g, src, dst, x.shape[0], w, reduce,
+                      transposed=True).reshape(dk.shape)
+        blim = GS_REL * bmag + (GS_BF16_REL * dp.abs() if lowp else 0.0)
+        berr = (dk.float() - dp.float()).abs()
+        out["bwd_max_abs_err"] = float(berr.max())
+        out["bwd_ok"] = bool((berr <= blim).all())
+        ok = ok and out["bwd_ok"]
+        del dp, bmag, berr, blim, xg, xk, dk
+        if timing:
+            ptr_t, perm_t, col_t = csr.transposed()
+            gw = None if w is None else w[perm_t]
+            if reduce == "mean":
+                inv = csr.count.clamp(min=1.0)[col_t.long()]
+                gw = 1.0 / inv if gw is None else gw / inv
+            g2 = g.to(got.dtype).reshape(g.shape[0], -1).contiguous()
+            out["bwd_ms"] = time_ms(torch, lambda: gs_ops.launch(
+                g2, ptr_t, col_t, gw, False, x.dtype))
+            del g2, gw
+        del g
+    del got, csr
+    log(f"[kernels] gather_scatter {label} N={n} E={e} d={d} {reduce} "
+        f"{out['dtype']}->{out['out_dtype']}"
+        f"{' weighted' if w is not None else ''}: "
+        + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                   for k, v in out.items() if k not in ("dtype",
+                                                        "out_dtype")))
+    check(ok, f"gather_scatter {label} {reduce} past its limit")
+    check(caught, f"gather_scatter {label}: the planted fault was not caught")
+    if cpu_bitwise:
+        check(out["bitwise_cpu"],
+              f"gather_scatter {label} differs from the CPU's plain version")
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_gather_scatter(torch, dev):
+    """gather_scatter at the GNN paths' shapes: ogb_products' two GraphSAGE
+    layers (2,449,029 nodes, 61,859,328 edges: the 61,859,140 of
+    ``power_law_edges`` plus 188 padding edges of weight 0; d = 100 and
+    128, float32, sum with random weights and mean with the mask), the
+    backward at d = 128; E = 1,000,000 at d = 128 bit for bit against the
+    CPU; the minibatch block (169,984 nodes, 168,960 edges, d = 602 and
+    128, mean, backward) also in bf16; Cora (2,708 nodes, 10,752 edges of
+    which 196 masked, eight rows without an edge, d = 16, 7 and 1,433)."""
+    import numpy as np
+    from repro_torch.data.sampler import power_law_edges
+    from repro_torch.models.gnn.common import sym_norm_coeff
+
+    rng = np.random.default_rng(31)
+    # the card's search gives the sampler's own endpoints
+    a = power_law_edges(np.random.default_rng(5), 5000, 200_000)
+    b = power_law_edges_dev(torch, np.random.default_rng(5), 5000, 200_000,
+                            dev)
+    check(all(np.array_equal(x, y.cpu().numpy()) for x, y in zip(a, b)),
+          "power_law_edges_dev differs from data.sampler.power_law_edges")
+    cases = {}
+    gen = torch.Generator(device=dev).manual_seed(32)
+
+    def edges(n, e_real, e_pad, empty=0, power=True):
+        if power:
+            s, t = power_law_edges_dev(torch, rng, n, e_real, dev)
+        else:
+            s = torch.from_numpy(rng.integers(0, n, e_real)).to(dev)
+            t = torch.from_numpy(rng.integers(0, n - empty, e_real)).to(dev)
+        pad = torch.zeros(e_pad, dtype=torch.int64, device=dev)
+        mask = torch.cat([torch.ones(e_real, device=dev),
+                          torch.zeros(e_pad, device=dev)])
+        return (torch.cat([s, pad]).to(torch.int32),
+                torch.cat([t, pad]).to(torch.int32), mask)
+
+    # ogb_products' layers
+    n = PRODUCTS_NODES
+    src, dst, mask = edges(n, PRODUCTS_EDGES, 188)
+    wts = torch.randn(src.shape[0], device=dev, generator=gen) * mask
+    for d in (100, 128):
+        x = torch.randn(n, d, device=dev, generator=gen)
+        cases[f"products d={d} sum"] = gs_case(
+            torch, "ogb_products", x, src, dst, n, wts, "sum", timing=True)
+        cases[f"products d={d} mean"] = gs_case(
+            torch, "ogb_products", x, src, dst, n, mask, "mean",
+            timing=True, backward=(d == 128))
+        del x
+    del src, dst, mask, wts
+    torch.cuda.empty_cache()
+    # bit for bit against the CPU
+    n = 100_000
+    src, dst, mask = edges(n, 1_000_000, 0)
+    x = torch.randn(n, 128, device=dev, generator=gen)
+    wts = torch.randn(src.shape[0], device=dev, generator=gen)
+    cases["E=1M d=128 sum"] = gs_case(torch, "E=1M", x, src, dst, n, wts,
+                                      "sum", cpu_bitwise=True)
+    cases["E=1M d=128 mean"] = gs_case(torch, "E=1M", x, src, dst, n, mask,
+                                       "mean", cpu_bitwise=True)
+    # the minibatch block
+    n = 169_984
+    src, dst, mask = edges(n, 168_960, 0, power=False)
+    for d in (602, 128):
+        x = torch.randn(n, d, device=dev, generator=gen)
+        cases[f"block d={d} mean"] = gs_case(
+            torch, "block", x, src, dst, n, mask, "mean", backward=True,
+            timing=True)
+        if d == 128:
+            xb = x.to(torch.bfloat16)
+            cases["block d=128 bf16 sum"] = gs_case(
+                torch, "block", xb, src, dst, n, None, "sum", backward=True)
+            cases["block d=128 bf16 mean"] = gs_case(
+                torch, "block", xb, src, dst, n, mask, "mean")
+    # Cora, eight rows with no edge, the padding masked
+    n = 2708
+    src, dst, mask = edges(n, 10_556, 196, empty=8, power=False)
+    coeff = sym_norm_coeff(src, dst, n, mask) * mask
+    for d, w, reduce in ((16, coeff, "sum"), (7, coeff, "sum"),
+                         (1433, mask, "mean")):
+        x = torch.randn(n, d, device=dev, generator=gen)
+        cases[f"cora d={d} {reduce}"] = gs_case(
+            torch, "cora", x, src, dst, n, w, reduce, backward=True,
+            timing=(d == 1433))
+    main = cases["products d=128 mean"]
+    worst = max(c["max_abs_err"] for k, c in cases.items()
+                if c["dtype"] == "float32")
+    return dict(main, max_abs_err=worst,
+                shape="N=2,449,029 E=61,859,328 d=128 mean float32",
+                cases=cases)
+
+
+def gnn_run(torch, label: str, spec, cell, batches, prof=None,
+            chunk_note: str = "") -> dict:
+    """GNN_STEPS ``gnn_train_step``s of ``spec``'s model, sized for
+    ``cell``, its weights drawn on the card from a seeded generator, on
+    ``batches`` (one a step, each a callable giving a ``gnn_batch`` and
+    the seconds it took to make): loss (finite), grad norm, step ms,
+    edges/s (the batch's real edges a step), peak memory."""
+    import gc
+
+    from repro_torch.launch.gnn_steps import gnn_model, gnn_train_step
+    from repro_torch.training.optimizer import init_opt_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    model = gnn_model(spec, cell, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    opt = init_opt_state(dict(model.named_parameters()))
+    n_params = sum(p.numel() for p in model.parameters())
+    steps = []
+    batch = None
+    for step in range(GNN_STEPS):
+        batch, make_s = batches(step)
+        real = int(batch["edge_mask"].sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, met = gnn_train_step(model, opt, batch, cell)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        row = {k: float(v) for k, v in met.items()}
+        row.update(ms=ms, edges_per_s=real / ms * 1e3, batch_s=make_s)
+        steps.append(row)
+        log(f"[gnn] {label} step {step}: loss={row['loss']:.6f} grad_norm="
+            f"{row['grad_norm']:.6f} step_ms={ms:.1f} edges_per_s="
+            f"{row['edges_per_s']:.4g} (batch made in {make_s:.2f}s)")
+        check(all(math.isfinite(row[k]) for k in ("loss", "grad_norm")),
+              f"{label} step {step}: loss or grad norm not finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[gnn] {label}: {spec.name} {cell.n_nodes} nodes {cell.n_edges} "
+        f"edges d_feat={cell.d_feat} feats {batch['feats'].dtype} "
+        f"n_out={cell.n_out}{chunk_note}: {n_params} parameters; peak "
+        f"device memory {peak:.2f} GB")
+    if prof is not None:
+        prof(f"gnn step {label}",
+             lambda: gnn_train_step(model, opt, batch, cell))
+    del model, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "peak_gb": peak, "n_params": n_params,
+            "nodes": cell.n_nodes, "edges": cell.n_edges}
+
+
+def molecule_arrays(cell, seed: int):
+    """A molecule batch: cell.n_graphs graphs of equal size, each's edges
+    drawn within it, positions 1.5-scaled normals, 100 random features and
+    one target a graph."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    g = cell.n_graphs
+    per_n, per_e = cell.n_nodes // g, cell.n_edges // g
+    off = np.repeat(np.arange(g) * per_n, per_e)
+    return {"feats": rng.standard_normal((cell.n_nodes, cell.d_feat)
+                                         ).astype(np.float32),
+            "pos": (1.5 * rng.standard_normal((cell.n_nodes, 3))
+                    ).astype(np.float32),
+            "src": (off + rng.integers(0, per_n, g * per_e)).astype(np.int32),
+            "dst": (off + rng.integers(0, per_n, g * per_e)).astype(np.int32),
+            "graph_ids": np.repeat(np.arange(g), per_n).astype(np.int32),
+            "target": rng.standard_normal(g).astype(np.float32)}
+
+
+def phase_gnn(torch, prof=None):
+    """The GNN family trains on the card through ``gnn_train_step``:
+    gnn-products (graphsage-reddit at full width on ogb_products' full
+    graph, features in bf16), gnn-reddit-minibatch (graphsage-reddit on
+    NeighborSampler blocks of a Reddit-sized power-law graph, fanout
+    (15, 10), 1,024 seeds) and gnn-small (gcn-cora, gat-bonus, gin-bonus
+    on full_graph_sm; schnet and equiformer-v2 on molecule), each
+    GNN_STEPS steps."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.launch.gnn_steps import cell_of, gnn_batch
+
+    dev = torch.device("cuda")
+    out = {}
+    spec = get_arch("graphsage-reddit")
+
+    # gnn-products: the full graph, made once
+    cell = cell_of(spec, spec.shapes["ogb_products"])
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    src, dst = power_law_edges_dev(torch, rng, PRODUCTS_NODES,
+                                   PRODUCTS_EDGES, dev)
+    feats = rng.standard_normal((PRODUCTS_NODES, cell.d_feat),
+                                dtype=np.float32)
+    labels = rng.integers(0, cell.n_out, PRODUCTS_NODES).astype(np.int32)
+    batch = gnn_batch(cell, {"feats": feats, "src": src, "dst": dst,
+                             "labels": labels}, dev)
+    del src, dst, feats, labels
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    log(f"[gnn] gnn-products graph ({PRODUCTS_NODES} nodes, "
+        f"{PRODUCTS_EDGES} edges, {cell.d_feat} features) made in "
+        f"{made:.1f}s")
+    out["gnn-products"] = gnn_run(torch, "gnn-products", spec, cell,
+                                  lambda step: (batch, 0.0), prof)
+    out["gnn-products"]["graph_s"] = made
+    del batch
+
+    # gnn-reddit-minibatch: a Reddit-sized graph, sampled blocks a step
+    cell = cell_of(spec, spec.shapes["minibatch_lg"])
+    t0 = time.perf_counter()
+    graph = random_graph_dev(torch, REDDIT_NODES, REDDIT_EDGES, cell.d_feat,
+                             cell.n_out, 0, dev)
+    made = time.perf_counter() - t0
+    log(f"[gnn] gnn-reddit-minibatch graph ({REDDIT_NODES} nodes, "
+        f"{len(graph.idx)} edges, {cell.d_feat} features) made in "
+        f"{made:.1f}s")
+    sampler = NeighborSampler(graph, fanout=(15, 10), seed=0)
+    blocks = sampler.batches(cell.seeds, GNN_STEPS)
+
+    def block(step):
+        t = time.perf_counter()
+        b = gnn_batch(cell, next(blocks), dev)
+        torch.cuda.synchronize()
+        return b, time.perf_counter() - t
+
+    out["gnn-reddit-minibatch"] = gnn_run(torch, "gnn-reddit-minibatch",
+                                          spec, cell, block)
+    out["gnn-reddit-minibatch"]["graph_s"] = made
+    del graph, sampler
+
+    # gnn-small
+    for name in ("gcn-cora", "gat-bonus", "gin-bonus"):
+        sp = get_arch(name)
+        cell = cell_of(sp, sp.shapes["full_graph_sm"])
+        rng = np.random.default_rng(1)
+        shape = sp.shapes["full_graph_sm"]
+        s, t = power_law_edges_dev(torch, rng, shape.n_nodes, shape.n_edges,
+                                   dev)
+        b = gnn_batch(cell, {
+            "feats": rng.standard_normal((shape.n_nodes, shape.d_feat),
+                                         dtype=np.float32),
+            "src": s, "dst": t,
+            "labels": rng.integers(0, cell.n_out, shape.n_nodes)}, dev)
+        out[name] = gnn_run(torch, f"gnn-small {name}", sp, cell,
+                            lambda step: (b, 0.0))
+    for name in ("schnet", "equiformer-v2"):
+        sp = get_arch(name)
+        cell = cell_of(sp, sp.shapes["molecule"])
+        b = gnn_batch(cell, molecule_arrays(cell, 2), dev)
+        out[name] = gnn_run(torch, f"gnn-small {name}", sp, cell,
+                            lambda step: (b, 0.0))
+    return out
+
+
+GNN_PARITY = {
+    "gcn-cora": {}, "graphsage-reddit": {}, "gin-bonus": {},
+    "gat-bonus": dict(n_heads=2, d_hidden=8),
+    "schnet": dict(n_rbf=32),
+    "equiformer-v2": dict(l_max=2, m_max=1, n_heads=2, n_rbf=8),
+}
+
+
+def phase_gnn_parity(torch):
+    """Each GNN architecture cut to 2 layers (d_hidden 16 unless set in
+    GNN_PARITY), float32, the same weights on the card and the CPU, on a
+    300-node graph of 1,536 edges (some masked, some nodes with none):
+    logits, loss and every gradient, and every parameter after one
+    ``gnn_train_step``, card against CPU within 1e-4 (sums in another
+    order; GAT, SchNet and Equiformer add with atomics on the card).  Then
+    Equiformer's chunked path against its flat path on the card, values
+    and gradients within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.gnn_steps import (GNNCell, gnn_batch, gnn_loss,
+                                              gnn_model, gnn_train_step)
+    from repro_torch.training.optimizer import gradients, init_opt_state
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(40)
+    n, e, d = 300, 1536, 24
+    arrays = {"feats": rng.standard_normal((n, d)).astype(np.float32),
+              "pos": (1.5 * rng.standard_normal((n, 3))).astype(np.float32),
+              "src": rng.integers(0, n, e).astype(np.int32),
+              "dst": rng.integers(0, n - 5, e).astype(np.int32),
+              "edge_mask": rng.random(e) > 0.1,
+              "labels": rng.integers(-1, 7, n).astype(np.int32)}
+    cell = GNNCell(n_nodes=n, n_edges=e, d_feat=d, n_out=7, needs_pos=True,
+                   shard_nodes=False, channel_shard=False, chunk=None)
+    out = {}
+    for name, over in GNN_PARITY.items():
+        spec = get_arch(name)
+        spec = dataclasses.replace(spec, model=dataclasses.replace(
+            spec.model, **dict(dict(n_layers=2, d_hidden=16), **over)))
+        card = gnn_model(spec, cell, device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(41))
+        cpu = gnn_model(spec, cell, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        res = []
+        for model, where in ((card, dev), (cpu, "cpu")):
+            batch = gnn_batch(cell, arrays, where)
+            loss, _ = gnn_loss(model, batch, cell)
+            params = dict(model.named_parameters())
+            grads = gradients(loss, params)
+            logits = model(batch["feats"], batch["pos"], batch["src"],
+                           batch["dst"], batch["edge_mask"].float(), n)
+            opt = init_opt_state(params)
+            _, met = gnn_train_step(model, opt, batch, cell)
+            res.append((logits.detach().cpu(), float(loss.detach()),
+                        {k: g.cpu() for k, g in grads.items()},
+                        float(met["loss"]),
+                        {k: p.detach().cpu() for k, p in params.items()}))
+        errs = {"logits": float((res[0][0] - res[1][0]).abs().max()),
+                "loss": max(abs(res[0][1] - res[1][1]),
+                            abs(res[0][3] - res[1][3])),
+                "grads": max(float((res[0][2][k] - res[1][2][k]).abs().max())
+                             for k in res[0][2]),
+                "params": max(float((res[0][4][k] - res[1][4][k]).abs().max())
+                              for k in res[0][4])}
+        log(f"[gnn parity] 2-layer float32 {name} card vs cpu: "
+            + " ".join(f"{k} max_abs_err={v:.3g}" for k, v in errs.items()))
+        check(max(errs.values()) <= 1e-4,
+              f"gnn parity {name} off by {max(errs.values())}")
+        out[name] = errs
+    # Equiformer: the chunked autograd.Function against the flat path
+    spec = get_arch("equiformer-v2")
+    spec = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, n_layers=4, d_hidden=16, **GNN_PARITY["equiformer-v2"]))
+    model = gnn_model(spec, cell, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(42))
+    batch = gnn_batch(cell, arrays, dev)
+    res = []
+    for chunk in (None, 256):
+        model.zero_grad()
+        lg = model(batch["feats"], batch["pos"], batch["src"], batch["dst"],
+                   batch["edge_mask"].float(), n, chunk=chunk)
+        lg.square().mean().backward()
+        res.append((lg.detach(), {k: p.grad.clone()
+                                  for k, p in model.named_parameters()}))
+    err_v = float((res[0][0] - res[1][0]).abs().max())
+    err_g = max(float((res[0][1][k] - res[1][1][k]).abs().max())
+                for k in res[0][1])
+    log(f"[gnn parity] equiformer 4 layers, chunks of 256 (grouped remat) "
+        f"vs flat on the card: values max_abs_err={err_v:.3g} gradients "
+        f"max_abs_err={err_g:.3g}")
+    check(max(err_v, err_g) <= 1e-4,
+          f"equiformer chunked vs flat off by {max(err_v, err_g)}")
+    out["equiformer_chunked"] = {"values": err_v, "grads": err_g}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2296,6 +2906,7 @@ def main() -> int:
     from repro_torch.kernels.pq_scan import ops as pq_ops
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
     from repro_torch.kernels.topk_merge import ops as merge_ops
 
     t_start = time.perf_counter()
@@ -2311,7 +2922,8 @@ def main() -> int:
                 "topk_merge": merge_ops.launches,
                 "flash_attention": flash_ops.launches,
                 "decode_attention": decode_ops.launches,
-                "flash_attention_bwd": flash_ops.bwd_launches}
+                "flash_attention_bwd": flash_ops.bwd_launches,
+                "gather_scatter": gs_ops.launches}
     failed = []
     t0 = time.perf_counter()
     build.build_all()
@@ -2389,6 +3001,8 @@ def main() -> int:
     paths["train"] = main_path(
         "train", ("flash_attention", "flash_attention_bwd"),
         ("train", phase_train, torch, maybe_prof))
+    paths["gnn"] = main_path(
+        "gnn", ("gather_scatter",), ("gnn", phase_gnn, torch, maybe_prof))
     launches = {name: sum(p[name] for p in paths.values())
                 for name in counters}
     run("parity", phase_parity)
@@ -2397,6 +3011,7 @@ def main() -> int:
         run(f"{tag}_parity_bf16", phase_lm_parity_bf16, torch, arch)
         run(f"{tag}_train_parity", phase_train_parity, torch, arch)
     run("train_parity_bf16", phase_train_parity_bf16, torch)
+    run("gnn_parity", phase_gnn_parity, torch)
 
     meta = {
         "ivf_scan": ("src/repro_torch/csrc/ivf_scan.cu",
@@ -2418,6 +3033,11 @@ def main() -> int:
         "flash_attention_bwd": (
             "src/repro_torch/csrc/flash_attention_bwd.cu",
             "src/repro/models/attention.py:35"),
+        # no Pallas kernel: XLA's gather and segment_sum in the reference's
+        # gather_scatter, the GNN family's SpMM
+        "gather_scatter": (
+            "src/repro_torch/csrc/gather_scatter.cu",
+            "src/repro/models/gnn/common.py:37"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

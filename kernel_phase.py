@@ -20,7 +20,12 @@ time in it, the tree's wrapper against ``scaled_dot_product_attention``.
 Where the tree has them, the flash forward is also timed with its row
 statistics written (``return_stats``), and the flash backward at the
 training shape (B=2, S=4,096) beside SDPA's forward + backward, and
-split into its launches kernel by kernel.
+split into its launches kernel by kernel.  Where the tree has
+``gather_scatter``, it is timed the same way at ogb_products' GraphSAGE
+layers (2,449,029 nodes, 61,859,328 power-law edges, d = 100 and 128,
+float32, mean; forward, and the backward's launch at d = 128) beside
+``torch.sparse.mm`` on a CSR tensor of the same weights, with the CSR's
+build (one stable sort) apart.
 """
 import inspect
 import json
@@ -130,6 +135,47 @@ def attention_device_times(torch, label: str) -> dict:
     return out
 
 
+def gather_scatter_device_times(torch, label: str) -> dict:
+    """gather_scatter at ogb_products' two GraphSAGE layers in device time,
+    beside torch.sparse.mm on the same CSR (the mean as a row scale after
+    it), and the CSR's build; inputs as phase 1 makes them."""
+    import numpy as np
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from chip_smoke import PRODUCTS_EDGES, PRODUCTS_NODES, power_law_edges_dev
+    dev = torch.device("cuda")
+    n = PRODUCTS_NODES
+    src, dst = power_law_edges_dev(torch, np.random.default_rng(31), n,
+                                   PRODUCTS_EDGES, dev)
+    pad = torch.zeros(188, dtype=torch.int64, device=dev)
+    src = torch.cat([src, pad]).to(torch.int32)
+    dst = torch.cat([dst, pad]).to(torch.int32)
+    mask = (torch.arange(src.shape[0], device=dev) < PRODUCTS_EDGES).float()
+    out = {"gather_scatter csr build": device_ms(
+        torch, lambda: gs_ops.EdgeCSR.build(src, dst, n))}
+    csr = gs_ops.EdgeCSR.build(src, dst, n)
+    ws = mask[csr.perm]
+    a = torch.sparse_csr_tensor(csr.ptr, csr.col.long(), ws, size=(n, n))
+    scale = (1.0 / csr.count.clamp(min=1.0))[:, None]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for d in (100, 128):
+        x = torch.randn(n, d, device=dev, generator=gen)
+        out[f"gather_scatter products d={d} mean"] = device_ms(
+            torch, lambda: gs_ops.gather_scatter(x, src, dst, n, mask,
+                                                 "mean", csr), 5)
+        out[f"gather_scatter products d={d} sparse.mm"] = device_ms(
+            torch, lambda: torch.sparse.mm(a, x) * scale, 5)
+        del x
+    ptr_t, perm_t, col_t = csr.transposed()
+    wb = mask[perm_t] / csr.count.clamp(min=1.0)[col_t.long()]
+    g = torch.randn(n, 128, device=dev, generator=gen)
+    out["gather_scatter products d=128 backward launch"] = device_ms(
+        torch, lambda: gs_ops.launch(g, ptr_t, col_t, wb, False,
+                                     torch.float32), 5)
+    for key, ms in out.items():
+        print(f"[{label}] device_ms {key}: {ms:.4f}", flush=True)
+    return out
+
+
 def main() -> int:
     root, label, out = (os.path.abspath(sys.argv[1]), sys.argv[2],
                         os.path.abspath(sys.argv[3]))
@@ -153,9 +199,13 @@ def main() -> int:
     t = time.time()
     res = {} if attention_only else chip_smoke.phase_kernels(torch, 1_000_000)
     print(f"[{label}] phase_kernels s {time.time() - t:.1f}", flush=True)
+    gs = os.path.isdir(os.path.join(root, "src", "repro_torch", "kernels",
+                                    "gather_scatter"))
     for extra in (None, "device_ms"):
         if extra:
             res[extra] = attention_device_times(torch, label)
+            if gs:
+                res[extra].update(gather_scatter_device_times(torch, label))
         with open(out, "w") as f:
             json.dump(res, f, indent=1, default=str)
     return 0

@@ -59,7 +59,7 @@ class ShardingRules:
         return ShardingRules(new)
 
 
-def _mesh_axes(mesh: Any) -> Dict[str, int]:
+def mesh_axes(mesh: Any) -> Dict[str, int]:
     """{axis name: size} of a ``DeviceMesh`` or of an object with
     ``axis_names`` and a ``shape`` mapping, in the mesh's axis order."""
     if hasattr(mesh, "mesh_dim_names"):          # a DeviceMesh
@@ -70,7 +70,7 @@ def _mesh_axes(mesh: Any) -> Dict[str, int]:
 
 def base_rules(mesh: Any, *, fsdp: bool = False) -> ShardingRules:
     """Default rule table, adapted to whichever axes the mesh actually has."""
-    axes = _mesh_axes(mesh)
+    axes = mesh_axes(mesh)
     has = lambda a: axes.get(a, 1) > 1  # noqa: E731
     batch_axes = tuple(a for a in ("pod", "data") if a in axes)
     data = "data" if has("data") else None
@@ -116,7 +116,7 @@ def decode_rules(mesh: Any, *, shard_seq_over_data: bool = False,
     ``shard_seq_over_data=True`` (long_500k, batch=1): the batch axis cannot
     use ``data``, so the KV sequence takes both ``data`` and ``model``."""
     r = base_rules(mesh, fsdp=fsdp)
-    axes = _mesh_axes(mesh)
+    axes = mesh_axes(mesh)
     has = lambda a: axes.get(a, 1) > 1  # noqa: E731
     if shard_seq_over_data:
         kv_seq = tuple(a for a in ("data", "model") if has(a)) or None
@@ -146,7 +146,7 @@ def logical_sharding(mesh: Any, rules: ShardingRules,
                   else phys):
             shard_of[a] = dim
     return [Shard(shard_of[n]) if n in shard_of else Replicate()
-            for n in _mesh_axes(mesh)]
+            for n in mesh_axes(mesh)]
 
 
 def constrain(x: torch.Tensor, rules: ShardingRules,

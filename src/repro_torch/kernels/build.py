@@ -29,7 +29,8 @@ SOURCES: Dict[str, str] = {"ivf_scan": "ivf_scan.cu", "pq_scan": "pq_scan.cu",
                            "topk_merge": "topk_merge.cu",
                            "flash_attention": "flash_attention.cu",
                            "decode_attention": "decode_attention.cu",
-                           "flash_attention_bwd": "flash_attention_bwd.cu"}
+                           "flash_attention_bwd": "flash_attention_bwd.cu",
+                           "gather_scatter": "gather_scatter.cu"}
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

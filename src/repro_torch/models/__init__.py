@@ -1,2 +1,2 @@
 """The port's models: the decoder-only LM (``transformer.LM``: dense GQA,
-DeepSeekMoE, MLA) and its MoE layer (``moe``)."""
+DeepSeekMoE, MLA), its MoE layer (``moe``) and the GNN family (``gnn``)."""

@@ -31,6 +31,11 @@ import repro_torch.serving.engine as port_engine
 from repro.data.synthetic_graph import sift_like_vectors
 from repro_torch.kernels.topk_merge import ops as merge_ops
 
+# the suite runs in several workers at once: a torch process here keeps
+# to one intra-op thread, so that the timing-driven tests beside it (the
+# replica choice in tests/test_overload.py) are not starved of cores
+torch.set_num_threads(1)
+
 N_NODES = 72
 DIM = 32
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -964,3 +964,209 @@ def test_lm_loss_and_train_step_on_card_match_cpu(cuda, name):
     torch.testing.assert_close(res[0][2], res[1][2], rtol=1e-4, atol=1e-4)
     for a, b in zip(res[0][1] + res[0][3], res[1][1] + res[1][3]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# gather_scatter, the GNN family's SpMM
+# ---------------------------------------------------------------------------
+
+
+def _gs_inputs(cuda, n, e, d, dtype, seed, empty=5):
+    """x [n, d], edges (int32) with `empty` rows that get none, weights
+    with a fifth of them 0 (masked), on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=gen).to(dtype)
+    src = torch.randint(0, n, (e,), generator=gen, dtype=torch.int32)
+    dst = torch.randint(0, n - empty, (e,), generator=gen, dtype=torch.int32)
+    w = torch.randn(e, generator=gen) * (torch.rand(e, generator=gen) > 0.2)
+    return x.to(cuda), src.to(cuda), dst.to(cuda), w.to(cuda)
+
+
+def _gs_limit(x, src, dst, n, w, reduce):
+    """1e-5 x each element's sum |w x| (over its count for the mean)."""
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    return 1e-5 * gather_scatter_ref(x.float().abs(), src, dst, n,
+                                     None if w is None else w.abs(), reduce)
+
+
+@pytest.mark.parametrize("d", [1, 7, 16, 100, 128, 602, 1433])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_scatter_kernel_matches_plain(cuda, d, reduce, weighted):
+    """Ragged widths (scalar, float2 and float4 loads), empty rows, masked
+    edges, trailing dims flattened: within 1e-5 of each element's sum |w x|
+    of the plain version on the card, and bit for bit equal to the plain
+    version on the CPU, which sums in the kernel's edge order."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    n, e = 700, 5000
+    x, src, dst, w = _gs_inputs(cuda, n, e, d, torch.float32, d)
+    w = w if weighted else None
+    before = gs_ops.launches.n
+    got = gs_ops.gather_scatter(x, src, dst, n, w, reduce)
+    assert gs_ops.launches.n == before + 1
+    want = gather_scatter_ref(x, src, dst, n, w, reduce)
+    assert ((got - want).abs() <= _gs_limit(x, src, dst, n, w, reduce)).all()
+    assert (got[n - 5:] == 0).all()
+    cpu = gather_scatter_ref(x.cpu(), src.cpu(), dst.cpu(), n,
+                             None if w is None else w.cpu(), reduce)
+    assert torch.equal(got.cpu(), cpu)
+    x3 = x.reshape(n, 1, d)                           # [N, 1, d] flattened
+    assert torch.equal(gs_ops.gather_scatter(x3, src, dst, n, w, reduce),
+                       got.reshape(n, 1, d))
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_gather_scatter_kernel_many_rows_walk_their_tiles(cuda, reduce):
+    """Past FILL_WARPS rows (33,792) a warp walks all of a row's column
+    tiles itself (fewer rows split them over warps, as above): still bit
+    for bit the CPU's plain version."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    n, e, d = 40_000, 120_000, 300
+    x, src, dst, w = _gs_inputs(cuda, n, e, d, torch.float32, 11)
+    got = gs_ops.gather_scatter(x, src, dst, n, w, reduce)
+    assert torch.equal(got.cpu(), gather_scatter_ref(
+        x.cpu(), src.cpu(), dst.cpu(), n, w.cpu(), reduce))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_scatter_kernel_bf16(cuda, weighted):
+    """bf16 x: with float32 weights the output is float32 (bf16 * float32
+    promotes, as in the plain version) and equals the plain version's
+    bits on the CPU; with no weights the kernel sums in float32 and rounds
+    once to bf16, within one bf16 rounding of the float32 sum."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    n, e, d = 500, 4000, 128
+    x, src, dst, w = _gs_inputs(cuda, n, e, d, torch.bfloat16, 5)
+    w = w if weighted else None
+    got = gs_ops.gather_scatter(x, src, dst, n, w, "mean")
+    f32 = gather_scatter_ref(x.float(), src, dst, n, w, "mean")
+    if weighted:
+        assert got.dtype == torch.float32
+        assert torch.equal(got.cpu(), gather_scatter_ref(
+            x.cpu(), src.cpu(), dst.cpu(), n, w.cpu(), "mean"))
+    else:
+        assert got.dtype == torch.bfloat16
+        assert ((got.float() - f32).abs() <= 2.0 ** -8 * f32.abs()
+                + _gs_limit(x, src, dst, n, w, "mean")).all()
+
+
+def test_gather_scatter_planted_fault_fails_the_limit(cuda):
+    """One edge's term dropped (its weight zeroed) puts the kernel past the
+    limit the tests hold it to."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    n, e = 300, 3000
+    x, src, dst, w = _gs_inputs(cuda, n, e, 64, torch.float32, 6)
+    lim = _gs_limit(x, src, dst, n, w, "sum")
+    want = gather_scatter_ref(x, src, dst, n, w, "sum")
+    bad = w.clone()
+    bad[int(torch.argmax(w.abs()))] = 0.0
+    got = gs_ops.gather_scatter(x, src, dst, n, bad, "sum")
+    assert not ((got - want).abs() <= lim).all()
+
+
+def test_gather_scatter_backward_gradcheck_and_kernel(cuda):
+    """The plain version's gradient passes gradcheck in float64 on the CPU;
+    the kernel's backward (the same kernel over the CSR by source, the
+    mean's 1 / count folded into the weights) matches the plain version's
+    autograd within 1e-5 of each element's sum |w g|, and a planted fault
+    in the backward's weights fails that limit."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    gen = torch.Generator().manual_seed(7)
+    n, e = 12, 40
+    x = torch.randn(n, 3, dtype=torch.float64, generator=gen,
+                    requires_grad=True)
+    src = torch.randint(0, n, (e,), generator=gen)
+    dst = torch.randint(0, n - 2, (e,), generator=gen)
+    w = torch.randn(e, dtype=torch.float64, generator=gen)
+    for reduce in ("sum", "mean"):
+        assert torch.autograd.gradcheck(
+            lambda t: gather_scatter_ref(t, src, dst, n, w, reduce), (x,))
+    n, e, d = 600, 6000, 96
+    x, src, dst, w = _gs_inputs(cuda, n, e, d, torch.float32, 8)
+    g = torch.randn(n, d, device=cuda)
+    for reduce in ("sum", "mean"):
+        xg = x.clone().requires_grad_()
+        before = gs_ops.launches.n
+        (dk,) = torch.autograd.grad(
+            gs_ops.gather_scatter(xg, src, dst, n, w, reduce), xg, g)
+        assert gs_ops.launches.n == before + 2
+        (dp,) = torch.autograd.grad(
+            gather_scatter_ref(xg, src, dst, n, w, reduce), xg, g)
+        cnt = torch.bincount(dst.long(), minlength=n).clamp(min=1)
+        wb = w.abs() / (cnt[dst.long()] if reduce == "mean" else 1)
+        lim = 1e-5 * gather_scatter_ref(g.abs(), dst, src, n, wb, "sum")
+        assert ((dk - dp).abs() <= lim).all(), reduce
+    bad = w.clone()
+    bad[int(torch.argmax(w.abs()))] = 0.0
+    xg = x.clone().requires_grad_()
+    (df,) = torch.autograd.grad(
+        gs_ops.gather_scatter(xg, src, dst, n, bad, "sum"), xg, g)
+    (dp,) = torch.autograd.grad(
+        gather_scatter_ref(xg, src, dst, n, w, "sum"), xg, g)
+    lim = 1e-5 * gather_scatter_ref(g.abs(), dst, src, n, w.abs(), "sum")
+    assert not ((df - dp).abs() <= lim).all()
+
+
+def test_gather_scatter_on_card_never_takes_the_plain_version(cuda,
+                                                              monkeypatch):
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+
+    def refuse(*a, **k):
+        raise AssertionError("plain gather_scatter on the card")
+
+    monkeypatch.setattr(gs_ops, "gather_scatter_ref", refuse)
+    x, src, dst, w = _gs_inputs(cuda, 50, 200, 8, torch.float32, 9)
+    gs_ops.gather_scatter(x, src, dst, 50, w, "mean")
+    with pytest.raises(ValueError, match="gradient"):
+        gs_ops.gather_scatter(x, src, dst, 50, w.requires_grad_(), "sum")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["gcn", "graphsage", "gin", "gat", "schnet",
+                                  "equiformer"])
+def test_gnn_train_step_on_card_matches_cpu(cuda, name):
+    """Each GNN at 2 layers, float32, the same weights on the card (SpMM
+    through the kernel; GAT, SchNet and Equiformer add with atomics) and on
+    the CPU: the loss, and every parameter after one gnn_train_step,
+    within 1e-4."""
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.launch.gnn_steps import GNNCell, gnn_batch, \
+        gnn_train_step
+    from repro_torch.models.gnn import build_gnn
+    from repro_torch.training.optimizer import init_opt_state
+    extra = {"gat": dict(n_heads=2), "schnet": dict(n_rbf=16, cutoff=8.0),
+             "equiformer": dict(l_max=2, m_max=1, n_heads=2, n_rbf=8,
+                                cutoff=5.0)}.get(name, {})
+    kind = "equiformer_v2" if name == "equiformer" else name
+    cfg = GNNConfig(kind=kind, n_layers=2, d_hidden=8, n_classes=4, **extra)
+    rng = np.random.default_rng(10)
+    n, e = 80, 400
+    arrays = {"feats": rng.standard_normal((n, 12)).astype(np.float32),
+              "pos": rng.standard_normal((n, 3)).astype(np.float32),
+              "src": rng.integers(0, n, e), "dst": rng.integers(0, n - 3, e),
+              "edge_mask": rng.random(e) > 0.2,
+              "labels": rng.integers(-1, 4, n)}
+    cell = GNNCell(n_nodes=n, n_edges=e, d_feat=12, n_out=4, needs_pos=True,
+                   shard_nodes=False, channel_shard=False, chunk=None)
+    card = build_gnn(cfg, 12, 4, device=cuda)
+    cpu = build_gnn(cfg, 12, 4, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    res = []
+    for model, dev in ((card, cuda), (cpu, "cpu")):
+        before = gs_ops.launches.n
+        opt = init_opt_state(dict(model.named_parameters()))
+        _, met = gnn_train_step(model, opt, gnn_batch(cell, arrays, dev),
+                                cell)
+        spmm = name in ("gcn", "graphsage", "gin")
+        assert (gs_ops.launches.n > before) == (spmm and dev == cuda)
+        res.append((met["loss"].cpu(),
+                    [p.detach().cpu() for p in model.parameters()]))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(res[0][1], res[1][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -23,6 +23,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,11 @@ from repro.distributed import collectives as ref_coll
 from repro.distributed import sharding as ref_sharding
 from repro.launch.mesh import make_smoke_mesh
 from repro_torch.distributed import sharding
+
+# the suite runs in several workers at once: a torch process here keeps
+# to one intra-op thread, so that the timing-driven tests beside it (the
+# replica choice in tests/test_overload.py) are not starved of cores
+torch.set_num_threads(1)
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 RANK_TIMEOUT_S = 180

@@ -36,6 +36,11 @@ from repro_torch.kernels.topk_merge.ops import merge_topk_dev
 from repro_torch.kernels.topk_merge.ref import (merge_select_ref,
                                                merge_topk_ref)
 
+# the suite runs in several workers at once: a torch process here keeps
+# to one intra-op thread, so that the timing-driven tests beside it (the
+# replica choice in tests/test_overload.py) are not starved of cores
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

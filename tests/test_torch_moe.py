@@ -27,6 +27,11 @@ from repro.models import moe as ref_moe
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models import moe
 
+# the suite runs in several workers at once: a torch process here keeps
+# to one intra-op thread, so that the timing-driven tests beside it (the
+# replica choice in tests/test_overload.py) are not starved of cores
+torch.set_num_threads(1)
+
 LAYER = dict(rtol=1e-5, atol=1e-5)
 
 # the "moe" config of tests/test_models_lm.py

@@ -24,6 +24,11 @@ import repro_torch.core.aipm as port_aipm
 import repro_torch.data.synthetic_graph as port_snb
 from repro_torch.kernels.ivf_scan import ops as ivf_ops
 
+# the suite runs in several workers at once: a torch process here keeps
+# to one intra-op thread, so that the timing-driven tests beside it (the
+# replica choice in tests/test_overload.py) are not starved of cores
+torch.set_num_threads(1)
+
 
 def _figure1(core, aipm, **db_kw):
     """The paper's Figure-1 graph (as tests/conftest.py builds it)."""
@@ -221,6 +226,12 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.decode_attention.ops\n"
             "import repro_torch.models.moe, repro_torch.distributed, "
             "repro_torch.distributed.collectives\n"
+            "import repro_torch.models.gnn.gcn, repro_torch.models.gnn.gat, "
+            "repro_torch.models.gnn.gin, repro_torch.models.gnn.graphsage, "
+            "repro_torch.models.gnn.schnet, "
+            "repro_torch.models.gnn.equiformer, "
+            "repro_torch.launch.gnn_steps, repro_torch.data.sampler, "
+            "repro_torch.kernels.gather_scatter.ops\n"
             "from repro_torch.configs import get_arch, arch_names\n"
             "[get_arch(n) for n in arch_names()]\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -20,6 +20,11 @@ import repro_torch.data.synthetic_graph as port_snb
 from repro.serving.engine import QueryServer as RefServer
 from repro_torch.serving.engine import QueryServer as PortServer
 
+# the suite runs in several workers at once: a torch process here keeps
+# to one intra-op thread, so that the timing-driven tests beside it (the
+# replica choice in tests/test_overload.py) are not starved of cores
+torch.set_num_threads(1)
+
 REQUESTS = [
     "MATCH (n:Person)-[:knows]->(m:Person) WHERE n.age < 30 AND "
     "n.photo->face ~: m.photo->face RETURN n.name, m.name",

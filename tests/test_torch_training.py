@@ -53,6 +53,11 @@ from repro_torch.training.train_loop import TrainLoopConfig, run_train_loop
 from repro_torch.training.tree import flatten_with_paths
 from test_torch_distributed import _run_ranks
 
+# the suite runs in several workers at once: a torch process here keeps
+# to one intra-op thread, so that the timing-driven tests beside it (the
+# replica choice in tests/test_overload.py) are not starved of cores
+torch.set_num_threads(1)
+
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 LOSS = dict(rtol=0, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-6)
@@ -667,7 +672,7 @@ def _train_cli(*args, cwd):
         [sys.executable, "-m", "repro_torch.launch.train", *args],
         capture_output=True, text=True, timeout=300, cwd=cwd,
         env={"PYTHONPATH": SRC, "PATH": "/usr/bin:/bin",
-             "OMP_NUM_THREADS": "2", "HOME": str(cwd)})
+             "OMP_NUM_THREADS": "1", "HOME": str(cwd)})
 
 
 def test_launch_train_runs_on_the_cpu_and_restarts(tmp_path):

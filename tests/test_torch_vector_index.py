@@ -24,6 +24,11 @@ from repro.configs.pandadb import VectorIndexConfig as RefCfg
 from repro_torch.configs.pandadb import VectorIndexConfig as PortCfg
 from repro_torch.core import vector_index as pvi
 
+# the suite runs in several workers at once: a torch process here keeps
+# to one intra-op thread, so that the timing-driven tests beside it (the
+# replica choice in tests/test_overload.py) are not starved of cores
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
