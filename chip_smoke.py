@@ -55,14 +55,19 @@ fails:
    backward minus forward) is its library time.  ``gather_scatter``, the
    GNN's SpMM, at ogb_products' two GraphSAGE layers (2,449,029 nodes,
    61,859,328 power-law edges, d = 100 and 128, float32, sum and mean, the
-   backward at d = 128), at E = 1,000,000 bit for bit against the plain
-   version on the CPU, at the minibatch block (169,984 nodes, 168,960
+   backward at d = 128), at E = 1,000,000 with a planted hub row of
+   60,000 edges each way (the kernel's long-row path: split by columns),
+   forward and backward bit for bit against the plain version on the CPU
+   (the backward against its sum over the reversed edges), at the
+   minibatch block (169,984 nodes, 168,960
    edges, d = 602 and 128, also bf16) and at Cora (d = 16, 7 and 1,433;
    empty rows, masked edges): within 1e-5 of each element's sum |w x| of
    the plain version on the card (bf16 stores: plus one bf16 rounding), the
-   backward likewise; a planted fault, one edge's term dropped, must fail
-   that limit; kernel, device, plain (where its [E, d] messages fit) and
-   library (``torch.sparse.mm``) times, the bound and the gather floor.
+   backward likewise; a planted fault, one edge's term dropped (also each
+   hub row's largest, forward and backward), must fail that limit; kernel,
+   device, plain (where its [E, d] messages fit) and library
+   (``torch.sparse.mm``; for the backward over the CSR by source) times,
+   the bound and the gather floor.
 2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
    persons (100,000 by default) with 128-d faces and the IVF-Flat face
    index; a ``QueryServer`` answers the semantic and structured requests
@@ -2381,7 +2386,7 @@ def plain_or_pieces(torch, x, src, dst, n, w, reduce, pieces: int = 8):
 
 def gs_case(torch, label: str, x, src, dst, n: int, w, reduce: str, *,
             backward: bool = False, cpu_bitwise: bool = False,
-            timing: bool = False) -> dict:
+            timing: bool = False, hubs=None) -> dict:
     """One gather_scatter case: the kernel against the plain version on the
     card within GS_REL x each element's sum |w x| (bf16 input with no weight
     stores bf16: plus GS_BF16_REL of the value, its one rounding, against
@@ -2391,11 +2396,16 @@ def gs_case(torch, label: str, x, src, dst, n: int, w, reduce: str, *,
     where its messages do not fit, against the same sums over the reversed
     edges added piece by piece, the same way.
     ``cpu_bitwise``: the float32 result against the plain version on the
-    CPU, bit for bit.  ``timing``: kernel ms (3-run events and
+    CPU, bit for bit, and the gradient against the CPU's plain sum over the
+    reversed edges with the mean's per-edge weights w / max(count_dst, 1),
+    bit for bit.  ``hubs`` (node of a long row by destination, node of one
+    by source): the largest term of each hub row dropped must fail the
+    limit, forward and backward.  ``timing``: kernel ms (3-run events and
     torch.profiler device time), the CSR's build, the plain version (where
     its messages fit), ``torch.sparse.mm`` on a CSR tensor of the same
     weights (the mean as a row scale after it), the bound and the gather
-    floor."""
+    floor; with ``backward`` the same for the gradient's launch (the
+    library: ``sparse.mm`` over the CSR by source)."""
     from repro_torch.kernels.gather_scatter import ops as gs_ops
     from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
 
@@ -2425,6 +2435,17 @@ def gs_case(torch, label: str, x, src, dst, n: int, w, reduce: str, *,
     caught = not bool(((bad.float() - plain.float()).abs() <= lim).all())
     del bad, wf
     out["fault_caught"] = caught
+    if hubs is not None:
+        # the forward hub row's largest term dropped
+        on = (dst == hubs[0]).nonzero().flatten()
+        wf = (torch.ones(e, device=x.device) if w is None else w.clone())
+        e0 = on[int(torch.argmax(wf[on].abs() * row_max[src[on].long()]))]
+        wf[e0] = 0.0
+        bad = gs_ops.gather_scatter(x, src, dst, n, wf, reduce, csr)
+        out["hub_fault_caught"] = not bool(
+            ((bad.float() - plain.float()).abs() <= lim).all())
+        caught = caught and out["hub_fault_caught"]
+        del bad, wf, on
     if cpu_bitwise:
         ref_cpu = gather_scatter_ref(x.cpu(), src.cpu(), dst.cpu(), n,
                                      None if w is None else w.cpu(), reduce)
@@ -2450,8 +2471,8 @@ def gs_case(torch, label: str, x, src, dst, n: int, w, reduce: str, *,
             torch.cuda.empty_cache()
         x2 = x.reshape(x.shape[0], -1).float()
         vals = (torch.ones(e, device=x.device) if w is None
-                else w.float()[csr.perm])
-        a = torch.sparse_csr_tensor(csr.ptr, csr.col.long(), vals,
+                else w.float()[csr.rows.perm])
+        a = torch.sparse_csr_tensor(csr.rows.ptr, csr.rows.col.long(), vals,
                                     size=(n, x.shape[0]))
         scale = (1.0 / csr.count.clamp(min=1.0))[:, None]
 
@@ -2467,6 +2488,7 @@ def gs_case(torch, label: str, x, src, dst, n: int, w, reduce: str, *,
         out["bound_ms"], out["bound_by"] = bound(n_bytes, 2.0 * e * d)
         out["gather_floor_ms"] = (n_bytes + e * d * xb
                                   - x.shape[0] * d * xb) / HBM_BYTES_PER_S * 1e3
+        out["n_bytes"] = n_bytes
     if backward:
         # against the plain version's autograd (in float32 for bf16 x,
         # whose plain backward rounds at every add), or, where its [E, d]
@@ -2501,17 +2523,53 @@ def gs_case(torch, label: str, x, src, dst, n: int, w, reduce: str, *,
         out["bwd_max_abs_err"] = float(berr.max())
         out["bwd_ok"] = bool((berr <= blim).all())
         ok = ok and out["bwd_ok"]
+        if cpu_bitwise:
+            # the CPU's plain sum over the reversed edges, in edge order
+            dc, sc = dst.cpu(), src.cpu()
+            wb = (torch.ones(e) if w is None else w.float().cpu())
+            if reduce == "mean":
+                cnt = torch.bincount(dc.long(), minlength=n).float()
+                wb = wb / cnt.clamp(min=1.0)[dc.long()]
+            want = gather_scatter_ref(g.to(got.dtype).cpu().reshape(
+                g.shape[0], -1), dc, sc, x.shape[0], wb, "sum")
+            out["bwd_bitwise_cpu"] = bool(torch.equal(
+                dk.cpu().reshape(want.shape), want))
+            del want, wb
+        if hubs is not None:
+            # the backward hub row's largest term dropped
+            on = (src == hubs[1]).nonzero().flatten()
+            wf = (torch.ones(e, device=x.device) if w is None else w.clone())
+            g_max = g.reshape(g.shape[0], -1).abs().amax(1)
+            e0 = on[int(torch.argmax(wf[on].abs() * g_max[dst[on].long()]))]
+            wf[e0] = 0.0
+            (df,) = torch.autograd.grad(
+                gs_ops.gather_scatter(xk, src, dst, n, wf, reduce, csr), xk,
+                g.to(got.dtype))
+            out["bwd_hub_fault_caught"] = not bool(
+                ((df.float() - dp.float()).abs() <= blim).all())
+            caught = caught and out["bwd_hub_fault_caught"]
+            del df, wf, on
         del dp, bmag, berr, blim, xg, xk, dk
         if timing:
-            ptr_t, perm_t, col_t = csr.transposed()
-            gw = None if w is None else w[perm_t]
-            if reduce == "mean":
-                inv = csr.count.clamp(min=1.0)[col_t.long()]
-                gw = 1.0 / inv if gw is None else gw / inv
+            rows_t = csr.transposed()
+            gw = None if w is None else w.float()[rows_t.perm]
+            scale = csr.count if reduce == "mean" else None
             g2 = g.to(got.dtype).reshape(g.shape[0], -1).contiguous()
             out["bwd_ms"] = time_ms(torch, lambda: gs_ops.launch(
-                g2, ptr_t, col_t, gw, False, x.dtype))
-            del g2, gw
+                g2, rows_t, gw, False, x.dtype, scale=scale))
+            # the library: sparse.mm over the CSR by source, the weights
+            # already divided
+            vals = torch.ones(e, device=x.device) if gw is None else gw
+            if reduce == "mean":
+                vals = vals / csr.count.clamp(min=1.0)[rows_t.col.long()]
+            at = torch.sparse_csr_tensor(rows_t.ptr, rows_t.col.long(), vals,
+                                         size=(x.shape[0], n))
+            g32 = g2.float()
+            out["bwd_library_ms"] = time_ms(torch, lambda: torch.sparse.mm(
+                at, g32))
+            out["bwd_bound_ms"] = out["bound_ms"]
+            out["bwd_gather_floor_ms"] = out["gather_floor_ms"]
+            del g2, gw, at, vals, g32
         del g
     del got, csr
     log(f"[kernels] gather_scatter {label} N={n} E={e} d={d} {reduce} "
@@ -2521,10 +2579,14 @@ def gs_case(torch, label: str, x, src, dst, n: int, w, reduce: str, *,
                    for k, v in out.items() if k not in ("dtype",
                                                         "out_dtype")))
     check(ok, f"gather_scatter {label} {reduce} past its limit")
-    check(caught, f"gather_scatter {label}: the planted fault was not caught")
+    check(caught, f"gather_scatter {label}: a planted fault was not caught")
     if cpu_bitwise:
         check(out["bitwise_cpu"],
               f"gather_scatter {label} differs from the CPU's plain version")
+        if backward:
+            check(out["bwd_bitwise_cpu"],
+                  f"gather_scatter {label}: the gradient differs from the "
+                  f"CPU's plain sum over the reversed edges")
     torch.cuda.empty_cache()
     return out
 
@@ -2534,8 +2596,9 @@ def kernel_gather_scatter(torch, dev):
     layers (2,449,029 nodes, 61,859,328 edges: the 61,859,140 of
     ``power_law_edges`` plus 188 padding edges of weight 0; d = 100 and
     128, float32, sum with random weights and mean with the mask), the
-    backward at d = 128; E = 1,000,000 at d = 128 bit for bit against the
-    CPU; the minibatch block (169,984 nodes, 168,960 edges, d = 602 and
+    backward at d = 128; E = 1,000,000 at d = 128 with a hub row of 60,000
+    edges each way, forward and backward bit for bit against the CPU; the
+    minibatch block (169,984 nodes, 168,960 edges, d = 602 and
     128, mean, backward) also in bf16; Cora (2,708 nodes, 10,752 edges of
     which 196 masked, eight rows without an edge, d = 16, 7 and 1,433)."""
     import numpy as np
@@ -2578,15 +2641,21 @@ def kernel_gather_scatter(torch, dev):
         del x
     del src, dst, mask, wts
     torch.cuda.empty_cache()
-    # bit for bit against the CPU
+    # bit for bit against the CPU, forward and backward, with a planted hub
+    # row of 60,000 edges each way (node 7's in-edges, node 11's out-edges),
+    # past LONG_ROW: split by columns
     n = 100_000
     src, dst, mask = edges(n, 1_000_000, 0)
+    hub = torch.randperm(src.shape[0], device=dev, generator=gen)[:120_000]
+    dst[hub[:60_000]], src[hub[60_000:]] = 7, 11
     x = torch.randn(n, 128, device=dev, generator=gen)
     wts = torch.randn(src.shape[0], device=dev, generator=gen)
     cases["E=1M d=128 sum"] = gs_case(torch, "E=1M", x, src, dst, n, wts,
-                                      "sum", cpu_bitwise=True)
+                                      "sum", cpu_bitwise=True, backward=True,
+                                      hubs=(7, 11))
     cases["E=1M d=128 mean"] = gs_case(torch, "E=1M", x, src, dst, n, mask,
-                                       "mean", cpu_bitwise=True)
+                                       "mean", cpu_bitwise=True,
+                                       backward=True, hubs=(7, 11))
     # the minibatch block
     n = 169_984
     src, dst, mask = edges(n, 168_960, 0, power=False)

@@ -1016,14 +1016,18 @@ def test_gather_scatter_kernel_matches_plain(cuda, d, reduce, weighted):
                        got.reshape(n, 1, d))
 
 
+@pytest.mark.parametrize("n", [20_000, 40_000])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
-def test_gather_scatter_kernel_many_rows_walk_their_tiles(cuda, reduce):
-    """Past FILL_WARPS rows (33,792) a warp walks all of a row's column
-    tiles itself (fewer rows split them over warps, as above): still bit
-    for bit the CPU's plain version."""
+def test_gather_scatter_kernel_many_rows_walk_their_tiles(cuda, reduce, n):
+    """Many rows at d = 300 (three column tiles): a work item is a tile of
+    consecutive rows, streamed through one warp's ring and written row by
+    row, as many rows as give each resident warp one item (20,000 rows: 19
+    an item with 3 blocks of 8 warps on each of 132 SMs), or 8 where that
+    would pass 32 (40,000 rows): still bit for bit the CPU's plain
+    version."""
     from repro_torch.kernels.gather_scatter import ops as gs_ops
     from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
-    n, e, d = 40_000, 120_000, 300
+    e, d = 3 * n, 300
     x, src, dst, w = _gs_inputs(cuda, n, e, d, torch.float32, 11)
     got = gs_ops.gather_scatter(x, src, dst, n, w, reduce)
     assert torch.equal(got.cpu(), gather_scatter_ref(
@@ -1125,6 +1129,160 @@ def test_gather_scatter_on_card_never_takes_the_plain_version(cuda,
     with pytest.raises(ValueError, match="gradient"):
         gs_ops.gather_scatter(x, src, dst, 50, w.requires_grad_(), "sum")
     torch.cuda.synchronize()
+
+
+def _hub_graph(cuda, d, dtype, seed, hub_edges=50_000):
+    """x [3,000, d], 20,000 random edges plus ``hub_edges`` into node 5 (a
+    long row of the forward's CSR) and as many out of node 9 (a long row
+    of the backward's), shuffled; weights with a fifth of them 0."""
+    rng = np.random.default_rng(seed)
+    n, e = 3000, 20_000
+    src = np.concatenate([rng.integers(0, n, e + hub_edges),
+                          np.full(hub_edges, 9)])
+    dst = np.concatenate([rng.integers(0, n - 4, e), np.full(hub_edges, 5),
+                          rng.integers(0, n - 4, hub_edges)])
+    order = rng.permutation(src.size)
+    src, dst = src[order], dst[order]
+    w = (rng.standard_normal(src.size) * (rng.random(src.size) > 0.2)
+         ).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    return (x.to(dtype).to(cuda), torch.from_numpy(src).to(torch.int32)
+            .to(cuda), torch.from_numpy(dst).to(torch.int32).to(cuda),
+            torch.from_numpy(w).to(cuda), n)
+
+
+def _bwd_weights(w, dst, n, reduce):
+    """The gradient's per-edge weights: w / max(count_dst, 1) for the
+    mean (float32 division, as the kernel divides)."""
+    if reduce == "sum":
+        return w
+    cnt = torch.bincount(dst.long(), minlength=n).float().clamp(min=1.0)
+    return w / cnt[dst.long()]
+
+
+@pytest.mark.parametrize("d", [1, 7, 128, 602])
+def test_gather_scatter_hub_rows_split_by_columns(cuda, d):
+    """A row of 50,000 edges in each direction, far past LONG_ROW, so the
+    kernel takes it first and splits its columns over warps: the forward
+    equals the CPU's plain version bit for bit, the backward equals the
+    CPU's plain sum over the reversed edges with the mean's per-edge
+    weights bit for bit, each CSR's work counter is back at 0 after its
+    launches, and dropping one of a hub row's edges fails the 1e-5 limit
+    each way."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    x, src, dst, w, n = _hub_graph(cuda, d, torch.float32, d)
+    assert gs_ops.LONG_ROW < 50_000
+    csr = gs_ops.EdgeCSR.build(src, dst, n)
+    assert int(csr.rows.n_long[0]) == 1 and int(csr.rows.long_rows[0]) == 5
+    assert int(csr.transposed().n_long[0]) == 1
+    assert int(csr.transposed().long_rows[0]) == 9
+    xc, sc, dc, wc = x.cpu(), src.cpu(), dst.cpu(), w.cpu()
+    g = torch.randn(n, d, generator=torch.Generator().manual_seed(d))
+    for reduce in ("sum", "mean"):
+        xg = x.clone().requires_grad_()
+        got = gs_ops.gather_scatter(xg, src, dst, n, w, reduce, csr)
+        want = gather_scatter_ref(xc, sc, dc, n, wc, reduce)
+        assert torch.equal(got.detach().cpu(), want), reduce
+        (dx,) = torch.autograd.grad(got, xg, g.to(cuda))
+        ws = _bwd_weights(wc, dc, n, reduce)
+        assert torch.equal(dx.cpu(), gather_scatter_ref(g, dc, sc, n, ws,
+                                                        "sum")), reduce
+    assert int(csr.rows.work[0]) == 0 and int(csr.transposed().work[0]) == 0
+    # planted faults: the hub rows' largest terms dropped
+    lim = _gs_limit(x, src, dst, n, w, "sum")
+    want = gather_scatter_ref(x, src, dst, n, w, "sum")
+    hub_f = torch.nonzero(dst == 5).flatten()
+    bad = w.clone()
+    bad[hub_f[torch.argmax(w[hub_f].abs() * x[src[hub_f].long()].abs()
+                           .amax(1))]] = 0.0
+    assert not ((gs_ops.gather_scatter(x, src, dst, n, bad, "sum", csr)
+                 - want).abs() <= lim).all()
+    gd = g.to(cuda)
+    hub_b = torch.nonzero(src == 9).flatten()
+    bad = w.clone()
+    bad[hub_b[torch.argmax(w[hub_b].abs() * gd[dst[hub_b].long()].abs()
+                           .amax(1))]] = 0.0
+    xg = x.clone().requires_grad_()
+    (df,) = torch.autograd.grad(
+        gs_ops.gather_scatter(xg, src, dst, n, bad, "sum", csr), xg, gd)
+    blim = 1e-5 * gather_scatter_ref(gd.abs(), dst, src, n, w.abs(), "sum")
+    dp = gather_scatter_ref(gd, dst, src, n, w, "sum")
+    assert not ((df - dp).abs() <= blim).all()
+
+
+def test_gather_scatter_hub_rows_bf16(cuda):
+    """bf16 x and no weights over the hub graph: the kernel sums in float32
+    and rounds once at the store, forward and backward within one bf16
+    rounding (2^-8 of the value) plus the 1e-5 limit of the float32 sums
+    on the card."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    x, src, dst, _, n = _hub_graph(cuda, 128, torch.bfloat16, 3)
+    g = torch.randn(n, 128, device=cuda).to(torch.bfloat16)
+    for reduce in ("sum", "mean"):
+        xg = x.clone().requires_grad_()
+        got = gs_ops.gather_scatter(xg, src, dst, n, None, reduce)
+        assert got.dtype == torch.bfloat16
+        f32 = gather_scatter_ref(x.float(), src, dst, n, None, reduce)
+        assert ((got.float() - f32).abs() <= 2.0 ** -8 * f32.abs()
+                + _gs_limit(x, src, dst, n, None, reduce)).all(), reduce
+        (dx,) = torch.autograd.grad(got, xg, g)
+        assert dx.dtype == torch.bfloat16
+        ws = _bwd_weights(torch.ones(src.numel(), device=cuda), dst, n,
+                          reduce)
+        b32 = gather_scatter_ref(g.float(), dst, src, n, ws, "sum")
+        blim = 1e-5 * gather_scatter_ref(g.float().abs(), dst, src, n, ws,
+                                         "sum")
+        assert ((dx.float() - b32).abs() <= 2.0 ** -8 * b32.abs() + blim
+                ).all(), reduce
+
+
+@pytest.mark.parametrize("d", [1, 7, 602])
+def test_gather_scatter_hub_rows_bf16_weighted(cuda, d):
+    """bf16 x with float32 weights over the hub graph, at odd widths too
+    (two-byte elements, which the kernel loads without cp.async) and on
+    the long rows' column slices: the float32 output equals the CPU's plain
+    version bit for bit, and the bf16 gradient is the CPU's plain float32
+    sum over the reversed edges rounded once to bf16."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    x, src, dst, w, n = _hub_graph(cuda, d, torch.bfloat16, 10 + d)
+    g = torch.randn(n, d, generator=torch.Generator().manual_seed(d))
+    sc, dc, wc = src.cpu(), dst.cpu(), w.cpu()
+    for reduce in ("sum", "mean"):
+        xg = x.clone().requires_grad_()
+        got = gs_ops.gather_scatter(xg, src, dst, n, w, reduce)
+        assert got.dtype == torch.float32
+        assert torch.equal(got.detach().cpu(), gather_scatter_ref(
+            x.cpu(), sc, dc, n, wc, reduce)), reduce
+        (dx,) = torch.autograd.grad(got, xg, g.to(cuda))
+        assert dx.dtype == torch.bfloat16
+        want = gather_scatter_ref(g, dc, sc, n, _bwd_weights(wc, dc, n,
+                                                             reduce), "sum")
+        assert torch.equal(dx.cpu(), want.to(torch.bfloat16)), reduce
+
+
+def test_gather_scatter_runs_without_host_sync(cuda):
+    """EdgeCSR.build (the sort, ptr by a search, the long rows' list), the
+    forward and the backward (the CSR by source,
+    the mean's scale in the kernel) raise nothing under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    x, src, dst, w, n = _hub_graph(cuda, 64, torch.float32, 4, 5000)
+    g = torch.randn(n, 64, device=cuda)
+    gs_ops.gather_scatter(x, src, dst, n, w, "mean")     # built, loaded
+    torch.cuda.synchronize()
+    xg = x.clone().requires_grad_()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        csr = gs_ops.EdgeCSR.build(src, dst, n)
+        out = gs_ops.gather_scatter(xg, src, dst, n, w, "mean", csr)
+        (dx,) = torch.autograd.grad(out, xg, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(dx).all()
 
 
 @pytest.mark.parametrize("name", ["gcn", "graphsage", "gin", "gat", "schnet",

@@ -151,6 +151,96 @@ def test_gather_scatter_plain_sums_in_edge_order():
     assert np.array_equal(got.numpy(), want)
 
 
+def test_gather_scatter_reversed_plain_sums_in_edge_order():
+    """The gradient's exact yardstick: the plain sum over the reversed edges
+    with the mean's per-edge weights ``w / max(count_dst, 1)`` adds each
+    row of d x in edge order, bit for bit (the order the kernel's backward
+    sums in over the CSR by source), and agrees with the plain version's
+    autograd gradient, which on the CPU adds in another order, within 1e-5
+    of each element's sum |w g|."""
+    rng = np.random.default_rng(4)
+    n, e, d = 40, 1500, 5
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    g = (rng.standard_normal((n, d)) * 10 ** rng.uniform(-3, 3, (n, 1))
+         ).astype(np.float32)
+    src = rng.integers(0, n, e)
+    src[::3] = 11                                  # a hub source
+    dst = rng.integers(0, n - 3, e)
+    w = (rng.standard_normal(e) * (rng.random(e) > 0.2)).astype(np.float32)
+    count = np.maximum(np.bincount(dst, minlength=n), 1).astype(np.float32)
+    for reduce in ("sum", "mean"):
+        ws = w / count[dst] if reduce == "mean" else w
+        want = np.zeros((n, d), np.float32)
+        for i in range(e):
+            want[src[i]] = want[src[i]] + g[dst[i]] * ws[i]
+        got = gather_scatter_ref(_t(g), _t(dst), _t(src), n, _t(ws), "sum")
+        assert np.array_equal(got.numpy(), want), reduce
+        xg = _t(x).requires_grad_()
+        (auto,) = torch.autograd.grad(
+            gather_scatter_ref(xg, _t(src), _t(dst), n, _t(w), reduce), xg,
+            _t(g))
+        lim = 1e-5 * gather_scatter_ref(_t(np.abs(g)), _t(dst), _t(src), n,
+                                        _t(np.abs(ws)), "sum")
+        assert ((auto - got).abs() <= lim).all(), reduce
+
+
+@pytest.mark.parametrize("n,e,empty,lead", [(60, 2000, 7, 3), (1, 50, 0, 0),
+                                            (30, 0, 0, 0), (500, 300, 40, 9)])
+def test_edge_csr_search_matches_bincount(n, e, empty, lead):
+    """``_csr`` builds ``ptr`` by a search of the sorted keys (no host
+    sync on the card): ``ptr``, ``perm`` and ``col`` identical to the
+    ``bincount`` construction, with empty rows, ``lead`` empty rows first
+    and ``empty`` last, in both directions."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    rng = np.random.default_rng(n + e)
+    src = torch.from_numpy(rng.integers(0, n, e)).to(torch.int32)
+    dst = torch.from_numpy(rng.integers(lead, max(n - empty, lead + 1), e)
+                           ).to(torch.int32)
+    for key, other in ((dst, src), (src, dst)):
+        ptr, perm, col = gs_ops._csr(key, other, n)
+        want_perm = torch.sort(key, stable=True).indices
+        want_ptr = torch.zeros(n + 1, dtype=torch.int64)
+        torch.cumsum(torch.bincount(key, minlength=n), 0, out=want_ptr[1:])
+        assert ptr.dtype == torch.int64 and col.dtype == torch.int32
+        assert torch.equal(ptr, want_ptr)
+        assert torch.equal(perm, want_perm)
+        assert torch.equal(col, other[want_perm].to(torch.int32))
+
+
+@pytest.mark.parametrize("n,e,long_min", [(1000, 3000, 64), (90, 3000, 544),
+                                          (10, 20_000, 1024), (200, 0, 64)])
+def test_edge_csr_lists_long_rows(n, e, long_min):
+    """Each CSR lists its rows of at least ``long_row_min`` edges (16 times
+    the mean row, taken as at least 4, at most LONG_ROW), in index order,
+    first in ``long_rows``, with their number in ``n_long``: a row of
+    exactly the threshold is long, one edge fewer is not, each way."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    assert gs_ops.long_row_min(e, n) == long_min
+    assert gs_ops.long_row_min(61_859_328, 2_449_029) == 16 * 26
+    assert gs_ops.long_row_min(10_752, 2_708) == 64
+    assert gs_ops.long_row_min(10 ** 9, 10 ** 6) == gs_ops.LONG_ROW
+    rng = np.random.default_rng(n + e)
+    # rows n - 2 and n - 1 take exactly long_min and long_min - 1 edges
+    # each way, where the graph has that many; the rest avoid them
+    plant = min(e // 2, long_min)
+    rest = e - 2 * plant + (plant > 0)
+    key = np.concatenate([np.full(plant, n - 2),
+                          np.full(max(plant - 1, 0), n - 1),
+                          rng.integers(0, n - 2, rest)])
+    src, dst = rng.permutation(key), rng.permutation(key)
+    csr = gs_ops.EdgeCSR.build(_t(src).to(torch.int32),
+                               _t(dst).to(torch.int32), n)
+    for rows, k in ((csr.rows, dst), (csr.transposed(), src)):
+        cnt = np.bincount(k, minlength=n)
+        want = np.flatnonzero(cnt >= long_min)
+        if plant == long_min:
+            assert n - 2 in want and n - 1 not in want
+        got = int(rows.n_long[0])
+        assert rows.long_min == long_min and rows.n_long.dtype == torch.int32
+        assert got == want.size
+        assert np.array_equal(rows.long_rows[:got].numpy(), want)
+
+
 def test_segment_softmax_and_mean_match_reference():
     rng = np.random.default_rng(3)
     scores = rng.standard_normal((100, 2)).astype(np.float32)
