@@ -5,7 +5,7 @@
                           [--out results.json]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all at once), then runs thirteen phases and fails if any
+per source, all at once), then runs fifteen phases and fails if any
 fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
@@ -67,7 +67,18 @@ fails:
    hub row's largest, forward and backward), must fail that limit; kernel,
    device, plain (where its [E, d] messages fit) and library
    (``torch.sparse.mm``; for the backward over the CSR by source) times,
-   the bound and the gather floor.
+   the bound and the gather floor.  The recsys path's shapes: AutoInt's
+   embedding bag at train_batch (65,536 x 39 x 4 ids over 39 tables of
+   1,000,000 x 16 float32, mean; E = 10,223,616 into 2,555,904 bags) with
+   uniform and with Zipf ids, forward and the tables' gradient, against
+   the plain version on the card within 1e-5 of each element's sum |x| /
+   H and bit for bit against the CPU's; planted faults (the most frequent
+   id's table row zeroed; one of its bags' cotangent zeroed) must fail the
+   limits; timed beside ``F.embedding_bag(mode="mean")``, forward and
+   forward + backward, with the gather floor as bound.  ``ivf_scan`` at
+   retrieval's shape (Q = 1, N = 1,000,000, d = 1,248, ip, k = 100,
+   integer-valued, ties): ids equal to plain, exact values, beside
+   ``torch.mv`` + a stable top-k.
 2. serving: ``PandaDB(device="cuda")`` over an SNB graph of ``--persons``
    persons (100,000 by default) with 128-d faces and the IVF-Flat face
    index; a ``QueryServer`` answers the semantic and structured requests
@@ -151,13 +162,30 @@ fails:
    weights on the card and the CPU: logits, loss, gradients and the
    parameters after one ``gnn_train_step`` within 1e-4; Equiformer's
    chunked path (grouped remat) against its flat path on the card.
+14. recsys: autoint at full size, no cut (39 tables of 1,000,000 x 16
+   float32, weights drawn on the card), its ids Zipf-distributed
+   (exponent 1.05 over each field's ranks, a seeded permutation to ids):
+   train_batch, 4 ``recsys_train_step``s of 65,536 samples (loss finite,
+   step ms, samples/s, peak GB, the bag's two launches a step);
+   serve_p99, 50 requests of 512 from the host (median and p99 ms);
+   serve_bulk, 262,144 (ms, samples/s); retrieval_cand, one query against
+   1,000,000 candidate representations (d = 1,248, 4.99 GB) made by the
+   model, through ``ivf_scan``: ms, ids against the plain version on the
+   card wherever neighbouring scores differ by more than 1e-5 of the
+   largest.
+15. recsys parity: autoint at full width, its tables cut to 1,000 rows,
+   float32, the same weights on the card and the CPU: logits, loss,
+   gradients and the parameters after one ``recsys_train_step`` within
+   1e-5.
 
 Launch counts are zeroed just before each main path (phases 2-3, the
-single node; phase 4, the cluster; phases 5, 6, 7, 8, 9 and 10, each
-alone) and read just after it; every kernel of a path must have launched
+single node; phase 4, the cluster; phases 5, 6, 7, 8, 9, 10 and 14,
+each alone) and read just after it; every kernel of a path must have launched
 on it.  ``--profile`` runs each serving request, each PQ search mode, one
 cluster kNN, one fan-out request, one prefill and one decode step of each
-LM, one training step and one gnn-products step once more, after the main path's run and uncounted, under
+LM, one training step, one gnn-products step, one recsys training step,
+serve_bulk and retrieval once more, after the main path's run and
+uncounted, under
 ``torch.profiler`` and ``cProfile``: host wall time, device busy time (CUDA
 kernels and copies, which run on one stream), the idle share ``1 - busy /
 wall``, and the kernels and host functions that took the most time.
@@ -242,10 +270,12 @@ def time_ms(torch, fn, reps: int = 3) -> float:
 
 
 def device_ms(torch, fn, runs: int = 20) -> float:
-    """Device time of one call of ``fn``: the time its kernels ran on the
-    card under ``torch.profiler`` over ``runs`` calls after one warm-up,
-    divided by ``runs`` (no host time in it).  ``kernel_phase.py`` keeps
-    its own copy, since it also drives older checkouts' phase 1."""
+    """Device time of one call of ``fn``: each kernel's mean time under
+    ``torch.profiler`` over ``runs`` calls after one warm-up, times its
+    launches a call (its records over ``runs``, rounded), summed (no host
+    time in it).  A record the profiler drops does not pass for a faster
+    call; the dropped records are logged.  ``kernel_phase.py`` keeps its
+    own copy, since it also drives older checkouts' phase 1."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -254,9 +284,16 @@ def device_ms(torch, fn, runs: int = 20) -> float:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
-    return us / 1e3 / runs
+    ms, dropped = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.count:
+            per_call = round(ev.count / runs)
+            ms += ev.self_device_time_total / 1e3 / ev.count * per_call
+            dropped += max(0, per_call * runs - ev.count)
+    if dropped:
+        log(f"[device_ms] the profiler dropped {dropped} kernel records of "
+            f"{runs} calls: each kernel counted at its mean time")
+    return ms
 
 
 def profiled(torch, fn, top: int = 5) -> dict:
@@ -533,6 +570,13 @@ def phase_kernels(torch, pq_rows: int):
     out["decode_attention"] = kernel_decode_attention(torch, dev)
     out["flash_attention_bwd"] = kernel_flash_attention_bwd(torch, dev)
     out["gather_scatter"] = kernel_gather_scatter(torch, dev)
+    rec = kernel_recsys(torch, dev)
+    gs = out["gather_scatter"]
+    gs["cases"].update(rec["bags"])
+    gs["max_abs_err"] = max([gs["max_abs_err"]] + [c["max_abs_err"] for c
+                                                    in rec["bags"].values()])
+    out["ivf_scan"]["cases"]["retrieval Q=1 N=1,000,000 d=1,248 k=100 ip"] \
+        = rec["retrieval"]
     return out
 
 
@@ -1248,11 +1292,11 @@ def phase_parity(n_persons: int = 5000):
 # ---------------------------------------------------------------------------
 
 
-def compare_knn(label: str, got, want) -> dict:
+def compare_knn(label: str, got, want, tol: float = KNN_GAP) -> dict:
     """kNN (vals, ids) against a reference run: the same -inf padding, max
-    |delta| <= KNN_GAP over finite scores, and the same ids at every
+    |delta| <= ``tol`` over finite scores, and the same ids at every
     position whose score differs from both neighbours' by more than
-    KNN_GAP (a closer pair may swap on one rounding)."""
+    ``tol`` (a closer pair may swap on one rounding)."""
     import numpy as np
     gv, gi = got
     wv, wi = want
@@ -1265,13 +1309,13 @@ def compare_knn(label: str, got, want) -> dict:
     d = np.where(np.isfinite(d), d, np.inf)
     gap[:, 1:] = d
     gap[:, :-1] = np.minimum(gap[:, :-1], d)
-    sep = gap > KNN_GAP
+    sep = gap > tol
     id_miss = int((gi != wi)[sep].sum())
     bitwise = int((gv == wv).sum())
     log(f"{label}: max_abs_err={err} ids_differ_where_separated={id_miss} "
         f"of {int(sep.sum())} ids_equal={int((gi == wi).sum())} "
         f"values_bitwise_equal={bitwise} of {wv.size}")
-    check(err <= KNN_GAP, f"{label}: max|delta| {err}")
+    check(err <= tol, f"{label}: max|delta| {err}")
     check(id_miss == 0, f"{label}: {id_miss} separated ids differ")
     return {"max_abs_err": err, "ids_differ_where_separated": id_miss,
             "values_bitwise_equal": bitwise, "values": int(wv.size)}
@@ -2946,6 +2990,513 @@ def phase_gnn_parity(torch):
 
 
 # ---------------------------------------------------------------------------
+# the recsys family: the embedding bag and retrieval (phase 1), the recsys
+# main path, recsys parity
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCH = "autoint"
+RECSYS_STEPS = 4
+# each field's ids: a Zipf law over its ranks.  A stand-in with no public
+# measurement behind its exponent (the reference has no recsys data
+# generator): what its skew shows (hub rows, rows touched) is provisional
+ZIPF_S = 1.05
+# the p99 of this many requests rests on the slowest 10
+SERVE_P99_REQUESTS = 1000
+RETRIEVAL_K = 100
+RETRIEVAL_REL = 1e-5     # retrieval vs plain: |delta| <= this x max score
+
+
+def zipf_law(torch, rng, f: int, v: int, dev):
+    """(cdf [V] float64, perm [F, V] int64), both on ``dev``: a Zipf law
+    with exponent ZIPF_S over ranks 1..V, and each field's seeded map from
+    rank to id (``rng``'s permutations, one a field)."""
+    import numpy as np
+    w = np.arange(1, v + 1, dtype=np.float64) ** -ZIPF_S
+    cdf = np.cumsum(w / w.sum())
+    cdf /= cdf[-1]
+    perm = np.stack([rng.permutation(v) for _ in range(f)])
+    return torch.from_numpy(cdf).to(dev), torch.from_numpy(perm).to(dev)
+
+
+def recsys_ids(torch, rng, b: int, f: int, h: int, v: int, dev, zipf=None):
+    """[b, f, h] int32 ids on ``dev``: uniform over each field's V rows, or,
+    with ``zipf`` (``zipf_law``'s), ``rng``'s float64 uniforms turned into
+    ranks by inverse CDF on the card (as ``power_law_edges_dev`` draws)
+    and mapped to ids through each field's permutation."""
+    import numpy as np
+    if zipf is None:
+        return torch.from_numpy(rng.integers(0, v, (b, f, h),
+                                             dtype=np.int32)).to(dev)
+    cdf, perm = zipf
+    u = torch.from_numpy(rng.random((b, f, h))).to(dev)
+    rank = torch.searchsorted(cdf, u, right=True).clamp_(max=v - 1)
+    del u
+    fld = torch.arange(f, device=dev)[None, :, None]
+    return perm[fld, rank].to(torch.int32)
+
+
+def bag_case(torch, label: str, table, ids, timing: bool = False) -> dict:
+    """One embedding bag at train_batch's shape, the mean of ``table`` [F,
+    V, D] float32 over ids [B, F, H], through ``embedding_bag_dense`` (the
+    ``gather_scatter`` kernel over ``EdgeCSR.regular``), forward and the
+    tables' gradient: against the plain version on the card within GS_REL
+    x each element's sum |x| / H (the gradient: x each row's sum |g| / H),
+    and bit for bit against the CPU's plain version (the gradient against
+    the CPU's plain sum over the reversed edges).  Planted faults must fail
+    the limits: the table row of the most frequent id zeroed (forward),
+    the cotangent of one of its bags zeroed (gradient).  ``timing``: the
+    wrapper (its CSR included) and the kernel, forward and gradient (the
+    kernel's device time three times: the spread within a call), the CSR
+    built with no sort (``EdgeCSR.regular``) and by the stable sort
+    (``EdgeCSR.build``, its dst made as a bag's would be) alternately, the
+    CSR by source's build, the plain version, ``F.embedding_bag(mode=
+    "mean")`` forward (events and device) and forward + backward, and the
+    bounds, bytes the function must move: forward, each table row these
+    ids touch read once (U d 4), the ids (4 E) and the bags written (n d
+    4); gradient, the cotangent read (n d 4), the ids, and the dense
+    gradient of the tables written (F V d 4).  The gather floor, every id's
+    row read (E d 4 + n d 4 + 8 E; the gradient's + F V d 4), is kept
+    beside it as ``gather_floor_ms``."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    from repro_torch.models.recsys.embedding_bag import embedding_bag_dense
+
+    torch.cuda.empty_cache()
+    f, v, d = table.shape
+    b, _, h = ids.shape
+    dev = table.device
+    n, e, n_x = b * f, ids.numel(), f * v
+    x = table.reshape(n_x, d)
+    src = (ids.long() + torch.arange(f, device=dev)[None, :, None] * v
+           ).reshape(-1)
+    dst = torch.arange(n, device=dev).repeat_interleave(h)
+    counts = torch.bincount(src, minlength=n_x)
+    hub = int(torch.argmax(counts))
+    out = {"hub_edges": int(counts[hub]),
+           "rows_past_64": int((counts >= 64).sum()),
+           "rows_touched": int((counts > 0).sum())}
+    del counts
+    got = embedding_bag_dense(table, ids, "mean").reshape(n, d)
+    plain = gather_scatter_ref(x, src, dst, n, None, "mean")
+    lim = GS_REL * gather_scatter_ref(x.abs(), src, dst, n, None, "mean")
+    err = (got - plain).abs()
+    ok = bool((err <= lim).all())
+    out["max_abs_err"] = float(err.max())
+    cpu = gather_scatter_ref(x.cpu(), src.cpu(), dst.cpu(), n, None, "mean")
+    out["bitwise_cpu"] = bool(torch.equal(got.cpu(), cpu))
+    del cpu, err
+    # planted fault: the most frequent id's table row zeroed
+    saved = x[hub].clone()
+    x[hub] = 0.0
+    bad = embedding_bag_dense(table, ids, "mean").reshape(n, d)
+    x[hub] = saved
+    out["fault_caught"] = not bool(((bad - plain).abs() <= lim).all())
+    del bad, plain, lim
+    # the gradient: the kernel over the CSR by source, the mean's 1 / H in
+    # the kernel, against the plain version's autograd on the card
+    g = torch.randn((b, f, d), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(e))
+    tg = table.detach().requires_grad_()
+    (dk,) = torch.autograd.grad(embedding_bag_dense(tg, ids, "mean"), tg, g)
+    dk = dk.reshape(n_x, d)
+    xg = x.detach().requires_grad_()
+    g2 = g.reshape(n, d)
+    (dp,) = torch.autograd.grad(gather_scatter_ref(xg, src, dst, n, None,
+                                                   "mean"), xg, g2)
+    wq = torch.full((e,), 1.0 / h, device=dev)
+    blim = GS_REL * gather_scatter_ref(g2.abs(), dst, src, n_x, wq, "sum")
+    berr = (dk - dp).abs()
+    bwd_ok = bool((berr <= blim).all())
+    out["bwd_max_abs_err"] = float(berr.max())
+    del berr
+    want = gather_scatter_ref(g2.cpu(), dst.cpu(), src.cpu(), n_x, wq.cpu(),
+                              "sum")
+    out["bwd_bitwise_cpu"] = bool(torch.equal(dk.cpu(), want))
+    del want, dk
+    # planted fault: the cotangent of the hub's first bag zeroed
+    gf = g2.clone()
+    gf[int(dst[int((src == hub).nonzero()[0])])] = 0.0
+    (df,) = torch.autograd.grad(embedding_bag_dense(tg, ids, "mean"), tg,
+                                gf.reshape(b, f, d))
+    out["bwd_fault_caught"] = not bool(
+        ((df.reshape(n_x, d) - dp).abs() <= blim).all())
+    del df, gf, dp, blim, xg
+    if timing:
+        csr = gs_ops.EdgeCSR.regular(src.to(torch.int32), h, n_x)
+        rows_t = csr.transposed()
+        out["n_long_by_source"] = int(rows_t.n_long)
+        out["long_min_by_source"] = rows_t.long_min
+        src32 = src.to(torch.int32)
+
+        def sorted_csr():
+            dst32 = torch.arange(n, dtype=torch.int32,
+                                 device=dev).repeat_interleave(h)
+            return gs_ops.EdgeCSR.build(src32, dst32, n, n_x)
+
+        out["csr_regular_ms"], out["csr_sorted_ms"] = [], []
+        for _ in range(3):
+            out["csr_regular_ms"].append(time_ms(
+                torch, lambda: gs_ops.EdgeCSR.regular(src32, h, n_x)))
+            out["csr_sorted_ms"].append(time_ms(torch, sorted_csr))
+        del src32
+        out["ms"] = time_ms(torch, lambda: embedding_bag_dense(table, ids,
+                                                               "mean"))
+        out["kernel_device_ms"] = [device_ms(torch, lambda: gs_ops.launch(
+            x, csr.rows, None, True, torch.float32)) for _ in range(3)]
+        out["fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            embedding_bag_dense(tg, ids, "mean"), tg, g))
+        out["csr_by_source_ms"] = time_ms(torch, lambda: gs_ops.RowCSR.build(
+            csr.src, csr.dst, n_x))
+        out["bwd_kernel_device_ms"] = [device_ms(
+            torch, lambda: gs_ops.launch(g2, rows_t, None, False,
+                                         torch.float32, scale=csr.count),
+            runs=5) for _ in range(3)]
+        out["plain_ms"] = time_ms(torch, lambda: gather_scatter_ref(
+            x, src, dst, n, None, "mean"))
+        bags = src.reshape(n, h)
+        w = table.detach().reshape(n_x, d).requires_grad_()
+        out["library_ms"] = time_ms(torch, lambda: torch.nn.functional
+                                    .embedding_bag(bags, x, mode="mean"))
+        out["library_device_ms"] = device_ms(
+            torch, lambda: torch.nn.functional.embedding_bag(bags, x,
+                                                             mode="mean"))
+        out["library_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            torch.nn.functional.embedding_bag(bags, w, mode="mean"), w, g2))
+        out["bound_ms"], out["bound_by"] = bound(
+            out["rows_touched"] * d * 4 + 4 * e + n * d * 4, float(e * d))
+        out["bwd_bound_ms"], out["bwd_bound_by"] = bound(
+            n * d * 4 + 4 * e + n_x * d * 4, float(e * d))
+        floor = e * d * 4 + n * d * 4 + 8 * e
+        out["gather_floor_ms"] = floor / HBM_BYTES_PER_S * 1e3
+        out["bwd_gather_floor_ms"] = ((floor + n_x * d * 4)
+                                      / HBM_BYTES_PER_S * 1e3)
+        del csr, rows_t, bags, w
+    del g, g2, tg, wq
+    log(f"[kernels] gather_scatter bag {label} B={b} F={f} H={h} V={v} "
+        f"d={d} mean float32: " + " ".join(
+            f"{k}={val:.4f}" if isinstance(val, float) else f"{k}={val}"
+            for k, val in out.items()))
+    check(ok, f"embedding bag {label} past its limit")
+    check(bwd_ok, f"embedding bag {label}: the gradient past its limit")
+    check(out["bitwise_cpu"] and out["bwd_bitwise_cpu"],
+          f"embedding bag {label} differs from the CPU's plain version")
+    check(out["fault_caught"] and out["bwd_fault_caught"],
+          f"embedding bag {label}: a planted fault was not caught")
+    torch.cuda.empty_cache()
+    return out
+
+
+def retrieval_case(torch, dev) -> dict:
+    """ivf_scan at the retrieval shape: one query of d = 1,248 (39 fields x
+    32) against 1,000,000 candidates, ip, k = 100, integer-valued (exact
+    sums; the second half repeats the first: ties to the lower row): ids
+    equal to plain, values exact.  Times the wrapper, its scoring,
+    selection and sort, plain, the library yardstick (``torch.mv`` + a
+    stable top-k) and ``torch.mv`` + ``ivf_select`` + ``sort_survivors``;
+    the bound is bytes (the candidates read once)."""
+    from repro_torch.kernels.ivf_scan import ops as ivf_ops
+    from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
+    from repro_torch.kernels.topk import sort_survivors, stable_topk
+
+    spec = recsys_spec()
+    n = spec.shapes["retrieval_cand"].n_candidates
+    d = spec.model.n_sparse * spec.model.d_attn
+    k = RETRIEVAL_K
+    gen = torch.Generator(device=dev).manual_seed(55)
+    cands = torch.empty((n, d), device=dev)
+    cands[:n // 2] = torch.randint(-3, 4, (n // 2, d), device=dev,
+                                   generator=gen, dtype=torch.int8).float()
+    cands[n // 2:] = cands[:n - n // 2]
+    q = torch.randint(-3, 4, (1, d), device=dev, generator=gen).float()
+    kv, ki = ivf_ops.ivf_scan_topk(q, cands, k, "ip")
+    pv, pi = ivf_scan_topk_ref(q, cands, k, "ip")
+    same = bool(torch.equal(ki, pi))
+    err = float((kv - pv).abs().max())
+    out = {"ids_equal": same, "max_abs_err": err,
+           "ms": time_ms(torch, lambda: ivf_ops.ivf_scan_topk(q, cands, k,
+                                                              "ip")),
+           "device_ms": device_ms(torch, lambda: ivf_ops.ivf_scan_topk(
+               q, cands, k, "ip"), runs=5)}
+    scores = ivf_ops.ivf_scores(q, cands, False)
+    sv, si = ivf_ops.ivf_select(scores, n, k)
+    out["score_ms"] = time_ms(torch, lambda: ivf_ops.ivf_scores(q, cands,
+                                                                False))
+    out["select_ms"] = time_ms(torch, lambda: ivf_ops.ivf_select(scores, n,
+                                                                 k))
+    out["sort_ms"] = time_ms(torch, lambda: sort_survivors(sv, si, k))
+    del scores, sv, si
+    out["plain_ms"] = time_ms(torch, lambda: ivf_scan_topk_ref(q, cands, k,
+                                                               "ip"))
+    out["library_ms"] = time_ms(torch, lambda: stable_topk(
+        torch.mv(cands, q[0])[None], k))
+
+    def mv_select():
+        s = torch.mv(cands, q[0])[None]
+        return sort_survivors(*ivf_ops.ivf_select(s, n, k), k)
+
+    out["mv_select_sort_ms"] = time_ms(torch, mv_select)
+    out["bound_ms"], out["bound_by"] = bound(4 * (d + n * d) + 8 * k,
+                                             2.0 * n * d)
+    del cands
+    torch.cuda.empty_cache()
+    log(f"[kernels] ivf_scan retrieval Q=1 N={n} d={d} k={k} ip: " + " ".join(
+        f"{key}={val:.4f}" if isinstance(val, float) else f"{key}={val}"
+        for key, val in out.items()))
+    check(same, "ivf_scan ids differ at the retrieval shape")
+    check(err == 0.0, f"ivf_scan max|delta| {err} at the retrieval shape")
+    return out
+
+
+def recsys_spec():
+    from repro_torch.configs import get_arch
+    return get_arch(RECSYS_ARCH)
+
+
+def kernel_recsys(torch, dev) -> dict:
+    """The recsys path's kernel shapes: the embedding bag at train_batch
+    (65,536 x 39 x 4 ids over 39 tables of 1,000,000 x 16 float32; E =
+    10,223,616 into 2,555,904 bags) with uniform and with Zipf ids, forward
+    and gradient (``bag_case``); ivf_scan at retrieval (``retrieval_case``)."""
+    import numpy as np
+    cfg = recsys_spec().model
+    f, v, d, h = cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim, \
+        cfg.multi_hot
+    b = recsys_spec().shapes["train_batch"].batch
+    rng = np.random.default_rng(51)
+    table = torch.randn((f, v, d), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(50))
+    zipf = zipf_law(torch, rng, f, v, dev)
+    bags = {}
+    for label, law in (("uniform", None), ("zipf", zipf)):
+        ids = recsys_ids(torch, rng, b, f, h, v, dev, law)
+        bags[f"bag {label} B={b} F={f} H={h} d={d} mean"] = bag_case(
+            torch, label, table, ids, timing=True)
+        del ids
+    del table, zipf
+    torch.cuda.empty_cache()
+    return {"bags": bags, "retrieval": retrieval_case(torch, dev)}
+
+
+def phase_recsys(torch, prof=None):
+    """autoint at full size, no cut: the model (39 tables of 1,000,000 x 16
+    float32, 3 attention layers of 2 heads, d_attn 32) drawn on the card
+    from a seeded generator; train_batch, RECSYS_STEPS ``recsys_train_step``s
+    of 65,536 x 39 x 4 Zipf ids (loss finite, step ms, samples/s, peak GB,
+    the bag's two launches a step); serve_p99, SERVE_P99_REQUESTS requests
+    of 512 (ids from the host, logits back to it: median and p99 ms);
+    serve_bulk, 262,144 (ms, samples/s); retrieval_cand, one query against
+    1,000,000 candidate representations made by ``representation`` over
+    seeded Zipf id sets in batches of 65,536 (4.99 GB), through
+    ``recsys_retrieval_step``: ms, and ids against the plain version on the
+    card wherever neighbouring scores differ by more than RETRIEVAL_REL of
+    the largest."""
+    import gc
+
+    import numpy as np
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
+    from repro_torch.launch.recsys_steps import (field_mask, recsys_model,
+                                                 recsys_retrieval_step,
+                                                 recsys_serve_step,
+                                                 recsys_train_step)
+    from repro_torch.training.optimizer import init_opt_state
+
+    dev = torch.device("cuda")
+    spec = recsys_spec()
+    cfg = spec.model
+    v, h = cfg.vocab_per_field, cfg.multi_hot
+    rng = np.random.default_rng(60)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = recsys_model(spec, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    f = model.f
+    zipf = zipf_law(torch, rng, f, v, dev)
+    torch.cuda.synchronize()
+    out = {"n_params": sum(p.numel() for p in model.parameters()),
+           "init_s": time.perf_counter() - t0}
+    log(f"[recsys] {spec.name}: {out['n_params']} parameters ({f} fields "
+        f"of {v} x {cfg.embed_dim}) drawn in {out['init_s']:.1f}s")
+
+    def ids_of(b):
+        return recsys_ids(torch, rng, b, f, h, v, dev, zipf)
+
+    # train_batch
+    b = spec.shapes["train_batch"].batch
+    opt = init_opt_state(dict(model.named_parameters()))
+    steps = []
+    for step in range(RECSYS_STEPS):
+        ids = ids_of(b)
+        labels = torch.from_numpy(rng.integers(0, 2, b).astype(
+            np.float32)).to(dev)
+        torch.cuda.synchronize()
+        n0 = gs_ops.launches.n
+        t = time.perf_counter()
+        opt, met = recsys_train_step(model, opt, ids, labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        row = {k: float(val) for k, val in met.items()}
+        row.update(ms=ms, samples_per_s=b / ms * 1e3,
+                   bag_launches=gs_ops.launches.n - n0)
+        steps.append(row)
+        log(f"[recsys] train_batch step {step}: loss={row['loss']:.6f} "
+            f"grad_norm={row['grad_norm']:.6f} step_ms={ms:.1f} samples_per_s"
+            f"={row['samples_per_s']:.4g} bag launches={row['bag_launches']}")
+        check(all(math.isfinite(row[k]) for k in ("loss", "grad_norm")),
+              f"recsys step {step}: loss or grad norm not finite")
+        check(row["bag_launches"] == 2, f"recsys step {step}: the bag ran "
+              f"{row['bag_launches']} launches, not forward and gradient")
+    out["train_batch"] = {"steps": steps, "batch": b,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[recsys] train_batch: peak device memory "
+        f"{out['train_batch']['peak_gb']:.2f} GB")
+    if prof is not None:
+        prof("recsys train_batch step",
+             lambda: recsys_train_step(model, opt, ids, labels))
+    del opt, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve_p99: requests from the host, logits back to it
+    b = spec.shapes["serve_p99"].batch
+    reqs = [ids_of(b).cpu() for _ in range(SERVE_P99_REQUESTS + 1)]
+    lat = []
+    for i, r in enumerate(reqs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg = recsys_serve_step(model, r.to(dev)).cpu()
+        if i:                                    # the first warms up
+            lat.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (b,),
+              "serve_p99 logits not finite or misshapen")
+    out["serve_p99"] = {"batch": b, "requests": len(lat),
+                        "median_ms": float(np.median(lat)),
+                        "p99_ms": float(np.percentile(lat, 99)),
+                        "max_ms": max(lat)}
+    log(f"[recsys] serve_p99 B={b}: {len(lat)} requests median_ms="
+        f"{out['serve_p99']['median_ms']:.3f} p99_ms="
+        f"{out['serve_p99']['p99_ms']:.3f} max_ms="
+        f"{out['serve_p99']['max_ms']:.3f}")
+
+    # serve_bulk
+    b = spec.shapes["serve_bulk"].batch
+    bulk = ids_of(b).cpu()
+    runs = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg = recsys_serve_step(model, bulk.to(dev)).cpu()
+        runs.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (b,),
+              "serve_bulk logits not finite or misshapen")
+    ms = float(np.median(runs[1:]))
+    out["serve_bulk"] = {"batch": b, "ms": ms, "runs_ms": runs,
+                         "samples_per_s": b / ms * 1e3}
+    log(f"[recsys] serve_bulk B={b}: ms={ms:.2f} (runs {runs}) "
+        f"samples_per_s={b / ms * 1e3:.4g}")
+    if prof is not None:
+        prof("recsys serve_bulk", lambda: recsys_serve_step(
+            model, bulk.to(dev)).cpu())
+    del reqs, bulk, lg
+
+    # retrieval_cand: the candidates' representations, then one query
+    shape = spec.shapes["retrieval_cand"]
+    n = shape.n_candidates
+    mask = field_mask(model)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cands = torch.empty((n, model.d_repr), device=dev)
+    with torch.no_grad():
+        for i in range(0, n, 65_536):
+            rows = min(65_536, n - i)
+            cands[i:i + rows] = model.representation(ids_of(rows), mask)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t
+    qids = ids_of(shape.batch)
+    vals, rows = recsys_retrieval_step(model, qids, cands, RETRIEVAL_K)
+    with torch.no_grad():
+        q = model.representation(qids, mask)
+    pv, pi = ivf_scan_topk_ref(q, cands, RETRIEVAL_K, "ip")
+    tol = RETRIEVAL_REL * float(pv.abs().max())
+    cmp = compare_knn(f"[recsys] retrieval Q=1 N={n} d={model.d_repr} "
+                      f"k={RETRIEVAL_K} vs plain", (vals[None].cpu().numpy(),
+                                                    rows[None].cpu().numpy()),
+                      (pv.cpu().numpy(), pi.cpu().numpy()), tol)
+    ms = time_ms(torch, lambda: recsys_retrieval_step(model, qids, cands,
+                                                      RETRIEVAL_K))
+    out["retrieval_cand"] = dict(cmp, n_candidates=n, d_repr=model.d_repr,
+                                 candidates_gb=cands.numel() * 4 / 1e9,
+                                 candidates_s=made, ms=ms, tol=tol)
+    log(f"[recsys] retrieval_cand: {n} candidates of {model.d_repr} "
+        f"({cands.numel() * 4 / 1e9:.2f} GB) made in {made:.1f}s; "
+        f"retrieval ms={ms:.3f}")
+    if prof is not None:
+        prof("recsys retrieval_cand", lambda: recsys_retrieval_step(
+            model, qids, cands, RETRIEVAL_K))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, cands, zipf, q, pv, pi
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recsys_parity(torch):
+    """autoint at its full widths, its tables cut to 1,000 rows a field,
+    float32, the same weights on the card and the CPU, 256 samples of
+    uniform ids: logits, loss, every gradient, and the loss, grad norm and
+    every parameter after one ``recsys_train_step``, card against CPU
+    within 1e-5 (the bag bit for bit; the einsums sum in another order)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.launch.recsys_steps import (field_mask, recsys_model,
+                                                 recsys_train_step)
+    from repro_torch.training.optimizer import gradients, init_opt_state
+
+    dev = torch.device("cuda")
+    spec = recsys_spec()
+    spec = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, vocab_per_field=1000))
+    cfg = spec.model
+    rng = np.random.default_rng(61)
+    ids = rng.integers(0, 1000, (256, cfg.n_sparse, cfg.multi_hot),
+                       dtype=np.int32)
+    labels = rng.integers(0, 2, 256).astype(np.float32)
+    card = recsys_model(spec, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(62))
+    cpu = recsys_model(spec, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    res = []
+    for model, where in ((card, dev), (cpu, "cpu")):
+        i = torch.from_numpy(ids).to(where)
+        lab = torch.from_numpy(labels).to(where)
+        params = dict(model.named_parameters())
+        loss = model.loss_fn(i, lab, field_mask(model))
+        grads = gradients(loss, params)
+        with torch.no_grad():
+            lg = model.logits(i, field_mask(model))
+        _, met = recsys_train_step(model, init_opt_state(params), i, lab)
+        res.append((lg.cpu(), float(loss.detach()),
+                    {k: g.cpu() for k, g in grads.items()},
+                    {k: float(val) for k, val in met.items()},
+                    {k: p.detach().cpu() for k, p in params.items()}))
+    errs = {"logits": float((res[0][0] - res[1][0]).abs().max()),
+            "loss": abs(res[0][1] - res[1][1]),
+            "grads": max(float((res[0][2][k] - res[1][2][k]).abs().max())
+                         for k in res[0][2]),
+            "step": max(abs(res[0][3][k] - res[1][3][k]) for k in res[0][3]),
+            "params": max(float((res[0][4][k] - res[1][4][k]).abs().max())
+                          for k in res[0][4])}
+    log("[recsys parity] autoint, 1,000 rows a field, float32, card vs cpu: "
+        + " ".join(f"{k} max_abs_err={val:.3g}" for k, val in errs.items()))
+    check(max(errs.values()) <= 1e-5,
+          f"recsys parity off by {max(errs.values())}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3072,6 +3623,9 @@ def main() -> int:
         ("train", phase_train, torch, maybe_prof))
     paths["gnn"] = main_path(
         "gnn", ("gather_scatter",), ("gnn", phase_gnn, torch, maybe_prof))
+    paths["recsys"] = main_path(
+        "recsys", ("gather_scatter", "ivf_scan"),
+        ("recsys", phase_recsys, torch, maybe_prof))
     launches = {name: sum(p[name] for p in paths.values())
                 for name in counters}
     run("parity", phase_parity)
@@ -3081,6 +3635,7 @@ def main() -> int:
         run(f"{tag}_train_parity", phase_train_parity, torch, arch)
     run("train_parity_bf16", phase_train_parity_bf16, torch)
     run("gnn_parity", phase_gnn_parity, torch)
+    run("recsys_parity", phase_recsys_parity, torch)
 
     meta = {
         "ivf_scan": ("src/repro_torch/csrc/ivf_scan.cu",

@@ -45,9 +45,11 @@ RUNS = 20
 
 
 def device_ms_by_kernel(torch, fn, runs: int = RUNS) -> dict:
-    """Device time of one call of ``fn`` by kernel (name: ms): the time
-    each ran on the card under ``torch.profiler`` over ``runs`` calls
-    after one warm-up, divided by ``runs``."""
+    """Device time of one call of ``fn`` by kernel (name: ms): each
+    kernel's mean time on the card under ``torch.profiler`` over ``runs``
+    calls after one warm-up, times its launches a call (its records over
+    ``runs``, rounded), so that a record the profiler drops does not pass
+    for a faster call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -56,9 +58,9 @@ def device_ms_by_kernel(torch, fn, runs: int = RUNS) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    return {ev.key: ev.self_device_time_total / 1e3 / runs
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA}
+    return {ev.key: ev.self_device_time_total / 1e3 / ev.count
+            * round(ev.count / runs) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.count}
 
 
 def device_ms(torch, fn, runs: int = RUNS) -> float:

@@ -2,12 +2,12 @@
 ``configs/base.py``, and the architecture registry.
 
 ``get_arch("llama3-8b")`` resolves an :class:`ArchSpec`.  The registry
-holds the five transformer architectures of the reference's registry, all
-of which the port's LM runs (dense GQA, qk-norm, DeepSeekMoE, MLA), and its
-six GNN architectures (GCN, GraphSAGE, SchNet, Equiformer-v2 and the bonus
-GAT and GIN).  The recsys architecture, and with it the reference's
-``ASSIGNED`` list and ``all_cells``, comes with its modules (ROADMAP
-Queue A)."""
+holds every architecture of the reference's registry: the five transformer
+architectures, all of which the port's LM runs (dense GQA, qk-norm,
+DeepSeekMoE, MLA), the six GNN architectures (GCN, GraphSAGE, SchNet,
+Equiformer-v2 and the bonus GAT and GIN) and the recsys AutoInt.
+``all_cells`` lists every assigned (arch, shape) pair, the reference's 40
+cells in its order."""
 from __future__ import annotations
 
 import importlib
@@ -17,8 +17,13 @@ from repro_torch.configs.base import (  # noqa: F401 (re-export)
     ArchSpec,
     GNNConfig,
     GraphShape,
+    LMShape,
+    RecsysConfig,
+    RecsysShape,
     TransformerConfig,
     gnn_shapes,
+    lm_shapes,
+    recsys_shapes,
     reduced,
 )
 from repro_torch.configs.pandadb import (  # noqa: F401 (re-export)
@@ -45,10 +50,13 @@ _ARCH_MODULES = {
     "equiformer-v2": "repro_torch.configs.equiformer_v2",
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "schnet": "repro_torch.configs.schnet",
-    # bonus archs from the public pool (not in the assigned cell grid)
+    "autoint": "repro_torch.configs.autoint",
+    # bonus archs from the public pool (not in the assigned 40-cell grid)
     "gat-bonus": "repro_torch.configs.gat_bonus",
     "gin-bonus": "repro_torch.configs.gin_bonus",
 }
+
+ASSIGNED = [n for n in _ARCH_MODULES if not n.endswith("-bonus")]
 
 
 def arch_names() -> List[str]:
@@ -62,3 +70,9 @@ def get_arch(name: str) -> ArchSpec:
         raise KeyError(f"unknown arch {name!r}; known: "
                        f"{sorted(_ARCH_MODULES)}") from None
     return mod.ARCH
+
+
+def all_cells() -> List[tuple]:
+    """Every ASSIGNED (arch, shape) pair: the 40 cells."""
+    return [(name, shape) for name in ASSIGNED
+            for shape in get_arch(name).shapes]

@@ -10,9 +10,10 @@ registers: no [E, d] message tensor is built.  :class:`EdgeCSR` holds that
 CSR, and the CSR by source that the gradient runs on, each with the list
 of its long rows (``long_row_min``: 16 times the mean row, at most
 ``LONG_ROW`` = 1,024 edges), which the kernel takes first and splits by
-columns; build it once for a graph (``EdgeCSR.build``) and pass it to
-every call on that graph, forward and backward, instead of sorting the
-edges a call.  Nothing here waits for the card.
+columns; build it once for a graph (``EdgeCSR.build``; ``EdgeCSR.regular``
+for edges already in destination order, a fixed number a row, as an
+embedding bag's ids) and pass it to every call on that graph, forward and
+backward, instead of sorting the edges a call.  Nothing here waits for the card.
 
 The gradient is a ``torch.autograd.Function``: d x is the same kernel over
 the CSR by source; for the mean the kernel divides each edge's weight by
@@ -89,22 +90,29 @@ class RowCSR:
         """The CSR of edges ``other[e] -> key[e]`` over ``n`` rows, its rows
         of at least ``long_row_min`` edges listed by a cumulative sum and a
         scatter: no host sync."""
-        long_min = long_row_min(key.numel(), n)
-        ptr, perm, col = _csr(key, other, n)
+        return RowCSR.of(*_csr(key, other, n))
+
+    @staticmethod
+    def of(ptr: torch.Tensor, perm: torch.Tensor, col: torch.Tensor
+           ) -> "RowCSR":
+        """The CSR of ``ptr``, ``perm`` and ``col`` (as :meth:`build` makes
+        them), with its long rows' list."""
+        n, dev = ptr.numel() - 1, ptr.device
+        long_min = long_row_min(col.numel(), n)
         count = ptr[1:] - ptr[:-1]
         is_long = count >= long_min
         # at most E // long_min rows are long; the last slot takes the rest
         cap = min(n, col.numel() // long_min) + 1
         pos = torch.cumsum(is_long, 0)
         slot = torch.where(is_long, pos - 1, cap - 1)
-        rows = torch.zeros(cap, dtype=torch.int32, device=key.device)
+        rows = torch.zeros(cap, dtype=torch.int32, device=dev)
         rows.scatter_(0, slot, torch.arange(n, dtype=torch.int32,
-                                            device=key.device))
+                                            device=dev))
         n_long = (pos[-1:] if n else torch.zeros(1, dtype=torch.int64,
-                                                 device=key.device))
+                                                 device=dev))
         return RowCSR(ptr, perm, col, count, rows, n_long.to(torch.int32),
                       long_min, torch.zeros(1, dtype=torch.int64,
-                                            device=key.device))
+                                            device=dev))
 
 
 @dataclasses.dataclass
@@ -135,6 +143,26 @@ class EdgeCSR:
         rows = RowCSR.build(dst, src, n_nodes)
         return EdgeCSR(n_nodes, n_nodes if n_src is None else n_src, src,
                        dst, rows, rows.count.to(torch.float32))
+
+    @staticmethod
+    def regular(src: torch.Tensor, per_row: int,
+                n_src: int) -> "EdgeCSR":
+        """The CSR of edges already in destination order, ``per_row`` into
+        each row: edge e runs ``src[e] -> e // per_row`` (an embedding
+        bag's ids).  Equal to :meth:`build`'s for those edges, with no
+        sort: ``ptr`` is ``per_row`` times the row, ``perm`` the edges'
+        own order."""
+        if src.dim() != 1 or per_row < 1 or src.numel() % per_row:
+            raise ValueError(f"EdgeCSR.regular: {tuple(src.shape)} edges do "
+                             f"not split into rows of {per_row}")
+        e, dev = src.numel(), src.device
+        n = e // per_row
+        ptr = torch.arange(n + 1, dtype=torch.int64, device=dev) * per_row
+        perm = torch.arange(e, dtype=torch.int64, device=dev)
+        dst = torch.div(perm, per_row, rounding_mode="floor").to(
+            torch.int32)
+        rows = RowCSR.of(ptr, perm, src.to(torch.int32))
+        return EdgeCSR(n, n_src, src, dst, rows, rows.count.to(torch.float32))
 
     def transposed(self) -> RowCSR:
         """The CSR by source, built once."""

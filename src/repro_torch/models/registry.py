@@ -5,7 +5,8 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchSpec, GNNConfig, TransformerConfig
+from repro_torch.configs.base import (ArchSpec, GNNConfig, RecsysConfig,
+                                      TransformerConfig)
 from repro_torch.device import DeviceLike
 
 
@@ -17,8 +18,9 @@ def build_model(spec_or_cfg: Any, device: DeviceLike = None,
     ``LM``; every ``GNNConfig`` its GNN, for ``d_in`` input features
     (default: the feature width of the spec's first shape, full_graph_sm's
     1,433) and ``n_out`` outputs (default: ``n_classes``;
-    ``launch/gnn_steps.py::gnn_model`` sizes both from a cell).  Recsys
-    configs come with their modules (ROADMAP Queue A)."""
+    ``launch/gnn_steps.py::gnn_model`` sizes both from a cell); every
+    ``RecsysConfig`` an ``AutoInt`` over its ``n_sparse`` fields
+    (``launch/recsys_steps.py::recsys_model`` pads them for a mesh)."""
     spec = spec_or_cfg if isinstance(spec_or_cfg, ArchSpec) else None
     cfg = spec.model if spec is not None else spec_or_cfg
     if isinstance(cfg, TransformerConfig):
@@ -32,4 +34,7 @@ def build_model(spec_or_cfg: Any, device: DeviceLike = None,
             d_in = next(iter(spec.shapes.values())).d_feat
         return build_gnn(cfg, d_in, cfg.n_classes if n_out is None
                          else n_out, device=device, generator=generator)
-    raise TypeError(f"model config type not ported: {type(cfg)}")
+    if isinstance(cfg, RecsysConfig):
+        from repro_torch.models.recsys.autoint import AutoInt
+        return AutoInt(cfg, device=device, generator=generator)
+    raise TypeError(f"unknown model config type: {type(cfg)}")

@@ -1328,3 +1328,127 @@ def test_gnn_train_step_on_card_matches_cpu(cuda, name):
     torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-4, atol=1e-4)
     for a, b in zip(res[0][1], res[1][1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the recsys family: the embedding bag through gather_scatter, retrieval
+# through ivf_scan
+# ---------------------------------------------------------------------------
+
+
+def _bag_inputs(cuda, b, f, v, d, h, seed, hub=True):
+    """table [f, v, d] and ids [b, f, h] int32 on the card; with ``hub``
+    id 3 of field 1 takes every bag's first slot (b edges: a long row of
+    the gradient's CSR by source)."""
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randn(f, v, d, generator=gen)
+    ids = torch.randint(0, v, (b, f, h), generator=gen, dtype=torch.int32)
+    if hub:
+        ids[:, 1, 0] = 3
+    return table.to(cuda), ids.to(cuda)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_on_card_matches_cpu_bitwise(cuda, mode, weighted):
+    """The dense bag through the gather_scatter kernel, with a hub id of
+    300 edges (past the 64 of a long row): the forward equals the CPU's
+    plain version bit for bit, the tables' gradient (unweighted) the CPU's
+    plain sum over the reversed edges with the mean's 1 / H; one launch
+    each way; weights that require a gradient raise."""
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
+    from repro_torch.models.recsys.embedding_bag import embedding_bag_dense
+    b, f, v, d, h = 300, 3, 500, 16, 4
+    table, ids = _bag_inputs(cuda, b, f, v, d, h, 21)
+    w = (torch.randn(b, f, h, generator=torch.Generator().manual_seed(22))
+         .to(cuda) if weighted else None)
+    before = gs_ops.launches.n
+    tg = table.clone().requires_grad_()
+    got = embedding_bag_dense(tg, ids, mode, w)
+    want = embedding_bag_dense(table.cpu(), ids.cpu(), mode,
+                               None if w is None else w.cpu())
+    assert torch.equal(got.detach().cpu(), want)
+    assert gs_ops.launches.n == before + 1
+    if weighted:
+        with pytest.raises(ValueError, match="gradient"):
+            embedding_bag_dense(table, ids, mode, w.requires_grad_())
+        return
+    g = torch.randn(b, f, d, generator=torch.Generator().manual_seed(23))
+    (dt,) = torch.autograd.grad(got, tg, g.to(cuda))
+    assert gs_ops.launches.n == before + 2
+    src = (ids.cpu().long() + torch.arange(f)[None, :, None] * v).reshape(-1)
+    dst = torch.arange(b * f).repeat_interleave(h)
+    wb = torch.full((src.numel(),), 1.0 / h if mode == "mean" else 1.0)
+    assert torch.equal(dt.cpu().reshape(f * v, d), gather_scatter_ref(
+        g.reshape(b * f, d), dst, src, f * v, wb, "sum"))
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_ragged_on_card_matches_cpu(cuda, mode):
+    """Variable lengths, empty bags and a hub id: sum and mean through the
+    kernel equal the CPU bit for bit; max (a torch scatter) too."""
+    from repro_torch.models.recsys.embedding_bag import embedding_bag_ragged
+    rng = np.random.default_rng(24)
+    table = torch.from_numpy(rng.standard_normal((400, 16)).astype(
+        np.float32))
+    ids = torch.from_numpy(rng.integers(0, 400, 3000).astype(np.int32))
+    ids[::7] = 11
+    offsets = torch.from_numpy(np.sort(rng.integers(0, 3000, 200)).astype(
+        np.int32))
+    offsets[0] = 0
+    got = embedding_bag_ragged(table.to(cuda), ids.to(cuda),
+                               offsets.to(cuda), 200, mode)
+    assert torch.equal(got.cpu(), embedding_bag_ragged(table, ids, offsets,
+                                                       200, mode))
+
+
+def test_autoint_retrieval_and_train_step_on_card_match(cuda):
+    """A small AutoInt with the same weights on the card and the CPU: one
+    recsys_train_step's loss and parameters within 1e-5; then retrieval
+    through the ivf_scan kernel: ids equal to the plain version's on the
+    card wherever neighbouring scores differ by more than 1e-5 of the
+    largest, values within that."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
+    from repro_torch.launch.recsys_steps import (field_mask, recsys_model,
+                                                 recsys_retrieval_step,
+                                                 recsys_train_step)
+    from repro_torch.training.optimizer import init_opt_state
+    spec = get_arch("autoint")
+    spec = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, n_sparse=7, vocab_per_field=300))
+    rng = np.random.default_rng(25)
+    ids = torch.from_numpy(rng.integers(0, 300, (64, 7, 4), dtype=np.int32))
+    labels = torch.from_numpy(rng.integers(0, 2, 64).astype(np.float32))
+    card = recsys_model(spec, device=cuda)
+    cpu = recsys_model(spec, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    res = []
+    for model, dev in ((card, cuda), (cpu, "cpu")):
+        opt = init_opt_state(dict(model.named_parameters()))
+        _, met = recsys_train_step(model, opt, ids.to(dev), labels.to(dev))
+        res.append((met["loss"].cpu(),
+                    [p.detach().cpu() for p in model.parameters()]))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=0, atol=1e-5)
+    for a, b in zip(res[0][1], res[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    with torch.no_grad():
+        cands = card.representation(torch.from_numpy(rng.integers(
+            0, 300, (5000, 7, 4), dtype=np.int32)).to(cuda),
+            field_mask(card))
+        qids = ids[:1].to(cuda)
+        q = card.representation(qids, field_mask(card))
+    vals, rows = recsys_retrieval_step(card, qids, cands)
+    pv, pi = ivf_scan_topk_ref(q, cands, 100, "ip")
+    tol = 1e-5 * float(pv.abs().max())
+    pv, pi = pv[0].cpu(), pi[0].cpu()
+    assert float((vals.cpu() - pv).abs().max()) <= tol
+    gap = torch.full_like(pv, float("inf"))
+    step = (pv[1:] - pv[:-1]).abs()
+    gap[1:] = step
+    gap[:-1] = torch.minimum(gap[:-1], step)
+    sep = gap > tol
+    assert torch.equal(rows.cpu()[sep], pi[sep])

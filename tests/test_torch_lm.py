@@ -131,15 +131,20 @@ def test_arch_configs_match_reference(name):
 
 def test_arch_registry_holds_every_lm_arch():
     """The five transformer archs of the reference's registry, beside its
-    six GNN archs, and no other (the recsys arch comes with its
-    modules)."""
+    six GNN archs and its recsys arch, and no other; autoint resolves to
+    the reference's ArchSpec."""
     from repro.configs import arch_names as ref_arch_names
     lm = [n for n in ref_arch_names() if ref_get_arch(n).family == "lm"]
-    gnn = [n for n in ref_arch_names() if ref_get_arch(n).family == "gnn"]
     assert sorted(lm) == sorted(LM_ARCHS)
-    assert sorted(arch_names()) == sorted(lm + gnn)
-    with pytest.raises(KeyError, match="autoint"):
-        get_arch("autoint")
+    assert arch_names() == ref_arch_names()
+    ref, port = ref_get_arch("autoint"), get_arch("autoint")
+    assert (port.name, port.family, port.source) == \
+        (ref.name, ref.family, ref.source)
+    assert dataclasses.asdict(port.model) == dataclasses.asdict(ref.model)
+    assert {k: dataclasses.asdict(v) for k, v in port.shapes.items()} == \
+        {k: dataclasses.asdict(v) for k, v in ref.shapes.items()}
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("autoint-bonus")
 
 
 @pytest.mark.parametrize("fused", [False, True])

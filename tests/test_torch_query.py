@@ -232,6 +232,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.gnn.equiformer, "
             "repro_torch.launch.gnn_steps, repro_torch.data.sampler, "
             "repro_torch.kernels.gather_scatter.ops\n"
+            "import repro_torch.models.recsys, "
+            "repro_torch.launch.recsys_steps\n"
             "from repro_torch.configs import get_arch, arch_names\n"
             "[get_arch(n) for n in arch_names()]\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
