@@ -5,7 +5,7 @@
                           [--out results.json]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all at once), then runs fifteen phases and fails if any
+per source, all at once), then runs sixteen phases and fails if any
 fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
@@ -177,9 +177,22 @@ fails:
    float32, the same weights on the card and the CPU: logits, loss,
    gradients and the parameters after one ``recsys_train_step`` within
    1e-5.
+16. dryrun, last: operation counts (``launch/op_analysis.py``).  Three
+   training steps of the paths above at their own shapes, train-8b-8L,
+   gnn-products and AutoInt's train_batch, each counted on the meta device
+   and on the card through its ``StepBundle``'s ``fn`` (the hand kernels'
+   work recorded by their wrappers): FLOPs within 1%, bytes within 10%
+   (the wrappers' set-up, such as a CSR's sort, runs on the card only),
+   the kernels' calls equal; each step's roofline (compute s at the
+   config's peak, memory s at 3.35 TB/s) beside its measured ms; the LM's
+   FLOPs within 2% of ``train_flops``' executed count, and its MFU = 6 N
+   D / step s / 989 TFLOP/s.  Then ``launch/dryrun.py``'s ``run_cell`` at
+   mesh ``one`` for all 40 cells of ``all_cells()`` on meta, at full
+   size, in worker processes: seconds, FLOPs, argument and peak GB,
+   whether the peak fits 80 GB; a failed cell fails the phase.
 
 Launch counts are zeroed just before each main path (phases 2-3, the
-single node; phase 4, the cluster; phases 5, 6, 7, 8, 9, 10 and 14,
+single node; phase 4, the cluster; phases 5, 6, 7, 8, 9, 10, 14 and 16,
 each alone) and read just after it; every kernel of a path must have launched
 on it.  ``--profile`` runs each serving request, each PQ search mode, one
 cluster kNN, one fan-out request, one prefill and one decode step of each
@@ -199,6 +212,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -208,12 +222,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 # H100 SXM shared memory: 32 banks x 4 bytes a clock on each of 132 SMs at
-# the 1,980 MHz boost clock (the floor of gathers without bank conflicts)
+# the 1,980 MHz boost clock (the floor of gathers without bank conflicts);
+# the card's other peaks are src/repro_torch/launch/mesh.py's HW
 SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
-FP32_OPS_PER_S = 67e12         # H100 SXM float32 peak outside tensor cores
-BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 SIM_THRESHOLD = 0.80           # the executor's similarity threshold
 FACE_DIM = 128                 # the faces of every serving phase
 KNN_GAP = 1e-4                 # kNN ids must agree where scores differ more
@@ -332,12 +344,21 @@ def profiled(torch, fn, top: int = 5) -> dict:
                          for ms, c, n in sorted(funcs, reverse=True)[:top]]}
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
-    """Least time on the card: bytes over the memory rate vs operations over
-    the peak rate of their type (float32 unless given); the larger one
-    bounds."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
+def hbm_ms(n_bytes: float) -> float:
+    """ms to move ``n_bytes`` at the card's memory rate."""
+    from repro_torch.launch.mesh import HW
+    return n_bytes / HW["hbm_bw"] * 1e3
+
+
+def bound(work, dtype=None):
+    """Least time on the card for ``work`` = (operations, bytes), a
+    kernel's ``work()``: bytes over the memory rate vs operations over the
+    peak rate of ``dtype``'s products (float32 unless given), both from
+    ``launch/mesh.py``'s HW; the larger one bounds."""
+    from repro_torch.launch.mesh import peak_flops
+    n_ops, n_bytes = work
+    t_bytes = hbm_ms(n_bytes)
+    t_ops = n_ops / peak_flops(dtype or "float32") * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -380,7 +401,7 @@ def ivf_case(torch, q, corpus, k: int, n_valid: int) -> dict:
         return torch.topk(s[:, :n_valid], k)
 
     lib_ms = time_ms(torch, library)
-    b_ms, b_by = bound(4 * (qn * d + n * d) + 8 * qn * k, 2.0 * qn * n * d)
+    b_ms, b_by = bound(ivf_ops.work(q, corpus, k))
     log(f"[kernels] ivf_scan Q={qn} N={n} d={d} k={k} n_valid={n_valid}: "
         f"ids_equal={same} max_abs_err={err} ms={ms:.3f} (score "
         f"{score_ms:.3f} + select {select_ms:.3f} + sort {sort_ms:.3f}) "
@@ -462,14 +483,8 @@ def pq_case(torch, name: str, luts, codes, k: int, nv: int, kw: dict
 
     lib_ms = time_ms(torch, library, reps)
     del table, flat_codes
-    n_bytes = 4 * qn * m * ksub + nv * m + 8 * qn * k
-    n_ops = float(qn) * nv * m
-    if kw:
-        # bias and bucket a row; each query's bucket terms (and mask bytes)
-        n_bytes += 8 * nv + qn * kw["cscores"].shape[1] * (
-            4 if pm is None else 5)
-        n_ops += 2.0 * qn * nv
-    b_ms, b_by = bound(n_bytes, n_ops)
+    b_ms, b_by = bound(pq_ops.work(luts, codes, k, nv, kw.get("cscores"),
+                                   pm))
     smem_ms = 4.0 * qn * nv * m / SMEM_BYTES_PER_S * 1e3
     log(f"[kernels] {name} Q={qn} N={nv} M={m} K={ksub} k'={k}: "
         f"ids_equal={same} max_abs_err={err}{starved} ms={ms:.3f} "
@@ -636,10 +651,7 @@ def kernel_topk_merge(torch, dev):
                         ids.permute(1, 0, 2).reshape(qn, c), 1, tp)
 
                 lib_ms = time_ms(torch, library)
-                # values read once; ids read and (value, id) written for
-                # the k chosen columns only
-                b_ms, b_by = bound(4.0 * qn * c + 8.0 * qn * k
-                                   + 12.0 * qn * k, 0.0)
+                b_ms, b_by = bound(merge_ops.work(vals, ids, k))
                 r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
                 split = ""
@@ -724,6 +736,7 @@ def kernel_flash_attention(torch, dev):
     pads (80); the bf16 cases with the float32-faithful weights (the LM's
     path) and with ``bf16_probs``, held against the plain version rounding
     on the kernel's key tiles."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          key_tile)
     from repro_torch.kernels.flash_attention.ref import (bf16_probs_slack,
@@ -752,18 +765,13 @@ def kernel_flash_attention(torch, dev):
         v = torch.randn(b, skv, kvh, dv, device=dev, generator=gen).to(dt)
         name = str(dt).split(".")[1]
         kt = key_tile(d, dt, dv)
-        # causal, query row i at i + Skv - Sq: Sq (Skv - Sq) + Sq (Sq + 1) / 2
-        # (query, key) pairs a head, 2D operations for the score and 2Dv for
-        # P.V each; q, k, v read once, o written once.  The kernel's
-        # float32-faithful P.V is two bf16 products (hi + lo), so its own
-        # floor counts 4Dv for P.V.
-        pairs = float(b * h) * (sq * (skv - sq) + sq * (sq + 1) / 2)
-        n_ops = pairs * 2 * (d + dv)
-        n_bytes = (b * sq * h * (d + dv) + b * skv * kvh * (d + dv)) \
-            * q.element_size()
-        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
-                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
-        split_ms = bound(n_bytes, pairs * (2 * d + 4 * dv), BF16_OPS_PER_S)[0]
+        # the bound of the function (flash_attention's work()); the
+        # kernel's float32-faithful P.V is two bf16 products (hi + lo), so
+        # its own floor counts 4Dv for P.V
+        wk = flash_ops.work(q, k, v, causal=True)
+        b_ms, b_by = bound(wk, dt)
+        pairs = flash_ops.attention_pairs(b, h, sq, skv, True)
+        split_ms = bound((pairs * (2 * d + 4 * dv), wk[1]), torch.bfloat16)[0]
         # SDPA's is_causal aligns the rows top-left; the bottom-right mask
         # of unequal lengths goes in as a boolean mask
         mask = dict(is_causal=True) if sq == skv else dict(attn_mask=(
@@ -868,6 +876,7 @@ def kernel_decode_attention(torch, dev):
     shapes the reference's decode_attention also serves: v narrower than
     k (MLA's widths, 192 and 128), 16 query heads per key head, and a width
     outside the old kernel's list (96, float32)."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -914,14 +923,9 @@ def kernel_decode_attention(torch, dev):
                 torch, lambda: decode_attention(q, kc, vc, pos)),
                 library_device_ms=device_ms(
                     torch, lambda: sdpa(torch, q, kc, vc, attn_mask=mask)))
-        # the function depends on the cache rows at positions <= pos only:
-        # a key row and a value row a key head, 2D + 2Dv operations a head
+        # the function depends on the cache rows at positions <= pos only
         vis = float(torch.clamp(pos.long() + 1, max=s).sum())
-        n_bytes = (vis * kvh * (d + dv) + b * h * (d + dv)) \
-            * q.element_size() + 4 * b
-        n_ops = vis * 2.0 * h * (d + dv)
-        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
-                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        b_ms, b_by = bound(decode_ops.work(q, kc, vc, pos), dt)
         log(f"[kernels] decode_attention {label} B={b} S={s} H={h} "
             f"KVH={kvh} D={d} Dv={dv} {name} visible_keys={int(vis)}: "
             f"max_abs_err={err} within_tol={ok} ms={ms:.3f} "
@@ -1105,22 +1109,17 @@ def kernel_flash_attention_bwd(torch, dev):
             q, k, v, o, m, l, do, causal=causal), runs=5)
         lib_ms = sdpa_bwd_ms(torch, q, k, v, do, causal) \
             if sq == skv else None
-        # five products over the (query, key) pairs each row weighs (S and
-        # dS^T q at D, dP and P^T dO at Dv, dS K at D); q, k, v, o, dO, m,
-        # l read once, dq, dk, dv written once.  The bf16 kernel feeds P
-        # and dS to its tensor cores as hi + lo: eight products' worth
-        # (S, dP, and dV, dK, dQ twice), its own floor beside the bound
-        pairs = float(b * h) * ((sq * (skv - sq) + sq * (sq + 1) / 2)
-                                if causal and sq <= skv else sq * skv)
-        n_ops = pairs * 2 * (3 * d + 2 * dv)
-        n_bytes = 2 * (b * sq * h * (d + 2 * dv) + b * skv * kvh * (d + dv)) \
-            * q.element_size() + b * h * sq * 8
-        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
-                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        # the bound of the function (flash_attention_bwd's bwd_work()).
+        # The bf16 kernel feeds P and dS to its tensor cores as hi + lo:
+        # eight products' worth (S, dP, and dV, dK, dQ twice), its own
+        # floor beside the bound
+        wk = flash_ops.bwd_work(q, k, v, causal)
+        b_ms, b_by = bound(wk, dt)
         split_ms = None
         if dt == torch.bfloat16:
-            split_ms = bound(n_bytes, pairs * 2 * (5 * d + 3 * dv),
-                             BF16_OPS_PER_S)[0]
+            pairs = flash_ops.attention_pairs(b, h, sq, skv, causal)
+            split_ms = bound((pairs * 2 * (5 * d + 3 * dv), wk[1]),
+                             torch.bfloat16)[0]
         log(f"[kernels] flash_attention_bwd {label} B={b} Sq={sq} Skv={skv} "
             f"H={h} KVH={kvh} D={d} Dv={dv} {name} causal={causal}: "
             + " ".join(f"{w}_max_abs_err={e[0]} ({e[1]:.3g} of max)"
@@ -1703,7 +1702,7 @@ def serve_lm(torch, label: str, cfg, decode_batch: int, steps: int,
         check(bool((first[:, :, s + steps:] == 0).all()),
               f"decode wrote past its positions in the {key} cache")
     total = sum(steps_ms) / 1e3
-    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    floor_ms = hbm_ms(weight_bytes)
     out["decode"] = {"steps": steps, "batch": db, "cache_len": DECODE_LEN,
                      "cache_gb": cache_gb,
                      "step_ms_mean": sum(steps_ms) / len(steps_ms),
@@ -2027,14 +2026,29 @@ def train_flops(cfg, tokens: int, seq: int) -> dict:
     multiplies -- wq, wk, wv, wo, w_gate, w_up, w_down of each layer and
     the head; not the embedding gather), plus attention's 3 x 4 H D
     operations per visible (query, key) pair and layer (forward S and P V,
-    backward twice that), (S + 1) / 2 visible keys a query under causal."""
+    backward twice that), (S + 1) / 2 visible keys a query under causal.
+    ``executed_flops``: the products a step runs, which an operation count
+    (``launch/op_analysis.py``) sees: the same plus, under remat, each
+    block's forward again but its last product, and the attention
+    backward's five products."""
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
     per_layer = d * h * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * cfg.d_ff
     n_matmul = cfg.n_layers * per_layer + d * cfg.vocab_size
     attn = 12 * cfg.n_layers * h * hd * (seq + 1) / 2
+    # what a step runs: under remat each block's forward again in the
+    # backward, up to its last product (torch's checkpoint stops the
+    # recompute once the backward has what it needs: w_down's output is
+    # not), so 2 (N_matmul - d V - L d d_ff); and attention's backward as
+    # its kernel computes it, five products (10 H D a pair, not 8)
+    recompute = 2 * (n_matmul - d * cfg.vocab_size
+                     - cfg.n_layers * d * cfg.d_ff) if cfg.remat else 0
+    attn_run = attn * ((4 + 4 + 10) if cfg.remat else (4 + 10)) / 12
     return {"n_matmul": n_matmul,
             "flops": (6 * n_matmul + attn) * tokens,
-            "formula": "(6 N_matmul + 12 L H D (S + 1) / 2) tokens"}
+            "formula": "(6 N_matmul + 12 L H D (S + 1) / 2) tokens",
+            "executed_flops": (6 * n_matmul + recompute + attn_run) * tokens,
+            "executed_formula": "(8 N_matmul - 2 d V - 2 L d d_ff + 18 L H "
+                                "D (S + 1) / 2) tokens under remat"}
 
 
 def phase_train(torch, prof=None):
@@ -2050,6 +2064,7 @@ def phase_train(torch, prof=None):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.mesh import peak_flops
     from repro_torch.launch.steps import train_step
     from repro_torch.models.transformer import LM
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
@@ -2087,7 +2102,7 @@ def phase_train(torch, prof=None):
         ms = (time.perf_counter() - t0) * 1e3
         row = {k: float(v) for k, v in met.items()}
         row.update(ms=ms, tokens_per_s=tokens / ms * 1e3,
-                   mfu=fl["flops"] / (ms / 1e3) / BF16_OPS_PER_S)
+                   mfu=fl["flops"] / (ms / 1e3) / peak_flops("bfloat16"))
         steps.append(row)
         log(f"[train] step {step}: loss={row['loss']:.6f} ce={row['ce']:.6f} "
             f"grad_norm={row['grad_norm']:.6f} lr={row['lr']:.3g} "
@@ -2526,12 +2541,14 @@ def gs_case(torch, label: str, x, src, dst, n: int, w, reduce: str, *,
 
         out["library_ms"] = time_ms(torch, library)
         del a, vals, x2
-        xb, ob = x.element_size(), got.element_size()
-        n_bytes = (x.shape[0] * d * xb + n * d * ob
-                   + (4 if w is None else 8) * e + 8 * (n + 1))
-        out["bound_ms"], out["bound_by"] = bound(n_bytes, 2.0 * e * d)
-        out["gather_floor_ms"] = (n_bytes + e * d * xb
-                                  - x.shape[0] * d * xb) / HBM_BYTES_PER_S * 1e3
+        xb = x.element_size()
+        wk = gs_ops.work(x.shape[0], n, d, e, xb, got.element_size(),
+                         weighted=w is not None, ptr_rows=n,
+                         mean=reduce == "mean")
+        n_bytes = wk[1]
+        out["bound_ms"], out["bound_by"] = bound(wk)
+        out["gather_floor_ms"] = hbm_ms(n_bytes + e * d * xb
+                                        - x.shape[0] * d * xb)
         out["n_bytes"] = n_bytes
     if backward:
         # against the plain version's autograd (in float32 for bf16 x,
@@ -2804,6 +2821,27 @@ def molecule_arrays(cell, seed: int):
             "target": rng.standard_normal(g).astype(np.float32)}
 
 
+def products_batch(torch, cell, dev):
+    """ogb_products' full graph as a ``gnn_batch`` on ``dev``: power-law
+    edges made on the card, seeded normal features, seeded labels ->
+    (batch, seconds to make it)."""
+    import numpy as np
+    from repro_torch.launch.gnn_steps import gnn_batch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    src, dst = power_law_edges_dev(torch, rng, PRODUCTS_NODES,
+                                   PRODUCTS_EDGES, dev)
+    feats = rng.standard_normal((PRODUCTS_NODES, cell.d_feat),
+                                dtype=np.float32)
+    labels = rng.integers(0, cell.n_out, PRODUCTS_NODES).astype(np.int32)
+    batch = gnn_batch(cell, {"feats": feats, "src": src, "dst": dst,
+                             "labels": labels}, dev)
+    del src, dst, feats, labels
+    torch.cuda.synchronize()
+    return batch, time.perf_counter() - t0
+
+
 def phase_gnn(torch, prof=None):
     """The GNN family trains on the card through ``gnn_train_step``:
     gnn-products (graphsage-reddit at full width on ogb_products' full
@@ -2823,18 +2861,7 @@ def phase_gnn(torch, prof=None):
 
     # gnn-products: the full graph, made once
     cell = cell_of(spec, spec.shapes["ogb_products"])
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    src, dst = power_law_edges_dev(torch, rng, PRODUCTS_NODES,
-                                   PRODUCTS_EDGES, dev)
-    feats = rng.standard_normal((PRODUCTS_NODES, cell.d_feat),
-                                dtype=np.float32)
-    labels = rng.integers(0, cell.n_out, PRODUCTS_NODES).astype(np.int32)
-    batch = gnn_batch(cell, {"feats": feats, "src": src, "dst": dst,
-                             "labels": labels}, dev)
-    del src, dst, feats, labels
-    torch.cuda.synchronize()
-    made = time.perf_counter() - t0
+    batch, made = products_batch(torch, cell, dev)
     log(f"[gnn] gnn-products graph ({PRODUCTS_NODES} nodes, "
         f"{PRODUCTS_EDGES} edges, {cell.d_feat} features) made in "
         f"{made:.1f}s")
@@ -3162,14 +3189,16 @@ def bag_case(torch, label: str, table, ids, timing: bool = False) -> dict:
                                                              mode="mean"))
         out["library_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             torch.nn.functional.embedding_bag(bags, w, mode="mean"), w, g2))
-        out["bound_ms"], out["bound_by"] = bound(
-            out["rows_touched"] * d * 4 + 4 * e + n * d * 4, float(e * d))
-        out["bwd_bound_ms"], out["bwd_bound_by"] = bound(
-            n * d * 4 + 4 * e + n_x * d * 4, float(e * d))
+        # the rows the ids touch read once; the gradient writes every row
+        # of the dense dx
+        out["bound_ms"], out["bound_by"] = bound(gs_ops.work(
+            out["rows_touched"], n, d, e, 4, 4, weighted=False, ptr_rows=0,
+            mean=True))
+        out["bwd_bound_ms"], out["bwd_bound_by"] = bound(gs_ops.work(
+            n, n_x, d, e, 4, 4, weighted=False, ptr_rows=0))
         floor = e * d * 4 + n * d * 4 + 8 * e
-        out["gather_floor_ms"] = floor / HBM_BYTES_PER_S * 1e3
-        out["bwd_gather_floor_ms"] = ((floor + n_x * d * 4)
-                                      / HBM_BYTES_PER_S * 1e3)
+        out["gather_floor_ms"] = hbm_ms(floor)
+        out["bwd_gather_floor_ms"] = hbm_ms(floor + n_x * d * 4)
         del csr, rows_t, bags, w
     del g, g2, tg, wq
     log(f"[kernels] gather_scatter bag {label} B={b} F={f} H={h} V={v} "
@@ -3235,8 +3264,7 @@ def retrieval_case(torch, dev) -> dict:
         return sort_survivors(*ivf_ops.ivf_select(s, n, k), k)
 
     out["mv_select_sort_ms"] = time_ms(torch, mv_select)
-    out["bound_ms"], out["bound_by"] = bound(4 * (d + n * d) + 8 * k,
-                                             2.0 * n * d)
+    out["bound_ms"], out["bound_by"] = bound(ivf_ops.work(q, cands, k))
     del cands
     torch.cuda.empty_cache()
     log(f"[kernels] ivf_scan retrieval Q=1 N={n} d={d} k={k} ip: " + " ".join(
@@ -3497,6 +3525,211 @@ def phase_recsys_parity(torch):
 
 
 # ---------------------------------------------------------------------------
+# the dry run: operation counts on meta and on the card
+# ---------------------------------------------------------------------------
+
+DRY_FLOPS_REL = 0.01     # meta vs card FLOPs of one step
+DRY_BYTES_REL = 0.10     # meta vs card bytes (the wrappers' own set-up,
+                         # such as the CSR's sort, runs on the card only)
+DRY_LM_FLOPS_REL = 0.02  # the LM step's FLOPs vs train_flops' executed count
+DRY_TIMED_STEPS = 3
+DRYRUN_JOBS = 6          # worker processes of the 40-cell dry run
+
+
+def meta_card_case(torch, label: str, bundle, card_args, peak: float
+                   ) -> dict:
+    """One step counted on meta (``bundle``'s abstract arguments) and on
+    the card (``card_args`` through the same ``bundle.fn``, the hand
+    kernels running): FLOPs within DRY_FLOPS_REL, bytes within
+    DRY_BYTES_REL, the hand kernels' calls equal; the meta count's
+    roofline (``compute_s`` at ``peak``, ``memory_s``) beside the step's
+    measured ms (median of DRY_TIMED_STEPS after the counted one)."""
+    from repro_torch.launch.op_analysis import analyze, roofline
+
+    counts = {}
+    meta = analyze(bundle.fn, *bundle.abstract_args)
+    card = analyze(bundle.fn, *card_args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DRY_TIMED_STEPS):
+        t0 = time.perf_counter()
+        bundle.fn(*card_args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = sorted(times)[len(times) // 2]
+    r = roofline(meta, peak)
+    counts.update(
+        flops_meta=meta.flops, flops_card=card.flops,
+        bytes_meta=meta.bytes_accessed, bytes_card=card.bytes_accessed,
+        flops_rel=card.flops / meta.flops - 1,
+        bytes_rel=card.bytes_accessed / meta.bytes_accessed - 1,
+        kernels_meta=meta.kernels, kernels_card=card.kernels,
+        peak_gb_meta=meta.peak_bytes / 1e9, meta_s=meta.seconds,
+        compute_s=r["compute_s"], memory_s=r["memory_s"],
+        dominant=r["dominant"], step_ms=ms, step_ms_all=times,
+        step_over_roofline=ms / 1e3 / max(r["compute_s"], r["memory_s"]))
+    log(f"[dryrun] {label}: flops meta={meta.flops:.6g} card="
+        f"{card.flops:.6g} ({counts['flops_rel']:+.5f}); bytes meta="
+        f"{meta.bytes_accessed:.6g} card={card.bytes_accessed:.6g} "
+        f"({counts['bytes_rel']:+.5f}); compute_s={r['compute_s']:.6g} "
+        f"memory_s={r['memory_s']:.6g} ({r['dominant']}); measured "
+        f"step_ms={ms:.3f} = {counts['step_over_roofline']:.3f}x the "
+        f"roofline; meta peak {counts['peak_gb_meta']:.2f} GB, counted in "
+        f"{meta.seconds:.1f}s")
+    for name, k in meta.kernels.items():
+        log(f"[dryrun]   kernel {name}: calls {k['calls']:g} flops "
+            f"{k['flops']:.6g} bytes {k['bytes']:.6g} (card: "
+            f"{card.kernels.get(name, {})})")
+    check(abs(counts["flops_rel"]) <= DRY_FLOPS_REL,
+          f"{label}: card FLOPs {card.flops} vs meta {meta.flops}")
+    check(abs(counts["bytes_rel"]) <= DRY_BYTES_REL,
+          f"{label}: card bytes {card.bytes_accessed} vs meta "
+          f"{meta.bytes_accessed}")
+    check({n: k["calls"] for n, k in meta.kernels.items()}
+          == {n: k["calls"] for n, k in card.kernels.items()},
+          f"{label}: the hand kernels' calls differ, meta "
+          f"{meta.kernels} card {card.kernels}")
+    return counts
+
+
+def phase_dryrun(torch):
+    """The dry run (``launch/dryrun.py``, ``launch/op_analysis.py``).
+    (a) Three training steps the other paths run, at their shapes, counted
+    on the meta device and on the card through the same bundle ``fn``:
+    train-8b-8L (llama3-8b at full width cut to TRAIN_LAYERS layers, 8 x
+    4,096 tokens in 4 micro-batches, remat), gnn-products (graphsage-reddit
+    on ogb_products' full graph) and AutoInt's train_batch step: FLOPs
+    within 1%, bytes within 10%; each step's roofline beside its measured
+    ms; for the LM its FLOPs against ``train_flops``' executed count
+    (within 2%) and MFU = model_flops / step s / 989 TFLOP/s.  (b) All 40
+    cells of ``all_cells()`` at mesh ``one`` on meta, at full size, in
+    DRYRUN_JOBS worker processes: each cell's seconds, FLOPs, argument GB
+    and whether its peak fits 80 GB; a cell that fails fails the phase."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import all_cells, get_arch, reduced
+    from repro_torch.configs.base import LMShape
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.launch.dryrun import model_flops_of, run_cells
+    from repro_torch.launch.gnn_steps import GNNCell, gnn_bundle, gnn_model
+    from repro_torch.launch.mesh import ONE, peak_flops
+    from repro_torch.launch.recsys_steps import recsys_bundle, recsys_model
+    from repro_torch.launch.steps import _lm_bundle
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.optimizer import init_opt_state
+
+    dev = torch.device("cuda")
+    out = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) train-8b-8L
+    spec = get_arch(LM_ARCH)
+    cfg = reduced(spec.model, n_layers=TRAIN_LAYERS)
+    shape = LMShape("train-8b-8L", TRAIN_LEN, TRAIN_BATCH, "train")
+    bundle = _lm_bundle(dataclasses.replace(spec, model=cfg), shape, ONE)
+    model = LM(cfg, device=dev,
+               generator=torch.Generator(device=dev).manual_seed(0))
+    opt = init_opt_state(dict(model.named_parameters()))
+    batch = SyntheticLM(LMDataConfig(cfg.vocab_size, TRAIN_LEN,
+                                     TRAIN_BATCH)).batch(0)
+    toks = torch.from_numpy(batch["tokens"]).to(dev)
+    labs = torch.from_numpy(batch["labels"]).to(dev)
+    res = meta_card_case(torch, "train-8b-8L", bundle,
+                         (model, opt, toks, labs), peak_flops(cfg.dtype))
+    fl = train_flops(cfg, TRAIN_BATCH * TRAIN_LEN, TRAIN_LEN)
+    mflops = model_flops_of(cfg, shape)
+    res.update(train_flops=fl["flops"], executed_flops=fl["executed_flops"],
+               model_flops=mflops,
+               flops_over_executed=res["flops_card"] / fl["executed_flops"],
+               mfu=mflops / (res["step_ms"] / 1e3) / peak_flops("bfloat16"),
+               mfu_train_flops=fl["flops"] / (res["step_ms"] / 1e3)
+               / peak_flops("bfloat16"))
+    log(f"[dryrun] train-8b-8L: counted {res['flops_card']:.6g} FLOPs "
+        f"against train_flops' executed {fl['executed_flops']:.6g} "
+        f"({fl['executed_formula']}; x{res['flops_over_executed']:.5f}) "
+        f"and its model {fl['flops']:.6g}; MFU = 6 N D "
+        f"({mflops:.6g}) / step / 989 TFLOP/s = {res['mfu']:.4f} "
+        f"(train_flops' {res['mfu_train_flops']:.4f})")
+    check(abs(res["flops_over_executed"] - 1) <= DRY_LM_FLOPS_REL,
+          f"train-8b-8L: counted FLOPs off train_flops' executed count by "
+          f"{res['flops_over_executed'] - 1:+.4f}")
+    out["train-8b-8L"] = res
+    del model, opt, toks, labs, bundle
+    free()
+
+    # (a) gnn-products
+    spec = get_arch("graphsage-reddit")
+    bundle = gnn_bundle(spec, spec.shapes["ogb_products"], ONE)
+    cell = GNNCell(**bundle.meta["cell"])
+    batch, _ = products_batch(torch, cell, dev)
+    model = gnn_model(spec, cell, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    opt = init_opt_state(dict(model.named_parameters()))
+    out["gnn-products"] = meta_card_case(
+        torch, "gnn-products", bundle, (model, opt, batch),
+        peak_flops(spec.model.dtype))
+    del model, opt, batch, bundle
+    free()
+
+    # (a) AutoInt train_batch
+    spec = recsys_spec()
+    shape = spec.shapes["train_batch"]
+    bundle = recsys_bundle(spec, shape, ONE)
+    model = recsys_model(spec, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    rng = np.random.default_rng(61)
+    cfg = spec.model
+    ids = recsys_ids(torch, rng, shape.batch, model.f, cfg.multi_hot,
+                     cfg.vocab_per_field, dev,
+                     zipf_law(torch, rng, model.f, cfg.vocab_per_field, dev))
+    labels = torch.from_numpy(rng.integers(0, 2, shape.batch).astype(
+        np.float32)).to(dev)
+    opt = init_opt_state(dict(model.named_parameters()))
+    out["recsys-train_batch"] = meta_card_case(
+        torch, "recsys-autoint train_batch", bundle,
+        (model, opt, ids, labels), peak_flops(cfg.dtype))
+    del model, opt, ids, labels, bundle
+    free()
+
+    # (b) the 40 cells at mesh one, on meta
+    import os
+    jobs = [(a, s, "one") for a, s in all_cells()]
+    n_proc = max(1, min(DRYRUN_JOBS, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    cells, failed = {}, []
+    for res in run_cells(jobs, n_proc):
+        tag = f"{res['arch']} {res['shape']}"
+        if "error" in res:
+            failed.append(tag)
+            log(f"[dryrun] cell {tag} FAILED: {res['error']}\n"
+                f"{res['traceback']}")
+            continue
+        an, r = res["analysis"], res["roofline"]
+        cells[tag] = {k: res[k] for k in (
+            "seconds", "arg_bytes_per_device", "peak_bytes", "fits_80GB",
+            "model_flops_total", "useful_flops_ratio")}
+        cells[tag].update(flops=an["flops"], bytes=an["bytes_accessed"],
+                          compute_s=r["compute_s"], memory_s=r["memory_s"],
+                          kernels=an["kernels"], repeats=an["repeats"])
+        log(f"[dryrun] cell {tag}: {res['seconds']:.1f}s flops="
+            f"{an['flops']:.6g} bytes={an['bytes_accessed']:.6g} args="
+            f"{res['arg_bytes_per_device'] / 1e9:.3f} GB peak="
+            f"{res['peak_bytes'] / 1e9:.3f} GB fits_80GB={res['fits_80GB']}"
+            f" compute_s={r['compute_s']:.6g} memory_s={r['memory_s']:.6g}")
+    out["cells"] = cells
+    out["cells_wall_s"] = time.perf_counter() - t0
+    log(f"[dryrun] {len(cells)} of {len(jobs)} cells counted in "
+        f"{out['cells_wall_s']:.1f}s on {n_proc} processes")
+    check(not failed, f"dry-run cells failed: {failed}")
+    check(len(cells) == 40, f"{len(cells)} dry-run cells, not 40")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3626,8 +3859,6 @@ def main() -> int:
     paths["recsys"] = main_path(
         "recsys", ("gather_scatter", "ivf_scan"),
         ("recsys", phase_recsys, torch, maybe_prof))
-    launches = {name: sum(p[name] for p in paths.values())
-                for name in counters}
     run("parity", phase_parity)
     for arch, tag in ((LM_ARCH, "lm"), (MOE_ARCH, "moe"), (MLA_ARCH, "mla")):
         run(f"{tag}_parity", phase_lm_parity, torch, arch)
@@ -3636,6 +3867,11 @@ def main() -> int:
     run("train_parity_bf16", phase_train_parity_bf16, torch)
     run("gnn_parity", phase_gnn_parity, torch)
     run("recsys_parity", phase_recsys_parity, torch)
+    paths["dryrun"] = main_path(
+        "dryrun", ("flash_attention", "flash_attention_bwd",
+                   "gather_scatter"), ("dryrun", phase_dryrun, torch))
+    launches = {name: sum(p[name] for p in paths.values())
+                for name in counters}
 
     meta = {
         "ivf_scan": ("src/repro_torch/csrc/ivf_scan.cu",

@@ -138,10 +138,17 @@ def logical_spec(rules: ShardingRules, *axes: Optional[str]) -> Spec:
 def logical_sharding(mesh: Any, rules: ShardingRules,
                      *axes: Optional[str]) -> List[Any]:
     """DTensor placements on ``mesh`` (a ``DeviceMesh``) for an array whose
-    dims carry these logical names: ``Shard(dim)`` on each mesh dim the
-    spec names for tensor dim ``dim``, ``Replicate()`` on the others."""
+    dims carry these logical names (:func:`spec_placements` of their
+    spec)."""
+    return spec_placements(mesh, rules.spec(*axes))
+
+
+def spec_placements(mesh: Any, spec: Spec) -> List[Any]:
+    """DTensor placements on ``mesh`` for a partition spec: ``Shard(dim)``
+    on each mesh dim the spec names for tensor dim ``dim``,
+    ``Replicate()`` on the others."""
     shard_of: Dict[str, int] = {}
-    for dim, phys in enumerate(rules.spec(*axes)):
+    for dim, phys in enumerate(spec):
         for a in (() if phys is None else (phys,) if isinstance(phys, str)
                   else phys):
             shard_of[a] = dim

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -57,6 +57,25 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self.n = 0
+
+
+#: receivers of the kernels' work while an operation count runs
+#: (``launch/op_analysis.py``): each is called with a kernel's name, the
+#: FLOPs and the bytes of the function one call computes
+work_sinks: List[Callable[[str, float, float], None]] = []
+
+
+def counting_work() -> bool:
+    """True while an operation count runs: only then does a wrapper work
+    out its call's ``work`` (decode's reads ``pos`` from the card)."""
+    return bool(work_sinks)
+
+
+def record_work(name: str, work: Tuple[float, float]) -> None:
+    """Pass one call's (FLOPs, bytes) of kernel ``name`` to every
+    receiver."""
+    for sink in list(work_sinks):
+        sink(name, *work)
 
 
 def nvcc_path() -> str:

@@ -10,15 +10,21 @@ the whole cache into ``n_splits`` equal splits (one split where ``n_splits
 has a counterpart here.  The wrapper allocates the chunks' float32
 partials (m, l, acc) as scratch.  Any D and Dv up to ``MAX_HEAD_DIM`` and
 any number of query heads per key head run the kernel, read in place;
-wider heads raise, on the CPU as on the card.  ``pos`` must be >= 0."""
+wider heads raise, on the CPU as on the card.  ``pos`` must be >= 0.
+
+On a ``meta`` tensor it returns an empty output of the kernel's shape and
+dtype and runs neither the kernel nor the plain version.  While an
+operation count runs (``launch/op_analysis.py``) a call on the card or on
+meta records its function's ``work``."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import LaunchCounter, check_launch, load
+from repro_torch.kernels.build import (LaunchCounter, check_launch,
+                                      counting_work, load, record_work)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import DTYPES, MAX_HEAD_DIM
 
@@ -31,6 +37,25 @@ launches = LaunchCounter("decode_attention")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _F, _P]}
+
+
+def work(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+         pos: torch.Tensor) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one ``decode_attention``: the function depends on
+    the cache rows at positions <= pos only, a key row and a value row a
+    key head (2D + 2Dv operations a query head), plus q read, the output
+    written and pos read once.  The visible rows are read from ``pos``
+    (a host sync on the card); on meta, with no positions, every row of
+    the cache counts."""
+    b, _, h, d = q.shape
+    s, kvh, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
+    if pos.device.type == "meta":
+        vis = float(b * s)
+    else:
+        vis = float(torch.clamp(pos.long() + 1, max=s).sum())
+    n_bytes = (vis * kvh * (d + dv) + b * h * (d + dv)) * q.element_size() \
+        + 4 * b
+    return vis * 2.0 * h * (d + dv), float(n_bytes)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -54,6 +79,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scale = scale if scale is not None else d ** -0.5
     if all(t.device.type == "cpu" for t in (q, k_cache, v_cache, pos)):
         return decode_attention_ref(q, k_cache, v_cache, pos, scale=scale)
+    if counting_work():
+        record_work("decode_attention", work(q, k_cache, v_cache, pos))
+    if q.device.type == "meta":
+        return q.new_empty(b, 1, h, v_cache.shape[3])
     return _launch(q, k_cache, v_cache, pos, scale)
 
 

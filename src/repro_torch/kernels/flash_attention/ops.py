@@ -19,7 +19,12 @@ the CPU as on the card.
 ``csrc/flash_attention_bwd.cu`` on the card, ``flash_attention_bwd_ref``
 on the CPU.  It takes the forward's row statistics m and l, which
 ``flash_attention(..., return_stats=True)`` returns beside the output, and
-serves every shape the forward serves, padded alike."""
+serves every shape the forward serves, padded alike.
+
+On a ``meta`` tensor both return empty outputs of the kernel's shapes and
+dtypes and run neither the kernel nor the plain version.  While an
+operation count runs (``launch/op_analysis.py``) a call on the card or on
+meta records its function's ``work`` (``bwd_work``)."""
 from __future__ import annotations
 
 import ctypes
@@ -28,7 +33,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.build import LaunchCounter, check_launch, load
+from repro_torch.kernels.build import (LaunchCounter, check_launch,
+                                      counting_work, load, record_work)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
@@ -90,6 +96,45 @@ def bwd_layout(d: int, dv: int) -> dict:
     return dict(zip(_BWD_LAYOUT, out), d=dp, dv=dvp)
 
 
+def attention_pairs(b: int, h: int, sq: int, skv: int, causal: bool
+                    ) -> float:
+    """The (query, key) pairs attention weighs: every pair unmasked; under
+    ``causal`` query row i sits at position i + Skv - Sq and sees the keys
+    up to it (a row at a negative position sees none)."""
+    if not causal:
+        return float(b * h) * sq * skv
+    if sq <= skv:
+        return float(b * h) * (sq * (skv - sq) + sq * (sq + 1) / 2)
+    return float(b * h) * skv * (skv + 1) / 2
+
+
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         causal: bool = True) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one ``flash_attention``: 2D operations for each
+    weighed pair's score and 2Dv for its share of P.V; q, k, v read once,
+    the output written once."""
+    b, sq, h, d = q.shape
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    flops = attention_pairs(b, h, sq, skv, causal) * 2 * (d + dv)
+    n_bytes = (b * sq * h * (d + dv) + b * skv * kvh * (d + dv)) \
+        * q.element_size()
+    return flops, float(n_bytes)
+
+
+def bwd_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool = True) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one ``flash_attention_bwd``: five products over
+    the weighed pairs (S and dS^T q at D, dP and P^T dO at Dv, dS K at D);
+    q, k, v, o, dO and the float32 row statistics m, l read once, dq, dk,
+    dv written once."""
+    b, sq, h, d = q.shape
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    flops = attention_pairs(b, h, sq, skv, causal) * 2 * (3 * d + 2 * dv)
+    n_bytes = 2 * (b * sq * h * (d + 2 * dv) + b * skv * kvh * (d + dv)) \
+        * q.element_size() + b * h * sq * 8
+    return flops, float(n_bytes)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     bf16_probs: bool = False, block_kv: int = 1024,
@@ -105,6 +150,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    bf16_probs=bf16_probs, block_kv=block_kv,
                                    return_stats=return_stats)
+    if counting_work():
+        record_work("flash_attention", work(q, k, v, causal))
+    if q.device.type == "meta":
+        b, sq, h, _ = q.shape
+        out = q.new_empty(b, sq, h, v.shape[3])
+        if not return_stats:
+            return out
+        m = torch.empty((b, h, sq), dtype=torch.float32, device="meta")
+        return out, m, torch.empty_like(m)
     return _launch(q, k, v, causal, scale, bf16_probs, return_stats)
 
 
@@ -132,6 +186,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cpu(q, k, v, o, m, l, do):
         return flash_attention_bwd_ref(q, k, v, o, m, l, do, causal=causal,
                                        scale=scale, block_kv=block_kv)
+    if counting_work():
+        record_work("flash_attention_bwd", bwd_work(q, k, v, causal))
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return _launch_bwd(q, k, v, o, m, l, do, causal, scale)
 
 

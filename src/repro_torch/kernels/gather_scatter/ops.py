@@ -20,16 +20,24 @@ the CSR by source; for the mean the kernel divides each edge's weight by
 the count of its destination itself.  No caller needs the weights'
 gradient, so weights that require one raise.  Every call with a CUDA ``x``
 launches the kernel: there is no size gate and no fallback.
+
+On a ``meta`` ``x`` the call, and its gradient, return empty outputs of
+the kernel's shapes and dtypes: no CSR is built and neither the kernel nor
+the plain version runs.  While an operation count runs
+(``launch/op_analysis.py``) each forward and gradient on the card or on
+meta records its function's ``work``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import LaunchCounter, check_launch, load
+from repro_torch.kernels.build import (LaunchCounter, check_launch,
+                                      counting_work, load, record_work)
 from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
 
 launches = LaunchCounter("gather_scatter")
@@ -48,6 +56,25 @@ def long_row_min(n_edges: int, n_rows: int) -> int:
     (64)."""
     mean = -(-n_edges // max(n_rows, 1))
     return min(LONG_ROW, 16 * max(4, mean))
+
+
+def work(x_rows: int, n_out: int, d: int, n_edges: int, x_bytes: int,
+         out_bytes: int, *, weighted: bool, ptr_rows: int,
+         mean: bool = False) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one SpMM ``out[v] = reduce w[e] x[src[e]]`` (or
+    its gradient, the same sum over the reversed edges): ``x_rows`` rows of
+    d values of x read once (all of x, unless the caller knows the rows
+    its edges touch), the [n_out, d] output written once, 4 B an edge for
+    its column and 4 more for its weight, and the row pointer, 8 B a row
+    of ``ptr_rows`` plus one (0: the rows are implied, as a bag's fixed
+    count); a multiply-add an edge and column (an add unweighted), and the
+    mean's scale a multiply an output value."""
+    flops = float(n_edges) * d * (2 if weighted else 1) \
+        + (float(n_out) * d if mean else 0.0)
+    n_bytes = x_rows * d * x_bytes + n_out * d * out_bytes \
+        + (8 if weighted else 4) * n_edges \
+        + (8 * (ptr_rows + 1) if ptr_rows else 0)
+    return flops, float(n_bytes)
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -120,7 +147,8 @@ class EdgeCSR:
     """The edges ``src -> dst`` of one graph as the kernel reads them: by
     destination (``rows``; ``count`` [n_nodes] float32, the edges into each
     node), and, built at the first backward, by source (``transposed()``)
-    over ``n_src`` rows."""
+    over ``n_src`` rows.  ``uniform``: every row holds the same number of
+    edges (:meth:`regular`)."""
 
     n_nodes: int
     n_src: int
@@ -129,6 +157,7 @@ class EdgeCSR:
     rows: RowCSR
     count: torch.Tensor
     rows_t: Optional[RowCSR] = None
+    uniform: bool = False
 
     @staticmethod
     def build(src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
@@ -162,7 +191,8 @@ class EdgeCSR:
         dst = torch.div(perm, per_row, rounding_mode="floor").to(
             torch.int32)
         rows = RowCSR.of(ptr, perm, src.to(torch.int32))
-        return EdgeCSR(n, n_src, src, dst, rows, rows.count.to(torch.float32))
+        return EdgeCSR(n, n_src, src, dst, rows, rows.count.to(torch.float32),
+                       uniform=True)
 
     def transposed(self) -> RowCSR:
         """The CSR by source, built once."""
@@ -187,6 +217,10 @@ def gather_scatter(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if edge_weight is not None and edge_weight.requires_grad:
         raise ValueError("gather_scatter: the kernel gives no gradient for "
                          "the edge weights")
+    if x.device.type == "meta":
+        return _MetaGatherScatter.apply(x, edge_weight, n_nodes, src.numel(),
+                                        reduce == "mean",
+                                        csr is not None and csr.uniform)
     if csr is None:
         csr = EdgeCSR.build(src, dst, n_nodes, x.shape[0])
     if csr.n_nodes != n_nodes or csr.n_src != x.shape[0] \
@@ -198,10 +232,45 @@ def gather_scatter(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return _GatherScatter.apply(x, edge_weight, csr, reduce == "mean")
 
 
+def _record(x: torch.Tensor, n_out: int, n_edges: int,
+            out_dtype: torch.dtype, weighted: bool, mean: bool,
+            ptr_rows: int) -> None:
+    """Record one launch's ``work`` while an operation count runs."""
+    if counting_work():
+        d = math.prod(x.shape[1:])
+        record_work("gather_scatter", work(
+            x.shape[0], n_out, d, n_edges, x.element_size(),
+            torch.empty((), dtype=out_dtype).element_size(),
+            weighted=weighted, ptr_rows=ptr_rows, mean=mean))
+
+
+class _MetaGatherScatter(torch.autograd.Function):
+    """``gather_scatter`` on meta tensors: shapes and the kernel's work,
+    forward and gradient, with no CSR."""
+
+    @staticmethod
+    def forward(ctx, x, w, n_nodes, n_edges, mean, uniform):
+        out_dtype = x.dtype if w is None else torch.result_type(x, w)
+        ptr_rows = 0 if uniform else n_nodes
+        _record(x, n_nodes, n_edges, out_dtype, w is not None, mean,
+                ptr_rows)
+        ctx.args = (x.shape, x.dtype, n_edges, w is not None, ptr_rows)
+        return x.new_empty((n_nodes,) + tuple(x.shape[1:]), dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_shape, x_dtype, n_edges, weighted, ptr_rows = ctx.args
+        _record(g, x_shape[0], n_edges, x_dtype, weighted, False, ptr_rows)
+        return (g.new_empty(x_shape, dtype=x_dtype), None, None, None, None,
+                None)
+
+
 class _GatherScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, csr, mean):
         out_dtype = x.dtype if w is None else torch.result_type(x, w)
+        _record(x, csr.n_nodes, csr.rows.col.numel(), out_dtype,
+                w is not None, mean, 0 if csr.uniform else csr.n_nodes)
         ws = None if w is None else w.to(torch.float32)[csr.rows.perm]
         out = launch(x.reshape(x.shape[0], -1), csr.rows, ws, mean,
                      out_dtype)
@@ -216,6 +285,8 @@ class _GatherScatter(torch.autograd.Function):
             return None, None, None, None
         (w,) = ctx.saved_tensors
         csr = ctx.csr
+        _record(g, csr.n_src, csr.rows.col.numel(), ctx.x_dtype,
+                w is not None, False, 0 if csr.uniform else csr.n_nodes)
         rows_t = csr.transposed()
         ws = None if w is None else w.to(torch.float32)[rows_t.perm]
         dx = launch(g.reshape(g.shape[0], -1), rows_t, ws, False,

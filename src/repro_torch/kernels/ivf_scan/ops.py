@@ -13,6 +13,11 @@ Any k up to ``n_valid`` runs the kernels: the reference's k <= 64 gate,
 which sent larger k to its XLA twin, has no counterpart here.  The kernels
 mask the ragged last tile, so the corpus is never padded or copied; rows at
 or past ``n_valid`` never reach the result.
+
+On a ``meta`` tensor it returns empty outputs of the kernels' shapes and
+dtypes and runs neither the kernels nor the plain version.  While an
+operation count runs (``launch/op_analysis.py``) a call on the card or on
+meta records its function's ``work``.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import LaunchCounter, check_launch, load
+from repro_torch.kernels.build import (LaunchCounter, check_launch,
+                                      counting_work, load, record_work)
 from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref, normalize_rows
 from repro_torch.kernels.topk import sort_survivors
 
@@ -37,6 +43,18 @@ _SIGNATURES = {
     "ivf_scan_scores": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P],
     "ivf_scan_select": [_P, _L, _I, _I, _I, _P, _P, _P],
 }
+
+
+def work(q: torch.Tensor, corpus: torch.Tensor, k: int
+         ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one ``ivf_scan_topk``: a multiply and an add for
+    each query, corpus row and dimension; q and the corpus read once, the
+    k (value, row) pairs of each query written once."""
+    qn, d = q.shape
+    n = corpus.shape[0]
+    n_bytes = q.element_size() * qn * d + corpus.element_size() * n * d \
+        + 8 * qn * k
+    return 2.0 * qn * n * d, float(n_bytes)
 
 
 def ivf_scan_topk(q: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -60,6 +78,13 @@ def ivf_scan_topk(q: torch.Tensor, corpus: torch.Tensor, k: int,
                             device=q.device))
     if q.device.type == "cpu" and corpus.device.type == "cpu":
         return ivf_scan_topk_ref(q, corpus, k, metric=metric, n_valid=n_valid)
+    if counting_work():
+        record_work("ivf_scan", work(q, corpus, k))
+    if q.device.type == "meta":
+        return (torch.empty((q.shape[0], k), dtype=torch.float32,
+                            device="meta"),
+                torch.empty((q.shape[0], k), dtype=torch.int32,
+                            device="meta"))
     return _launch(q, corpus, k, metric, n_valid)
 
 

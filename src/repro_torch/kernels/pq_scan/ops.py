@@ -18,6 +18,11 @@ With ``probe_mask``, queries whose probed buckets hold fewer than k rows
 surface (val=-inf, id=-1) padding at the tail: the kernel pins non-probed
 rows to NEG, and the wrapper turns NEG back into -inf, as the reference's
 dispatcher does.
+
+On a ``meta`` tensor it returns empty outputs of the kernels' shapes and
+dtypes and runs neither the kernels nor the plain version.  While an
+operation count runs (``launch/op_analysis.py``) a call on the card or on
+meta records its function's ``work``, under its form's name.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import LaunchCounter, check_launch, load
+from repro_torch.kernels.build import (LaunchCounter, check_launch,
+                                      counting_work, load, record_work)
 from repro_torch.kernels.pq_scan.ref import pq_adc_topk_ref
 from repro_torch.kernels.topk import sort_survivors
 
@@ -52,6 +58,27 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _P],
     "pq_scan_select": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
 }
+
+
+def work(luts: torch.Tensor, codes: torch.Tensor, k: int, n_valid: int,
+         cscores: Optional[torch.Tensor] = None,
+         probe_mask: Optional[torch.Tensor] = None) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one ``pq_adc_topk`` over ``n_valid`` rows: an add
+    for each query, row and subspace (the extended form: two more a query
+    and row, its bias and bucket terms); the LUTs and the rows' codes read
+    once, the k (value, row) pairs of each query written once (the
+    extended form: 8 B a row of bias and bucket, and each query's bucket
+    terms, plus a mask byte each under ``probe_mask``)."""
+    qn, m, ksub = luts.shape
+    n_bytes = luts.element_size() * qn * m * ksub \
+        + codes.element_size() * n_valid * m + 8 * qn * k
+    flops = float(qn) * n_valid * m
+    if cscores is not None or probe_mask is not None:
+        buckets = (cscores if cscores is not None else probe_mask).shape[1]
+        n_bytes += 8 * n_valid + qn * buckets * (
+            4 if probe_mask is None else 5)
+        flops += 2.0 * qn * n_valid
+    return flops, float(n_bytes)
 
 
 def pq_adc_topk(luts: torch.Tensor, codes: torch.Tensor, k: int,
@@ -98,6 +125,13 @@ def pq_adc_topk(luts: torch.Tensor, codes: torch.Tensor, k: int,
         return pq_adc_topk_ref(luts, codes, k, n_valid=n_valid, bias=bias,
                                row_bucket=row_bucket, cscores=cscores,
                                probe_mask=probe_mask)
+    if counting_work():
+        record_work("pq_scan_ext" if ext else "pq_scan",
+                    work(luts, codes, k, n_valid, cscores if ext else None,
+                         probe_mask))
+    if luts.device.type == "meta":
+        return (torch.empty((qn, k), dtype=torch.float32, device="meta"),
+                torch.empty((qn, k), dtype=torch.int32, device="meta"))
     if ext:
         if probe_mask is not None and probe_mask.dtype == torch.bool:
             probe_mask = probe_mask.view(torch.uint8)

@@ -13,6 +13,11 @@ a stable sort over those [Q, k] survivors, and ``topk_merge_epilogue``,
 which restores -inf and gathers the ids.  Ids are int64 or int32, copied as
 raw bits.  Any k up to ``n_valid`` runs the kernels: the reference's
 k <= 64 gate, which sent larger k to its XLA twin, has no counterpart here.
+
+On a ``meta`` tensor it returns empty outputs of the kernels' shapes and
+dtypes and runs neither the kernels nor the plain version.  While an
+operation count runs (``launch/op_analysis.py``) a call on the card or on
+meta records its function's ``work``.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import LaunchCounter, check_launch, load
+from repro_torch.kernels.build import (LaunchCounter, check_launch,
+                                      counting_work, load, record_work)
 from repro_torch.kernels.topk_merge.ref import merge_topk_ref
 
 #: widest window (P * K columns) of the one-launch path; the kernel takes
@@ -36,6 +42,17 @@ _SIGNATURES = {
     "topk_merge_select": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "topk_merge_epilogue": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
 }
+
+
+def work(vals: torch.Tensor, ids: torch.Tensor, k: int
+         ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one ``merge_topk_dev``: no arithmetic; the
+    windows' values read once, the ids of the k chosen columns read and
+    each query's k (value, id) pairs written once."""
+    p, qn, kk = vals.shape
+    n_bytes = vals.element_size() * qn * p * kk \
+        + ids.element_size() * qn * k + (4 + ids.element_size()) * qn * k
+    return 0.0, float(n_bytes)
 
 
 def merge_topk_dev(vals: torch.Tensor, ids: torch.Tensor, k: int,
@@ -58,6 +75,11 @@ def merge_topk_dev(vals: torch.Tensor, ids: torch.Tensor, k: int,
                 torch.zeros((qn, 0), dtype=ids.dtype, device=ids.device))
     if vals.device.type == "cpu" and ids.device.type == "cpu":
         return merge_topk_ref(vals, ids, k, n_valid=n_valid)
+    if counting_work():
+        record_work("topk_merge", work(vals, ids, k))
+    if vals.device.type == "meta":
+        return (torch.empty((qn, k), dtype=torch.float32, device="meta"),
+                torch.empty((qn, k), dtype=ids.dtype, device="meta"))
     return _launch(vals, ids, k, n_valid)
 
 

@@ -1,6 +1,6 @@
 """GNN training step: every GNN shape reduces to one edge-list training step,
-the reference's ``launch/gnn_steps.py`` without meshes, shardings or
-abstract shapes -- one card runs it eagerly.
+the reference's ``launch/gnn_steps.py`` -- one card runs it eagerly, and
+``gnn_bundle`` wraps it in a ``StepBundle`` for a mesh.
 
   * full_graph / full-batch-large : (feats, [pos], src, dst, mask, labels)
   * minibatch                     : the sampled block-graph (same layout;
@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -30,20 +29,18 @@ from repro_torch.configs.base import ArchSpec, GraphShape
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.sharding import (ShardingRules, base_rules,
                                               mesh_axes)
+from repro_torch.launch.mesh import ONE as ONE_DEVICE
 from repro_torch.models.gnn.common import segment_sum
 from repro_torch.models.registry import build_model
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
-                                            gradients)
+                                            gradients, init_opt_state,
+                                            opt_state_axes)
 
 #: the reference's GNN optimizer (``gnn_steps.py:133``)
 OPT = AdamWConfig(lr=1e-3, weight_decay=0.0)
 
 #: nodes past which features are stored in bf16
 BF16_FEATS_PAST = 500_000
-
-#: one device, the reference's smoke-mesh axes
-ONE_DEVICE = SimpleNamespace(axis_names=("data", "model"),
-                             shape={"data": 1, "model": 1})
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -235,3 +232,63 @@ def gnn_train_step(model, opt_state: Dict[str, Any],
     grads = gradients(loss, params)
     _, opt_state, om = adamw_update(grads, opt_state, params, OPT)
     return opt_state, {"loss": loss.detach(), **om}
+
+
+def gnn_bundle(spec: ArchSpec, shape: GraphShape, mesh: Any,
+               rule_overrides: Optional[Dict[str, Any]] = None):
+    """The GNN cell's ``StepBundle`` (the reference's ``gnn_bundle``): the
+    model on meta sized for the cell, its optimizer state, and the padded
+    batch (``gnn_batch``'s layout) as meta tensors; ``fn(model, opt_state,
+    batch)`` -> (parameters, opt_state, {"loss", "grad_norm", "lr"})."""
+    from repro_torch.launch.steps import StepBundle, tree_specs
+
+    cell = cell_of(spec, shape, mesh)
+    rules = gnn_rules(mesh, shard_nodes=cell.shard_nodes,
+                      channel_shard=cell.channel_shard)
+    if rule_overrides:
+        rules = rules.with_overrides(**rule_overrides)
+    model = gnn_model(spec, cell, device="meta")
+    p_axes = model.param_axes()
+    p_specs = tree_specs(rules, p_axes)
+    o_specs = tree_specs(rules, opt_state_axes(p_axes))
+
+    n, e = cell.n_nodes, cell.n_edges
+
+    def meta(*shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    feats = torch.bfloat16 if n > BF16_FEATS_PAST else torch.float32
+    batch = {"feats": meta(n, cell.d_feat, dtype=feats),
+             "src": meta(e, dtype=torch.int32),
+             "dst": meta(e, dtype=torch.int32),
+             "edge_mask": meta(e, dtype=torch.bool)}
+    batch_specs = {"feats": rules.spec("node", None),
+                   "src": rules.spec("edge"), "dst": rules.spec("edge"),
+                   "edge_mask": rules.spec("edge")}
+    if cell.needs_pos:
+        batch["pos"] = meta(n, 3, dtype=torch.float32)
+        batch_specs["pos"] = rules.spec("node", None)
+    if cell.graph_level:
+        batch["graph_ids"] = meta(n, dtype=torch.int32)
+        batch["target"] = meta(cell.n_graphs, dtype=torch.float32)
+        batch_specs["graph_ids"] = rules.spec("node")
+        batch_specs["target"] = rules.spec(None)
+    else:
+        batch["labels"] = meta(n, dtype=torch.int32)
+        batch_specs["labels"] = rules.spec("node")
+
+    def train_fn(model, opt_state, batch):
+        opt_state, met = gnn_train_step(model, opt_state, batch, cell)
+        return dict(model.named_parameters()), opt_state, met
+
+    met_specs = {k: rules.spec() for k in ("loss", "grad_norm", "lr")}
+    return StepBundle(
+        fn=train_fn,
+        abstract_args=(model, init_opt_state(dict(model.named_parameters())),
+                       batch),
+        in_specs=(p_specs, o_specs, batch_specs),
+        out_specs=(p_specs, o_specs, met_specs),
+        rules=rules,
+        donate_argnums=(0, 1),
+        meta={"kind": "gnn_train", "cell": dataclasses.asdict(cell)},
+    )

@@ -1,6 +1,6 @@
 """RecSys steps (AutoInt x 4 shapes), the reference's
-``launch/recsys_steps.py`` without meshes, shardings or abstract shapes --
-one card runs them eagerly.
+``launch/recsys_steps.py`` -- one card runs them eagerly, and
+``recsys_bundle`` wraps each in a ``StepBundle`` for a mesh.
 
   * train_batch     -> ``recsys_train_step`` (BCE + AdamW) on [65536, F, H]
                        multi-hot ids
@@ -17,25 +17,23 @@ and sizes (a ``DeviceMesh`` or a stand-in with ``axis_names`` and a
 """
 from __future__ import annotations
 
-from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import ArchSpec, RecsysShape
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.sharding import (ShardingRules, base_rules,
                                               mesh_axes)
+from repro_torch.launch.mesh import ONE as ONE_DEVICE
+from repro_torch.launch.mesh import mesh_size
 from repro_torch.models.recsys.autoint import AutoInt
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
-                                            gradients)
+                                            gradients, init_opt_state,
+                                            opt_state_axes)
 
 #: the reference's recsys optimizer (``recsys_steps.py:64``)
 OPT = AdamWConfig(lr=1e-3, weight_decay=0.0)
-
-#: one device, the reference's smoke-mesh axes
-ONE_DEVICE = SimpleNamespace(axis_names=("data", "model"),
-                             shape={"data": 1, "model": 1})
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -104,3 +102,70 @@ def recsys_retrieval_step(model: AutoInt, query_ids: torch.Tensor,
     F d_attn] -> (scores [k], rows [k] int32), in ``lax.top_k`` order."""
     return model.score_candidates(query_ids, cand_reps, k,
                                   field_mask(model))
+
+
+def recsys_bundle(spec: ArchSpec, shape: RecsysShape, mesh: Any,
+                  rule_overrides: Optional[Dict[str, Any]] = None):
+    """The recsys cell's ``StepBundle`` (the reference's
+    ``recsys_bundle``): AutoInt on meta over the fields padded for
+    ``mesh``; train ``fn(model, opt_state, ids, labels)`` -> (parameters,
+    opt_state, {"loss", "grad_norm", "lr"}), serve ``fn(model, ids)`` ->
+    logits, retrieval ``fn(model, query_ids, cand_reps)`` -> (scores,
+    rows) over ``n_candidates`` padded to twice the mesh's devices."""
+    from repro_torch.launch.steps import StepBundle, tree_specs
+
+    cfg = spec.model
+    f_pad = fields_padded(spec, mesh)
+    model = recsys_model(spec, mesh, device="meta")
+    rules = recsys_rules(mesh)
+    if rule_overrides:
+        rules = rules.with_overrides(**rule_overrides)
+    p_axes = model.param_axes()
+    p_specs = tree_specs(rules, p_axes)
+    h, b = cfg.multi_hot, shape.batch
+
+    def meta(*shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    ids_spec = rules.spec("batch", None, None)
+    if shape.kind == "train":
+        def train_fn(model, opt_state, ids, labels):
+            opt_state, met = recsys_train_step(model, opt_state, ids, labels)
+            return dict(model.named_parameters()), opt_state, met
+
+        met_specs = {k: rules.spec() for k in ("loss", "grad_norm", "lr")}
+        o_specs = tree_specs(rules, opt_state_axes(p_axes))
+        return StepBundle(
+            fn=train_fn,
+            abstract_args=(model,
+                           init_opt_state(dict(model.named_parameters())),
+                           meta(b, f_pad, h),
+                           meta(b, dtype=torch.float32)),
+            in_specs=(p_specs, o_specs, ids_spec, rules.spec("batch")),
+            out_specs=(p_specs, o_specs, met_specs),
+            rules=rules, donate_argnums=(0, 1),
+            meta={"kind": "recsys_train", "f_pad": f_pad},
+        )
+
+    if shape.kind == "serve":
+        return StepBundle(
+            fn=recsys_serve_step,
+            abstract_args=(model, meta(b, f_pad, h)),
+            in_specs=(p_specs, ids_spec),
+            out_specs=rules.spec("batch"),
+            rules=rules,
+            meta={"kind": "recsys_serve", "f_pad": f_pad},
+        )
+
+    # retrieval: 1 query against n_candidates item representations
+    n_cand = _pad_to(shape.n_candidates, mesh_size(mesh) * 2)
+    return StepBundle(
+        fn=recsys_retrieval_step,
+        abstract_args=(model, meta(1, f_pad, h),
+                       meta(n_cand, model.d_repr, dtype=torch.float32)),
+        in_specs=(p_specs, rules.spec(None, None, None),
+                  rules.spec("candidate", None)),
+        out_specs=(rules.spec(), rules.spec()),
+        rules=rules,
+        meta={"kind": "recsys_retrieval", "n_cand": n_cand},
+    )

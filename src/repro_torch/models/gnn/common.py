@@ -73,9 +73,9 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
 def edge_csr(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
              n_nodes: int) -> Optional[EdgeCSR]:
     """The kernel's CSR of a graph whose node table is ``x``, built once
-    for every ``gather_scatter`` of a forward and its backward; None on the
-    CPU, where the plain version needs none."""
-    if x.device.type == "cpu":
+    for every ``gather_scatter`` of a forward and its backward; None off
+    the card (the CPU's plain version and a meta tensor need none)."""
+    if x.device.type != "cuda":
         return None
     return EdgeCSR.build(src, dst, n_nodes, x.shape[0])
 
@@ -149,7 +149,8 @@ class GNNModule(nn.Module):
     seed 0 on that device) as the reference draws them: truncated-normal
     fan-in matrices, unit or zero scales.  ``forward`` is the reference's
     ``node_logits(params, feats, pos, src, dst, edge_mask, n_nodes, chunk)``
-    without the params."""
+    without the params.  On the ``meta`` device nothing is allocated or
+    drawn."""
 
     def __init__(self, cfg, device: DeviceLike = None) -> None:
         super().__init__()
@@ -165,9 +166,19 @@ class GNNModule(nn.Module):
         self._init[id(p)] = init
         return p
 
+    def param_axes(self) -> Dict[str, Tuple]:
+        """The logical axes of each parameter, keyed as
+        ``named_parameters()`` names it.  The reference replicates these
+        small weights: every axis None (a layer of a stack the reference
+        keeps stacked drops its leading ``"layers"``, which no rule
+        shards)."""
+        return {n: (None,) * p.dim() for n, p in self.named_parameters()}
+
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None
                          ) -> None:
+        if self.device.type == "meta":
+            return
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         for p in self.parameters():

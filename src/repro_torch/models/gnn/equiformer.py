@@ -19,6 +19,7 @@ carry a gradient, so the scatter-sums are torch ``index_add``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -120,6 +121,21 @@ class EquiformerV2(GNNModule):
         self.head_w1 = self.param(self.c, self.c, init=self.c)
         self.head_w2 = self.param(self.c, n_out, init=self.c)
         self.reset_parameters(generator)
+
+    def param_axes(self) -> Dict[str, Tuple]:
+        """The reference's axes: the SO(2) maps and the FiLM filter shard
+        their channels (``"channel"``, ``"channel_out"``); every other
+        weight is replicated.  Keyed as ``named_parameters()`` names them,
+        one layer at a time (the reference stacks the layers under a
+        leading ``"layers"`` axis, which no rule shards)."""
+        axes = super().param_axes()
+        for i, lp in enumerate(self.layers):
+            for m, group in lp.so2.m.items():
+                for w in group:
+                    axes[f"layers.{i}.so2.m.{m}.{w}"] = (
+                        None, "channel", None, "channel_out")
+            axes[f"layers.{i}.so2.film"] = (None, "channel")
+        return axes
 
     # -- equivariant pieces -------------------------------------------------
 
@@ -318,6 +334,18 @@ class EquiformerV2(GNNModule):
         return (h @ self.head_w2.to(h.dtype)).float()
 
 
+def _chunk_pass(x: torch.Tensor, sb: torch.Tensor, db: torch.Tensor,
+                mb: torch.Tensor):
+    """(context, chunks) of one pass over the edge chunks: every chunk; on
+    meta tensors, whose chunks differ in nothing but values, the first,
+    counted once for each chunk by an operation count
+    (``launch/op_analysis.repeat``)."""
+    if x.device.type != "meta":
+        return contextlib.nullcontext(), zip(sb, db, mb)
+    from repro_torch.launch.op_analysis import repeat
+    return repeat(sb.shape[0]), zip(sb[:1], db[:1], mb[:1])
+
+
 class _ChunkedAgg(torch.autograd.Function):
     """The chunked attention-aggregation as one primitive (the reference's
     custom VJP, ``equiformer.py:308-351``).  The forward runs two passes
@@ -337,21 +365,28 @@ class _ChunkedAgg(torch.autograd.Function):
         p = _unflat(like, list(ts))
         node_max = torch.full((n_nodes,), -torch.inf, dtype=torch.float32,
                               device=x.device)
-        for s_c, d_c, m_c in zip(sb, db, mb):
-            logits = model._edge_logits_fast(p, x, pos, s_c, d_c, m_c)
-            lmax = torch.max(logits, dim=-1).values
-            node_max.scatter_reduce_(0, d_c.long(),
-                                     torch.where(m_c > 0, lmax, -torch.inf),
-                                     "amax")
+        scope, chunks = _chunk_pass(x, sb, db, mb)
+        with scope:
+            for s_c, d_c, m_c in chunks:
+                logits = model._edge_logits_fast(p, x, pos, s_c, d_c, m_c)
+                lmax = torch.max(logits, dim=-1).values
+                node_max.scatter_reduce_(
+                    0, d_c.long(), torch.where(m_c > 0, lmax, -torch.inf),
+                    "amax")
         node_max = torch.where(torch.isfinite(node_max), node_max, 0.0)
         num = torch.zeros((n_nodes, model.n_coef, model.c), dtype=x.dtype,
                           device=x.device)
         den = torch.zeros((n_nodes,), dtype=torch.float32, device=x.device)
-        for s_c, d_c, m_c in zip(sb, db, mb):
-            msg, scal = model._chunk_messages(p, x[s_c], pos, s_c, d_c, m_c)
-            w = torch.where(m_c > 0, torch.exp(scal - node_max[d_c]), 0.0)
-            num.index_add_(0, d_c, (msg * w[:, None, None]).to(num.dtype))
-            den.index_add_(0, d_c, w)
+        scope, chunks = _chunk_pass(x, sb, db, mb)
+        with scope:
+            for s_c, d_c, m_c in chunks:
+                msg, scal = model._chunk_messages(p, x[s_c], pos, s_c, d_c,
+                                                  m_c)
+                w = torch.where(m_c > 0, torch.exp(scal - node_max[d_c]),
+                                0.0)
+                num.index_add_(0, d_c, (msg * w[:, None, None]).to(
+                    num.dtype))
+                den.index_add_(0, d_c, w)
         den = torch.clamp(den, min=1e-9)
         agg = num / den[:, None, None].to(num.dtype)
         ctx.model, ctx.like = model, like
@@ -364,25 +399,36 @@ class _ChunkedAgg(torch.autograd.Function):
         model = ctx.model
         p_bar = [torch.zeros_like(t) for t in ts]
         x_bar = torch.zeros_like(x)
-        for s_c, d_c, m_c in zip(sb, db, mb):
-            with torch.enable_grad():
-                leaves = [t.detach().requires_grad_() for t in ts]
-                rows = x[s_c].detach().requires_grad_()
-                msg, scal = model._chunk_messages(_unflat(ctx.like, leaves),
-                                                  rows, pos, s_c, d_c, m_c)
-                w = torch.where(m_c > 0, torch.exp(scal.detach()
-                                                   - node_max[d_c])
-                                / den[d_c], 0.0)
-                g_dst = g[d_c]                              # [e, n_coef, C]
-                msg_bar = (g_dst * w[:, None, None]).to(msg.dtype)
-                inner = torch.sum(g_dst * (msg.detach() - agg[d_c]),
-                                  dim=(1, 2))
-                scal_bar = (w * inner).to(scal.dtype)
-                grads = torch.autograd.grad((msg, scal), leaves + [rows],
-                                            (msg_bar, scal_bar),
-                                            allow_unused=True)
-            for acc, gr in zip(p_bar, grads[:-1]):
-                if gr is not None:
-                    acc.add_(gr)
-            x_bar.index_add_(0, s_c, grads[-1])
+        scope, chunks = _chunk_pass(x, sb, db, mb)
+        with scope:
+            for s_c, d_c, m_c in chunks:
+                _ChunkedAgg._chunk_grads(model, ctx.like, g, x, pos, s_c,
+                                         d_c, m_c, node_max, den, agg, ts,
+                                         p_bar, x_bar)
         return (None, None, None, x_bar, None, None, None, None, *p_bar)
+
+    @staticmethod
+    def _chunk_grads(model, like, g, x, pos, s_c, d_c, m_c, node_max, den,
+                     agg, ts, p_bar, x_bar) -> None:
+        """One chunk's messages recomputed and their cotangents pushed into
+        ``p_bar`` and ``x_bar``."""
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ts]
+            rows = x[s_c].detach().requires_grad_()
+            msg, scal = model._chunk_messages(_unflat(like, leaves),
+                                              rows, pos, s_c, d_c, m_c)
+            w = torch.where(m_c > 0, torch.exp(scal.detach()
+                                               - node_max[d_c])
+                            / den[d_c], 0.0)
+            g_dst = g[d_c]                              # [e, n_coef, C]
+            msg_bar = (g_dst * w[:, None, None]).to(msg.dtype)
+            inner = torch.sum(g_dst * (msg.detach() - agg[d_c]),
+                              dim=(1, 2))
+            scal_bar = (w * inner).to(scal.dtype)
+            grads = torch.autograd.grad((msg, scal), leaves + [rows],
+                                        (msg_bar, scal_bar),
+                                        allow_unused=True)
+        for acc, gr in zip(p_bar, grads[:-1]):
+            if gr is not None:
+                acc.add_(gr)
+        x_bar.index_add_(0, s_c, grads[-1])

@@ -33,7 +33,8 @@ class AutoInt(nn.Module):
     [F d_attn, 1].  Drawn from ``generator`` (default: seed 0 on that
     device) in that order: the tables 0.02 x a normal, the matrices
     truncated normals of their fan-in (``autoint_params_from_jax`` loads
-    the reference's own)."""
+    the reference's own).  On the ``meta`` device nothing is allocated or
+    drawn."""
 
     def __init__(self, cfg: RecsysConfig,
                  n_fields_padded: Optional[int] = None,
@@ -65,9 +66,18 @@ class AutoInt(nn.Module):
         self.w_out = param(self.d_repr, 1)
         self.reset_parameters(generator)
 
+    def param_axes(self) -> Dict[str, Tuple]:
+        """The reference's axes, keyed as ``named_parameters()`` names
+        them: the tables shard by field, the small attention weights and
+        the output layer are replicated."""
+        return {n: ("field", None, None) if n == "tables"
+                else (None,) * p.dim() for n, p in self.named_parameters()}
+
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None
                          ) -> None:
+        if self.device.type == "meta":
+            return
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         embed_init_(self.tables, generator)

@@ -7,8 +7,10 @@ layers; MLA latent attention with the absorbed decode (DeepSeek-V2).
 Parameters keep the reference's stacked layout, one stack of dense layers
 (``layers``: ``wq`` [L, d, H, hd], ``wo`` [L, H, hd, d], ...) and, for a
 MoE config, one of MoE layers (``moe_layers``), so :func:`params_from_jax`
-loads a reference param tree as it is.  One card has no mesh, so there
-are no sharding rules.  On the card the GQA prefill and MLA's prefill run
+loads a reference param tree as it is.  The model runs on one device and
+applies no sharding rules; ``param_axes`` and ``cache_axes`` name each
+tensor's logical axes for the step bundles' partition specs
+(``launch/steps.py``).  On the card the GQA prefill and MLA's prefill run
 through the hand-written flash-attention kernel and the GQA decode through
 the decode-attention kernel; on the CPU through their plain versions.
 MLA's absorbed decode is plain torch in float32, as the reference's is.
@@ -47,6 +49,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import (
     moe_ffn,
+    moe_param_axes,
     moe_param_path,
     moe_param_shapes,
     nest_moe_params,
@@ -93,6 +96,45 @@ def _ffn_shapes(cfg: TransformerConfig, moe: bool
     return {"w_gate": ((d, f), d), "w_up": ((d, f), d), "w_down": ((f, d), f)}
 
 
+def _attn_axes(cfg: TransformerConfig) -> Dict[str, Tuple]:
+    """The logical axes of each attention weight of one layer (the
+    reference's ``_attn_axes``)."""
+    if cfg.is_mla:
+        p = {"wkv_a": ("p_embed", None), "kv_a_norm": (None,),
+             "wkv_b": (None, "p_heads", None),
+             "wo": ("p_heads", None, "p_embed")}
+        if cfg.q_lora_rank:
+            p.update(wq_a=("p_embed", None), q_a_norm=(None,),
+                     wq_b=(None, "p_heads", None))
+        else:
+            p["wq"] = ("p_embed", "p_heads", None)
+        return p
+    p = {"wq": ("p_embed", "p_heads", None),
+         "wk": ("p_embed", "p_kv_heads", None),
+         "wv": ("p_embed", "p_kv_heads", None),
+         "wo": ("p_heads", None, "p_embed")}
+    if cfg.qk_norm:
+        p.update(q_norm=(None,), k_norm=(None,))
+    return p
+
+
+def _layer_axes(cfg: TransformerConfig, moe: bool) -> Dict[str, Tuple]:
+    """Every weight of one layer under its flat name -> its logical axes;
+    a MoE layer's as ``moe_param_axes`` gives them."""
+    if moe:
+        nested = moe_param_axes(cfg)
+        ffn = {}
+        for name in moe_param_shapes(cfg):
+            node = nested
+            for key in moe_param_path(name):
+                node = node[key]
+            ffn[name] = node
+    else:
+        ffn = {"w_gate": ("p_embed", "p_mlp"), "w_up": ("p_embed", "p_mlp"),
+               "w_down": ("p_mlp", "p_embed")}
+    return {"ln1": (None,), "ln2": (None,), **_attn_axes(cfg), **ffn}
+
+
 def _layer_shapes(cfg: TransformerConfig, moe: bool
                   ) -> Dict[str, Tuple[Tuple, int]]:
     """Every weight of one dense or MoE layer, as :func:`_attn_shapes`."""
@@ -106,7 +148,9 @@ class LM(nn.Module):
     ``LM(cfg, device=None)`` allocates the parameters on the CUDA card (or
     on ``device``) in ``cfg.dtype`` (norm scales and the router in float32)
     and initialises them there from ``generator`` (default: seed 0 on that
-    device); with no card and no device named it raises.  ``layers`` holds
+    device); with no card and no device named it raises.  On the ``meta``
+    device nothing is allocated or drawn: the model has its parameters'
+    shapes and dtypes only (the step bundles' abstract arguments).  ``layers`` holds
     the dense layers (``first_dense_layers`` of a MoE config, else all),
     ``moe_layers`` the MoE layers (None without MoE)."""
 
@@ -137,6 +181,8 @@ class LM(nn.Module):
 
         self.layers = stack(self.n_dense, False)
         self.moe_layers = stack(self.n_moe, True) if self.n_moe else None
+        if self.device.type == "meta":
+            return
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.init(generator)
@@ -155,6 +201,22 @@ class LM(nn.Module):
         cols = {name: t.unbind(0) for name, t in lp.items()}
         for i in range(len(next(iter(cols.values())))):
             yield {name: c[i] for name, c in cols.items()}
+
+    def param_axes(self) -> Dict[str, Tuple]:
+        """The logical axes of each parameter, keyed as
+        ``named_parameters()`` names it: the reference's ``param_axes``
+        leaf for leaf (a stack's leading axis is ``"layers"``)."""
+        top = {"embed": ("p_vocab", "p_embed"), "final_norm": (None,),
+               "lm_head": ("p_embed", "p_vocab")}
+        stacks = {"layers": _layer_axes(self.cfg, False),
+                  "moe_layers": _layer_axes(self.cfg, True)
+                  if self.n_moe else {}}
+        axes: Dict[str, Tuple] = {}
+        for name, _ in self.named_parameters():
+            stack, _, leaf = name.partition(".")
+            axes[name] = ("layers",) + stacks[stack][leaf] if leaf \
+                else top[name]
+        return axes
 
     # -- init ---------------------------------------------------------------
 
@@ -393,6 +455,23 @@ class LM(nn.Module):
         hd]; for MLA (c_kv [n, batch, max_seq, dc], k_rope [n, batch,
         max_seq, dr]).  It takes the place of the abstract ``cache_spec``."""
         return self._new_cache(batch, max_seq, torch.zeros)
+
+    def cache_spec(self, batch: int, max_seq: int) -> Cache:
+        """:meth:`init_cache`'s layout, shapes and dtypes as ``meta``
+        tensors: nothing is allocated (the reference's abstract
+        ``cache_spec``)."""
+        return {key: tuple(torch.empty(shape, dtype=self.dtype,
+                                       device="meta")
+                           for shape in self._cache_shapes(n, batch,
+                                                           max_seq))
+                for key, _, n in self._stacks()}
+
+    def cache_axes(self) -> Dict[str, Tuple[Tuple, Tuple]]:
+        """The logical axes of each cache tensor, laid out as the cache."""
+        cfg = self.cfg
+        one = (("layers", "batch", "kv_seq", None) if cfg.is_mla
+               else ("layers", "batch", "kv_seq", "kv_heads", None))
+        return {key: (one, one) for key, _, _ in self._stacks()}
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, tokens, pos

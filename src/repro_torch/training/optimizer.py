@@ -52,6 +52,12 @@ def init_opt_state(params: Tensors) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def opt_state_axes(param_axes: Dict[str, Any]) -> Dict[str, Any]:
+    """The optimizer state's logical axes: the moments take their
+    parameters' axes, the step none (the reference's ``opt_state_axes``)."""
+    return {"m": param_axes, "v": param_axes, "step": None}
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
