@@ -5,7 +5,7 @@
                           [--out results.json]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all at once), then runs sixteen phases and fails if any
+per source, all at once), then runs seventeen phases and fails if any
 fails:
 
 1. kernels against plain: each kernel's wrapper against its plain PyTorch
@@ -177,7 +177,18 @@ fails:
    float32, the same weights on the card and the CPU: logits, loss,
    gradients and the parameters after one ``recsys_train_step`` within
    1e-5.
-16. dryrun, last: operation counts (``launch/op_analysis.py``).  Three
+16. dtensor route: the steps on DTensors over the one-rank NCCL 1 x 1 mesh
+   (``make_smoke_mesh("cuda")``), every placement local, so the same
+   kernels run on the same shapes: llama3-8b at full width cut to 2 layers
+   (the loss and gradients of ``loss_fn`` through flash forward and
+   backward, the parameters after one ``train_step``, prefill and 4 decode
+   steps' logits through the decode kernel), graphsage-reddit on a
+   200,000-node graph and AutoInt's train_batch cut (``gather_scatter``):
+   each equal to the plain route's bit for bit, as two plain runs are to
+   each other (256 positions: the bf16 backward's dq sums at most two
+   terms, in any order the same); one weight element changed in a
+   routed parameter's local shard runs to its end and must fail each.
+17. dryrun, last: operation counts (``launch/op_analysis.py``).  Three
    training steps of the paths above at their own shapes, train-8b-8L,
    gnn-products and AutoInt's train_batch, each counted on the meta device
    and on the card through its ``StepBundle``'s ``fn`` (the hand kernels'
@@ -189,10 +200,17 @@ fails:
    D / step s / 989 TFLOP/s.  Then ``launch/dryrun.py``'s ``run_cell`` at
    mesh ``one`` for all 40 cells of ``all_cells()`` on meta, at full
    size, in worker processes: seconds, FLOPs, argument and peak GB,
-   whether the peak fits 80 GB; a failed cell fails the phase.
+   whether the peak fits 80 GB; a failed cell fails the phase.  Then 8
+   sharded counts: llama3-8b and deepseek-moe-16b train_4k,
+   graphsage-reddit ogb_products and AutoInt train_batch on the 16 x 16
+   and 2 x 16 x 16 meshes, each on DTensors over a fake process group in
+   worker processes of its mesh: per-device FLOPs, bytes, peak GB,
+   collectives by kind, collective s (at 50 GB/s a GPU) and the dominant
+   roofline term; a count that fails or has no collective fails the
+   phase.
 
 Launch counts are zeroed just before each main path (phases 2-3, the
-single node; phase 4, the cluster; phases 5, 6, 7, 8, 9, 10, 14 and 16,
+single node; phase 4, the cluster; phases 5, 6, 7, 8, 9, 10, 14 and 17,
 each alone) and read just after it; every kernel of a path must have launched
 on it.  ``--profile`` runs each serving request, each PQ search mode, one
 cluster kNN, one fan-out request, one prefill and one decode step of each
@@ -3525,6 +3543,281 @@ def phase_recsys_parity(torch):
 
 
 # ---------------------------------------------------------------------------
+# the DTensor route on a one-rank mesh: the same kernels on the same shapes
+# ---------------------------------------------------------------------------
+
+ROUTE_LM = (8, 256)            # the LM check's tokens: 2 rows a micro-batch
+# At 256 positions each query row sees at most two key tiles of 128, so the
+# bf16 backward adds at most two float32 terms onto each zeroed dq sum, and
+# a sum of two terms is the same in either order: dq, and with it every
+# tensor of the check, is deterministic by construction.  (From three key
+# tiles on, the order in which the tiles' blocks add to dq changes its last
+# bits from run to run.)
+ROUTE_GRAPH = (200_000, 2_000_000)   # the GNN check's nodes and edges
+ROUTE_RECSYS_ROWS, ROUTE_RECSYS_BATCH = 1000, 4096
+#: plain runs of each route check, which must agree bit for bit (the
+#: check's determinism)
+ROUTE_PLAIN_RUNS = 2
+
+
+def route_diff(want: dict, got: dict) -> list:
+    """The names of the tensors of ``got`` that are not ``want``'s bit for
+    bit (dtype, shape and every bit)."""
+    return [name for name, a in want.items()
+            if not (got[name].dtype == a.dtype and got[name].equal(a))]
+
+
+def route_equal(label: str, plain: list, routed: dict) -> dict:
+    """The plain runs equal each other bit for bit (the check is
+    deterministic), and each tensor of the DTensor route equals theirs."""
+    for other in plain[1:]:
+        diff = route_diff(plain[0], other)
+        check(not diff, f"{label}: the plain runs differ in {diff}")
+    diff = route_diff(plain[0], routed)
+    errs = {n: float((routed[n].float() - plain[0][n].float()).abs().max())
+            for n in diff}
+    check(not diff, f"{label}: off the plain route in {errs}")
+    return {"exact": len(plain[0]), "of": len(plain[0]),
+            "plain_runs": len(plain)}
+
+
+def plant_fault(torch, model, plain: dict) -> str:
+    """A planted fault that runs to its end: in the first parameter of two
+    or more dims of the routed ``model``, the element whose gradient is the
+    largest in the plain run (``plain``'s ``g/<name>``) is raised by the
+    parameter's largest magnitude, in its local shard.  -> the name."""
+    name, p = next((n, p) for n, p in model.named_parameters()
+                   if p.ndim >= 2)
+    i = int(plain[f"g/{name}"].abs().argmax())
+    with torch.no_grad():
+        flat = p.to_local().view(-1)
+        flat[i] += flat.abs().max()
+    return name
+
+
+def planted_caught(label: str, run, plain: dict) -> dict:
+    """The route check with a planted fault (``run()``, which must run to
+    its end) must fail: a metric or a gradient differs from the plain
+    run's."""
+    got = run()
+    diff = route_diff(plain, got)
+    caught = [n for n in diff if n.startswith(("m/", "g/"))]
+    check(bool(caught), f"{label}: a planted changed weight went unnoticed")
+    return {"differ": len(diff), "metrics_or_grads": len(caught)}
+
+
+def phase_dtensor_route(torch):
+    """The DTensor route (``kernels/sharded.py``, the models' constraints,
+    ``distributed/sharding.py::place_tree``) on the one-rank NCCL 1 x 1
+    mesh (``make_smoke_mesh("cuda")``), where every placement is local:
+    the same kernels run on the same shapes as on plain tensors.  (a)
+    llama3-8b at full width cut to 2 layers (bf16, remat, FSDP rules):
+    the loss and every gradient of ``loss_fn`` (flash forward and
+    backward), every parameter after one ``train_step`` (4 micro-batches),
+    the prefill's logits and 4 decode steps' logits (decode kernel);
+    (b) graphsage-reddit on a 200,000-node power-law graph of 2,000,000
+    edges (``gather_scatter``): the loss, every gradient and the
+    parameters after one ``gnn_train_step``; (c) AutoInt at full width,
+    1,000 rows a table, train_batch's 4,096-row cut (the bag through
+    ``gather_scatter``): the same.  Each against the plain route, bit for
+    bit (``route_equal``; ROUTE_LM says why the check is deterministic);
+    each also with one weight element changed in its local shard
+    (``plant_fault``), which runs to its end and must fail the check.  (On
+    a one-rank mesh a wrong placement either changes nothing or raises on
+    its global shape.)"""
+    import numpy as np
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.base import LMShape
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.launch.gnn_steps import (GNNCell, gnn_batch, gnn_bundle,
+                                              gnn_loss, gnn_model,
+                                              gnn_train_step)
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.recsys_steps import (field_mask, recsys_bundle,
+                                                 recsys_model,
+                                                 recsys_train_step)
+    from repro_torch.launch.steps import _lm_bundle, train_step
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.optimizer import gradients, init_opt_state
+
+    dev = torch.device("cuda")
+    mesh = make_smoke_mesh("cuda")
+    out = {}
+
+    def placed(args, specs):
+        return tuple(place_tree(a, s, mesh, values=True)
+                     for a, s in zip(args, specs))
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def flat(metrics, model=None, grads=None):
+        res = {f"m/{k}": whole(v).detach() for k, v in metrics.items()}
+        if model is not None:
+            res.update({f"p/{k}": whole(p).detach()
+                        for k, p in model.named_parameters()})
+        if grads is not None:
+            res.update({f"g/{k}": whole(g).detach()
+                        for k, g in grads.items()})
+        return res
+
+    # (a) llama3-8b, 2 layers at full width
+    spec = get_arch(LM_ARCH)
+    cfg = reduced(spec.model, n_layers=2)
+    b, s_len = ROUTE_LM
+    lm_spec = dataclasses.replace(spec, model=cfg)
+    train_b = _lm_bundle(lm_spec, LMShape("route", s_len, b, "train"), mesh)
+    pre_b = _lm_bundle(lm_spec, LMShape("route", s_len, b, "prefill"),
+                       mesh)
+    dec_b = _lm_bundle(lm_spec, LMShape("route", s_len, b, "decode"), mesh)
+    gen = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (b, s_len), generator=gen).to(dev)
+    labs = torch.randint(0, cfg.vocab_size, (b, s_len), generator=gen).to(dev)
+
+    def lm_run(route: bool, fault: dict = None) -> dict:
+        model = LM(cfg, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(11))
+        opt = init_opt_state(dict(model.named_parameters()))
+        t, lab = toks, labs
+        if route:
+            model.rules = train_b.rules
+            model, opt, t, lab = placed((model, opt, t, lab),
+                                        train_b.in_specs)
+            if fault is not None:
+                plant_fault(torch, model, fault)
+        with implicit_replication():
+            loss, _ = model.loss_fn(t, lab)
+            grads = gradients(loss, dict(model.named_parameters()))
+            res = flat({"loss": loss}, grads=grads)
+            del grads
+            _, met = train_step(model, opt, t, lab)
+            res.update(flat(met, model))
+            del opt
+            if route:
+                model.rules = pre_b.rules
+            logits, cache = model.prefill(
+                place_tree(toks[:, :64], pre_b.in_specs[1], mesh,
+                           values=True) if route else toks[:, :64])
+            res["prefill"] = whole(logits)
+            full = model.init_cache(b, s_len)
+            if route:
+                model.rules = dec_b.rules
+                full = place_tree(full, dec_b.in_specs[1], mesh, values=True)
+            for key, pair in cache.items():
+                for dst, src in zip(full[key], pair):
+                    (dst.to_local() if route else dst)[:, :, :64].copy_(
+                        whole(src))
+            nxt = toks[:, 64:65]
+            for step in range(4):
+                pos = torch.full((b,), 64 + step, dtype=torch.int32,
+                                 device=dev)
+                tk, ps = nxt, pos
+                if route:
+                    tk = place_tree(nxt, dec_b.in_specs[2], mesh, values=True)
+                    ps = place_tree(pos, dec_b.in_specs[3], mesh, values=True)
+                logits, full = model.decode_step(full, tk, ps)
+                res[f"decode{step}"] = whole(logits)
+                nxt = whole(logits).argmax(-1, keepdim=True).to(torch.int32)
+        del model, full, cache
+        torch.cuda.empty_cache()
+        return res
+
+    plain = [lm_run(False) for _ in range(ROUTE_PLAIN_RUNS)]
+    routed = lm_run(True)
+    out["lm"] = route_equal("llama3-8b 2L route", plain, routed)
+    out["lm"]["planted"] = planted_caught(
+        "llama3-8b 2L route", lambda: lm_run(True, fault=plain[0]),
+        plain[0])
+    log(f"[dtensor route] llama3-8b 2 layers full width: {out['lm']}")
+    del plain, routed
+    torch.cuda.empty_cache()
+
+    # (b) graphsage-reddit
+    gspec = get_arch("graphsage-reddit")
+    n, e = ROUTE_GRAPH
+    rng = np.random.default_rng(13)
+    src, dst = power_law_edges_dev(torch, rng, n, e, dev)
+    cell = GNNCell(n_nodes=n, n_edges=e, d_feat=100, n_out=47,
+                   needs_pos=False, shard_nodes=False, channel_shard=False,
+                   chunk=None)
+    batch = gnn_batch(cell, {
+        "feats": rng.standard_normal((n, 100), dtype=np.float32),
+        "src": src, "dst": dst,
+        "labels": rng.integers(0, 47, n).astype(np.int32)}, dev)
+    g_specs = gnn_bundle(gspec, gspec.shapes["ogb_products"], mesh).in_specs
+
+    def gnn_run(route: bool, fault: dict = None) -> dict:
+        model = gnn_model(gspec, cell, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(14))
+        opt = init_opt_state(dict(model.named_parameters()))
+        bt = batch
+        if route:
+            model, opt, bt = placed((model, opt, batch), g_specs)
+            if fault is not None:
+                plant_fault(torch, model, fault)
+        with implicit_replication():
+            loss, _ = gnn_loss(model, bt, cell)
+            grads = gradients(loss, dict(model.named_parameters()))
+            res = flat({"loss": loss}, grads=grads)
+            _, met = gnn_train_step(model, opt, bt, cell)
+        res.update(flat(met, model))
+        return res
+
+    plain = [gnn_run(False) for _ in range(ROUTE_PLAIN_RUNS)]
+    routed = gnn_run(True)
+    out["gnn"] = route_equal("graphsage route", plain, routed)
+    out["gnn"]["planted"] = planted_caught(
+        "graphsage route", lambda: gnn_run(True, fault=plain[0]), plain[0])
+    log(f"[dtensor route] graphsage-reddit {n} nodes {e} edges: "
+        f"{out['gnn']}")
+    del batch, src, dst, plain, routed
+    torch.cuda.empty_cache()
+
+    # (c) AutoInt train_batch, cut
+    rspec = recsys_spec()
+    rspec = dataclasses.replace(rspec, model=dataclasses.replace(
+        rspec.model, vocab_per_field=ROUTE_RECSYS_ROWS))
+    rcfg = rspec.model
+    r_specs = recsys_bundle(rspec, rspec.shapes["train_batch"],
+                            mesh).in_specs
+    rb = ROUTE_RECSYS_BATCH
+    ids = torch.from_numpy(rng.integers(
+        0, ROUTE_RECSYS_ROWS, (rb, recsys_model(rspec, device="meta").f,
+                               rcfg.multi_hot), dtype=np.int32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 2, rb).astype(
+        np.float32)).to(dev)
+
+    def recsys_run(route: bool, fault: dict = None) -> dict:
+        model = recsys_model(rspec, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(15))
+        mask = field_mask(model)
+        opt = init_opt_state(dict(model.named_parameters()))
+        i, lab = ids, labels
+        if route:
+            model, opt, i, lab = placed((model, opt, ids, labels), r_specs)
+            if fault is not None:
+                plant_fault(torch, model, fault)
+        with implicit_replication():
+            loss = model.loss_fn(i, lab, mask)
+            grads = gradients(loss, dict(model.named_parameters()))
+            res = flat({"loss": loss}, grads=grads)
+            _, met = recsys_train_step(model, opt, i, lab)
+        res.update(flat(met, model))
+        return res
+
+    plain = [recsys_run(False) for _ in range(ROUTE_PLAIN_RUNS)]
+    routed = recsys_run(True)
+    out["recsys"] = route_equal("autoint route", plain, routed)
+    out["recsys"]["planted"] = planted_caught(
+        "autoint route", lambda: recsys_run(True, fault=plain[0]), plain[0])
+    log(f"[dtensor route] autoint {ROUTE_RECSYS_ROWS} rows a table, "
+        f"{rb} samples: {out['recsys']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the dry run: operation counts on meta and on the card
 # ---------------------------------------------------------------------------
 
@@ -3534,6 +3827,12 @@ DRY_BYTES_REL = 0.10     # meta vs card bytes (the wrappers' own set-up,
 DRY_LM_FLOPS_REL = 0.02  # the LM step's FLOPs vs train_flops' executed count
 DRY_TIMED_STEPS = 3
 DRYRUN_JOBS = 6          # worker processes of the 40-cell dry run
+#: the cells counted per device on the production meshes, each mesh's in
+#: worker processes of their own (a process holds one process group, and
+#: this one holds the distributed phase's NCCL rank)
+SHARDED_CELLS = (("llama3-8b", "train_4k"), ("deepseek-moe-16b", "train_4k"),
+                 ("graphsage-reddit", "ogb_products"),
+                 ("autoint", "train_batch"))
 
 
 def meta_card_case(torch, label: str, bundle, card_args, peak: float
@@ -3604,7 +3903,12 @@ def phase_dryrun(torch):
     (within 2%) and MFU = model_flops / step s / 989 TFLOP/s.  (b) All 40
     cells of ``all_cells()`` at mesh ``one`` on meta, at full size, in
     DRYRUN_JOBS worker processes: each cell's seconds, FLOPs, argument GB
-    and whether its peak fits 80 GB; a cell that fails fails the phase."""
+    and whether its peak fits 80 GB; a cell that fails fails the phase.
+    (c) SHARDED_CELLS on the 16 x 16 and 2 x 16 x 16 meshes: each step on
+    DTensors over a fake process group, counted per device (FLOPs, bytes,
+    peak, collectives by kind, the roofline's three terms), each mesh's
+    counts in worker processes of their own; a count that fails or finds
+    no collective fails the phase."""
     import gc
 
     import numpy as np
@@ -3726,6 +4030,40 @@ def phase_dryrun(torch):
         f"{out['cells_wall_s']:.1f}s on {n_proc} processes")
     check(not failed, f"dry-run cells failed: {failed}")
     check(len(cells) == 40, f"{len(cells)} dry-run cells, not 40")
+
+    # (c) sharded counts: per device on the 16 x 16 and 2 x 16 x 16 meshes
+    jobs = [(a, s, m) for m in ("single", "multi") for a, s in SHARDED_CELLS]
+    t0 = time.perf_counter()
+    sharded, failed = {}, []
+    for res in run_cells(jobs, min(len(SHARDED_CELLS), n_proc)):
+        tag = f"{res['arch']} {res['shape']} {res['mesh']}"
+        if "error" in res:
+            failed.append(tag)
+            log(f"[dryrun] sharded {tag} FAILED: {res['error']}\n"
+                f"{res['traceback']}")
+            continue
+        r = res["roofline"]
+        sharded[tag] = {k: res[k] for k in (
+            "n_chips", "seconds", "flops", "bytes", "peak_bytes",
+            "collectives", "collective_bytes", "fits_80GB",
+            "useful_flops_ratio")}
+        sharded[tag].update(compute_s=r["compute_s"], memory_s=r["memory_s"],
+                            collective_s=r["collective_s"],
+                            dominant=r["dominant"])
+        kinds = " ".join(f"{k}={e['count']:g}x/{e['bytes'] / 1e9:.4g}GB"
+                         for k, e in sorted(res["collectives"].items()))
+        log(f"[dryrun] sharded {tag} ({res['n_chips']} chips, "
+            f"{res['seconds']:.1f}s): per device flops={res['flops']:.6g} "
+            f"bytes={res['bytes']:.6g} peak={res['peak_bytes'] / 1e9:.3f} "
+            f"GB collectives {kinds} collective_s={r['collective_s']:.6g} "
+            f"compute_s={r['compute_s']:.6g} memory_s={r['memory_s']:.6g} "
+            f"dominant={r['dominant']} fits_80GB={res['fits_80GB']}")
+        check(res["collectives"], f"sharded {tag}: no collective counted")
+    out["sharded"] = sharded
+    out["sharded_wall_s"] = time.perf_counter() - t0
+    log(f"[dryrun] {len(sharded)} of {len(jobs)} sharded counts in "
+        f"{out['sharded_wall_s']:.1f}s")
+    check(not failed, f"sharded dry-run counts failed: {failed}")
     return out
 
 
@@ -3867,6 +4205,7 @@ def main() -> int:
     run("train_parity_bf16", phase_train_parity_bf16, torch)
     run("gnn_parity", phase_gnn_parity, torch)
     run("recsys_parity", phase_recsys_parity, torch)
+    run("dtensor_route", phase_dtensor_route, torch)
     paths["dryrun"] = main_path(
         "dryrun", ("flash_attention", "flash_attention_bwd",
                    "gather_scatter"), ("dryrun", phase_dryrun, torch))

@@ -16,6 +16,15 @@ Physical axes:
 sizes: a ``DeviceMesh`` (``mesh_dim_names``, ``size(i)``) or any object with
 ``axis_names`` and a ``shape`` mapping, so rule tables for large meshes can
 be built and checked without their devices.
+
+``place`` and ``place_tree`` turn tensors into ``DTensor``s by their specs
+with no collective: each becomes ``DTensor.from_local`` of this rank's
+shard, an empty tensor of the shard's shape on the tensor's own device
+(``meta`` in the dry run), with the global shape and stride.  An uneven
+dimension is cut as ``torch.chunk`` cuts it: rank 0 holds the largest
+shard.  ``place_module`` does the same for a module's parameters, in place.
+With ``values`` (``distribute``) each rank keeps its chunk of the
+tensor's values instead, still with no collective.
 """
 from __future__ import annotations
 
@@ -156,14 +165,34 @@ def spec_placements(mesh: Any, spec: Spec) -> List[Any]:
             for n in mesh_axes(mesh)]
 
 
-def constrain(x: torch.Tensor, rules: ShardingRules,
+def constrain(x: torch.Tensor, rules: Optional[ShardingRules],
               *axes: Optional[str]) -> torch.Tensor:
-    """Redistribute a ``DTensor`` to the placements of these logical names;
-    a plain tensor is returned unchanged (the reference's no-op off-mesh)."""
-    if not isinstance(x, DTensor):
+    """Redistribute a ``DTensor`` to the placements of these logical names,
+    and its gradient to the same placements in the backward (the
+    reference's ``with_sharding_constraint``, whose transpose constrains
+    the cotangent alike); a plain tensor (or no rules) is returned
+    unchanged (the reference's no-op off-mesh)."""
+    if rules is None or not isinstance(x, DTensor):
         return x
-    return x.redistribute(x.device_mesh,
-                          logical_sharding(x.device_mesh, rules, *axes))
+    placements = tuple(logical_sharding(x.device_mesh, rules, *axes))
+    if not x.requires_grad:
+        return x.redistribute(x.device_mesh, placements)
+    return _Constrain.apply(x, placements)
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, its gradient too."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor):
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
 
 
 def tree_shardings(mesh: Any, rules: ShardingRules, spec_tree: Any) -> Any:
@@ -172,3 +201,85 @@ def tree_shardings(mesh: Any, rules: ShardingRules, spec_tree: Any) -> Any:
         return {k: tree_shardings(mesh, rules, v)
                 for k, v in spec_tree.items()}
     return logical_sharding(mesh, rules, *(spec_tree or ()))
+
+
+def local_shape(shape: Tuple[int, ...], placements: List[Any],
+                mesh: Any) -> Tuple[int, ...]:
+    """The shape of the shard that the mesh's first rank (coordinate 0 on
+    every mesh dim) holds of a tensor of ``shape`` under ``placements``:
+    each ``Shard(d)``, in mesh-dim order, keeps the first ``torch.chunk``
+    piece of dim d, ceil(n / k) of its n rows over k ranks."""
+    out = list(shape)
+    sizes = list(mesh_axes(mesh).values())
+    for k, p in zip(sizes, placements):
+        if isinstance(p, Shard):
+            out[p.dim] = -(-out[p.dim] // k)
+    return tuple(out)
+
+
+def place(t: torch.Tensor, mesh: Any, spec: Spec,
+          device: Optional[torch.device] = None) -> DTensor:
+    """``t`` as a ``DTensor`` on ``mesh`` (a ``DeviceMesh``) placed by the
+    partition ``spec``, made without a collective: this rank's shard is a
+    new empty tensor on ``device`` (default: ``t``'s; its values are not
+    copied: the dry run's tensors are ``meta``), wrapped with ``t``'s global
+    shape and stride."""
+    return place_new(tuple(t.shape), t.dtype, mesh, spec,
+                     device or t.device)
+
+
+def place_new(shape: Tuple[int, ...], dtype: torch.dtype, mesh: Any,
+              spec: Spec, device: Any) -> DTensor:
+    """A new contiguous ``DTensor`` of global ``shape`` placed by ``spec``,
+    its local shard empty on ``device`` (nothing of the global size is
+    allocated)."""
+    placements = spec_placements(mesh, spec)
+    local = torch.empty(local_shape(shape, placements, mesh), dtype=dtype,
+                        device=device)
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.insert(0, n)
+        n *= max(size, 1)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def distribute(t: torch.Tensor, mesh: Any, spec: Spec) -> DTensor:
+    """``t``'s values as a ``DTensor`` placed by ``spec``: each rank keeps
+    its own chunk of ``t`` (which every rank holds whole), with no
+    collective."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, spec_placements(mesh, spec),
+                             src_data_rank=None)
+
+
+def place_tree(arg: Any, spec: Any, mesh: Any, values: bool = False) -> Any:
+    """:func:`place` over a tree of tensors (dicts, tuples, lists) and its
+    tree of specs; with ``values`` each keeps its values
+    (:func:`distribute`).  A module is placed in place
+    (:func:`place_module`) and returned."""
+    if isinstance(arg, torch.nn.Module):
+        return place_module(arg, spec, mesh, values)
+    if isinstance(arg, torch.Tensor):
+        return distribute(arg, mesh, spec) if values else place(arg, mesh,
+                                                                 spec)
+    if isinstance(arg, dict):
+        return {k: place_tree(v, spec[k], mesh, values)
+                for k, v in arg.items()}
+    return type(arg)(place_tree(v, s, mesh, values)
+                     for v, s in zip(arg, spec))
+
+
+def place_module(module: torch.nn.Module, specs: Dict[str, Spec],
+                 mesh: Any, values: bool = False) -> torch.nn.Module:
+    """Replace each parameter of ``module`` (keyed as ``named_parameters``
+    names it in ``specs``) by a parameter holding its :func:`place` (its
+    :func:`distribute` with ``values``)."""
+    for name, p in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        t = p.detach()
+        sub._parameters[leaf] = torch.nn.Parameter(
+            distribute(t, mesh, specs[name]) if values
+            else place(t, mesh, specs[name]), requires_grad=p.requires_grad)
+    return module

@@ -15,7 +15,17 @@ wider heads raise, on the CPU as on the card.  ``pos`` must be >= 0.
 On a ``meta`` tensor it returns an empty output of the kernel's shape and
 dtype and runs neither the kernel nor the plain version.  While an
 operation count runs (``launch/op_analysis.py``) a call on the card or on
-meta records its function's ``work``."""
+meta records its function's ``work``.
+
+On ``DTensor``s it runs on this rank's shards (``kernels/sharded.py``):
+batch rows and heads as the flash wrapper places them, and a cache whose
+positions are sharded (the decode rules' ``kv_seq``) is not gathered:
+each rank weighs its own positions, keeps its rows' log-sum-exp beside
+its output (from the kernel's chunk partials on the card), and the ranks'
+partial softmaxes are combined with an all-reduce of the max and one of
+(weighted output, weight) over the position-sharding mesh dims: the
+flash-decoding combine of ``distributed/collectives.py``'s
+``partial_softmax_combine``."""
 from __future__ import annotations
 
 import ctypes
@@ -23,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import sharded
 from repro_torch.kernels.build import (LaunchCounter, check_launch,
                                       counting_work, load, record_work)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -77,6 +88,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"Dv={v_cache.shape[3]} past {MAX_HEAD_DIM} are not "
                          f"served")
     scale = scale if scale is not None else d ** -0.5
+    if sharded.is_dtensor(q, k_cache, v_cache, pos):
+        return _on_shards(q, k_cache, v_cache, pos, scale)
     if all(t.device.type == "cpu" for t in (q, k_cache, v_cache, pos)):
         return decode_attention_ref(q, k_cache, v_cache, pos, scale=scale)
     if counting_work():
@@ -86,8 +99,71 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return _launch(q, k_cache, v_cache, pos, scale)
 
 
+def _on_shards(q, k_cache, v_cache, pos, scale):
+    """``decode_attention`` on DTensors (the module docstring)."""
+    from repro_torch.kernels.flash_attention.ops import _local_kv
+
+    q, k_cache, v_cache = sharded.attention_inputs(q, k_cache, v_cache,
+                                                   kv_seq=True)
+    pos = sharded.follow(pos, q, {0: 0})
+    kl, vl, _ = _local_kv(q, k_cache, v_cache)
+    b, _, h, _ = q.shape
+    out_shape = (b, 1, h, v_cache.shape[3])
+    ql, pl = q.to_local(), pos.to_local()
+    seq_dims = sharded.sharded_over(k_cache, 1)
+    if not seq_dims:
+        out = decode_attention(ql, kl, vl, pl, scale=scale)
+        return sharded.wrap(out, q, q.placements, out_shape)
+    local = pl - sharded.offset(k_cache, 1)
+    seen = local >= 0                    # the rank holds a visible key
+    out, lse = _with_lse(ql, kl, vl, torch.where(seen, local, 0).to(
+        pl.dtype), scale)
+    lse = torch.where(seen[:, None], lse, float("-inf"))
+    out = _combine(out, lse, k_cache.device_mesh, seq_dims)
+    return sharded.wrap(out, q, q.placements, out_shape)
+
+
+def _with_lse(q, k_cache, v_cache, pos, scale):
+    """``decode_attention`` of local tensors and each (row, head)'s
+    log-sum-exp of its weighed scores [B, H] float32 (natural log)."""
+    b, _, h, d = q.shape
+    if q.device.type == "meta":
+        out = decode_attention(q, k_cache, v_cache, pos, scale=scale)
+        return out, torch.empty((b, h), dtype=torch.float32, device="meta")
+    if q.is_cuda:
+        if counting_work():
+            record_work("decode_attention", work(q, k_cache, v_cache, pos))
+        return _launch(q, k_cache, v_cache, pos, scale, with_lse=True)
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    qg = (q.float() * scale).reshape(b, kvh, h // kvh, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    valid = torch.arange(s, device=q.device)[None, :] <= pos[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    return (decode_attention_ref(q, k_cache, v_cache, pos, scale=scale),
+            torch.logsumexp(scores, dim=-1).reshape(b, h))
+
+
+def _combine(out, lse, mesh, dims):
+    """The ranks' partial softmaxes over the mesh dims ``dims`` -> the
+    whole one: out [B, 1, H, Dv] each rank's normalised output, lse [B, H]
+    its log-sum-exp (-inf where it weighed nothing)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mx = lse
+    for i in dims:
+        mx = funcol.all_reduce(mx, "max", (mesh, i))
+    w = torch.exp(lse - mx)                               # [B, H]
+    num = torch.where(w[:, None, :, None] > 0, out.float(), 0.0) \
+        * w[:, None, :, None]
+    both = torch.cat([num[:, 0], w[..., None]], dim=-1)   # [B, H, Dv + 1]
+    for i in dims:
+        both = funcol.all_reduce(both, "sum", (mesh, i))
+    res = both[..., :-1] / torch.clamp_min(both[..., -1:], 1e-30)
+    return res[:, None].to(out.dtype)
+
+
 def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-            pos: torch.Tensor, scale: float) -> torch.Tensor:
+            pos: torch.Tensor, scale: float, with_lse: bool = False):
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_cuda or t.device != q.device or t.dtype != q.dtype \
                 or not t.is_contiguous():
@@ -106,6 +182,9 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     out = q.new_empty(b, 1, h, dv)
     if s == 0:
         # no key to weigh: the plain version's acc / 1e-30 = 0
+        if with_lse:
+            return out.zero_(), torch.full((b, h), float("-inf"),
+                                           device=q.device)
         return out.zero_()
     chunks = -(-s // CHUNK_KEYS)
     lib = load("decode_attention", _SIGNATURES)
@@ -122,4 +201,16 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
     launches.add()
-    return out
+    if not with_lse:
+        return out
+    # the row's log-sum-exp from its chunks' (max, sum) in base 2, over the
+    # chunks that its visible keys fill (the others are not written)
+    n_c = (torch.clamp(pos.long() + 1, max=s) + CHUNK_KEYS - 1) \
+        // CHUNK_KEYS
+    used = (torch.arange(chunks, device=q.device)[None, :]
+            < n_c[:, None]).repeat_interleave(kvh, 0)[..., None]
+    m = torch.where(used, m, float("-inf"))
+    mx = m.amax(dim=1)
+    lsum = (torch.where(used, l, 0.0) * torch.exp2(m - mx[:, None])).sum(1)
+    lse = (mx + torch.log2(lsum)) * 0.6931471805599453
+    return out, lse.reshape(b, h)

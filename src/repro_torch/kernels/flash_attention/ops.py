@@ -24,7 +24,13 @@ serves every shape the forward serves, padded alike.
 On a ``meta`` tensor both return empty outputs of the kernel's shapes and
 dtypes and run neither the kernel nor the plain version.  While an
 operation count runs (``launch/op_analysis.py``) a call on the card or on
-meta records its function's ``work`` (``bwd_work``)."""
+meta records its function's ``work`` (``bwd_work``).
+
+On ``DTensor``s both run on this rank's shards (``kernels/sharded.py``):
+the batch and the heads may be sharded, any other dim is gathered
+explicitly; where q's heads are sharded and k's are whole, each rank
+reads the key heads of its query heads, and their gradient is a partial
+sum over those mesh dims."""
 from __future__ import annotations
 
 import ctypes
@@ -33,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import sharded
 from repro_torch.kernels.build import (LaunchCounter, check_launch,
                                       counting_work, load, record_work)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
@@ -146,6 +153,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version's key block; the kernel's tile is fixed."""
     _check_shapes(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if sharded.is_dtensor(q, k, v):
+        return _on_shards(q, k, v, causal, scale, bf16_probs, block_kv,
+                          return_stats)
     if _on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    bf16_probs=bf16_probs, block_kv=block_kv,
@@ -183,6 +193,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)}, "
                              f"expected {shape}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if sharded.is_dtensor(q, k, v, o, m, l, do):
+        return _bwd_on_shards(q, k, v, o, m, l, do, causal, scale, block_kv)
     if _on_cpu(q, k, v, o, m, l, do):
         return flash_attention_bwd_ref(q, k, v, o, m, l, do, causal=causal,
                                        scale=scale, block_kv=block_kv)
@@ -191,6 +203,64 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "meta":
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return _launch_bwd(q, k, v, o, m, l, do, causal, scale)
+
+
+#: q's dims -> the row statistics' [B, H, Sq]
+_STATS_DIMS = {0: 0, 2: 1}
+
+
+def _local_kv(q, k, v):
+    """The local k and v, cut to the key heads this rank's query heads
+    read (``sharded.kv_heads_of``)."""
+    heads = sharded.kv_heads_of(q, k)
+    kl, vl = k.to_local(), v.to_local()
+    if heads != slice(0, kl.shape[2]):
+        kl, vl = kl[:, :, heads].contiguous(), vl[:, :, heads].contiguous()
+    return kl, vl, heads
+
+
+def _on_shards(q, k, v, causal, scale, bf16_probs, block_kv, return_stats):
+    """``flash_attention`` on DTensors: each rank's query rows and heads
+    against their keys."""
+    q, k, v = sharded.attention_inputs(q, k, v)
+    kl, vl, _ = _local_kv(q, k, v)
+    res = flash_attention(q.to_local(), kl, vl, causal=causal, scale=scale,
+                          bf16_probs=bf16_probs, block_kv=block_kv,
+                          return_stats=return_stats)
+    b, sq, h, _ = q.shape
+    out_shape = (b, sq, h, v.shape[3])
+    if not return_stats:
+        return sharded.wrap(res, q, q.placements, out_shape)
+    out, m, l = res
+    st = sharded.mapped(q.placements, _STATS_DIMS)
+    return (sharded.wrap(out, q, q.placements, out_shape),
+            sharded.wrap(m, q, st, (b, h, sq)),
+            sharded.wrap(l, q, st, (b, h, sq)))
+
+
+def _bwd_on_shards(q, k, v, o, m, l, do, causal, scale, block_kv):
+    """``flash_attention_bwd`` on DTensors, placed as the forward was: dq
+    as q; dk and dv as k and v, partial sums where q's heads are sharded
+    and theirs are not."""
+    q, k, v = sharded.attention_inputs(q, k, v)
+    o = sharded.to(o, q.placements)
+    do = sharded.to(do, q.placements)
+    st = sharded.mapped(q.placements, _STATS_DIMS)
+    m, l = sharded.to(m, st), sharded.to(l, st)
+    kl, vl, heads = _local_kv(q, k, v)
+    dq, dk, dv = flash_attention_bwd(
+        q.to_local(), kl, vl, o.to_local(), m.to_local(), l.to_local(),
+        do.to_local(), causal=causal, scale=scale, block_kv=block_kv)
+    if dk.shape != k.to_local().shape:
+        full_k, full_v = k.to_local(), v.to_local()
+        dk = torch.zeros_like(full_k).index_copy_(
+            2, torch.arange(heads.start, heads.stop, device=dk.device), dk)
+        dv = torch.zeros_like(full_v).index_copy_(
+            2, torch.arange(heads.start, heads.stop, device=dv.device), dv)
+    gp = sharded.kv_grad_placements(q, k)
+    return (sharded.wrap(dq, q, q.placements, tuple(q.shape)),
+            sharded.wrap(dk, k, gp, tuple(k.shape)),
+            sharded.wrap(dv, v, gp, tuple(v.shape)))
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:

@@ -26,6 +26,14 @@ the kernel's shapes and dtypes: no CSR is built and neither the kernel nor
 the plain version runs.  While an operation count runs
 (``launch/op_analysis.py``) each forward and gradient on the card or on
 meta records its function's ``work``.
+
+On ``DTensor``s the kernel runs on each rank's edges (``_on_shards``):
+the edges may be sharded, x is gathered whole on the mesh dims that shard
+them (explicitly) and may stay sharded by features elsewhere; the sum
+over a rank's edges is a partial sum over the edge-sharding mesh dims.
+There a mean is that sum over the count of every edge into the row, both
+reduced before the division; on a mesh that does not split the edges the
+kernel's own mean runs, as on plain tensors.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import sharded
 from repro_torch.kernels.build import (LaunchCounter, check_launch,
                                       counting_work, load, record_work)
 from repro_torch.kernels.gather_scatter.ref import gather_scatter_ref
@@ -212,6 +221,8 @@ def gather_scatter(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if reduce not in ("sum", "mean"):
         raise ValueError(f"gather_scatter: reduce {reduce!r} is not sum or "
                          f"mean")
+    if sharded.is_dtensor(x, src, dst, edge_weight):
+        return _on_shards(x, src, dst, n_nodes, edge_weight, reduce)
     if x.device.type == "cpu":
         return gather_scatter_ref(x, src, dst, n_nodes, edge_weight, reduce)
     if edge_weight is not None and edge_weight.requires_grad:
@@ -230,6 +241,56 @@ def gather_scatter(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                          f"{csr.n_nodes} rows; the call has {src.numel()} "
                          f"edges {x.shape[0]} -> {n_nodes}")
     return _GatherScatter.apply(x, edge_weight, csr, reduce == "mean")
+
+
+def _on_shards(x, src, dst, n_nodes, w, reduce):
+    """``gather_scatter`` on DTensors (the module docstring)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    like = next(t for t in (src, x, dst, w) if isinstance(t, DTensor))
+    mesh = like.device_mesh
+
+    def dt(t):
+        return t if t is None or isinstance(t, DTensor) else \
+            DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    x, src, dst, w = dt(x), dt(src), dt(dst), dt(w)
+    src = sharded.keep_only(src, (0,))
+    edges = list(src.placements)
+    dst = sharded.to(dst, edges)
+    by_edge = [i for i, p in enumerate(edges) if isinstance(p, Shard)
+               and mesh.size(i) > 1]
+    x = sharded.keep_only(x, range(1, x.dim()))
+    x = sharded.to(x, [Replicate() if isinstance(edges[i], Shard) else p
+                       for i, p in enumerate(x.placements)])
+    x_pl = list(x.placements)
+    out_pl = [Partial() if isinstance(edges[i], Shard) else p
+              for i, p in enumerate(x_pl)]
+    grad_pl = out_pl
+    local_reduce = "sum" if by_edge else reduce
+    args, in_pl = [x, src, dst], [x_pl, edges, edges]
+    if w is not None:
+        args.append(sharded.to(w, edges))
+        in_pl.append(edges)
+
+    def local(xl, sl, dl, wl=None):
+        return gather_scatter(xl, sl, dl, n_nodes, wl, local_reduce)
+    out = local_map(local, out_placements=(out_pl,), in_placements=in_pl,
+                    in_grad_placements=[grad_pl] + in_pl[1:],
+                    device_mesh=mesh)(*args)
+    if reduce == "sum" or not by_edge:
+        return out
+    # the mean over every edge into a row: the counts are partial sums
+    # over the edge-sharding mesh dims too
+    count = local_map(
+        lambda dl: torch.zeros(n_nodes, device=dl.device).index_add_(
+            0, dl.long(), torch.ones(dl.shape[0], device=dl.device)),
+        out_placements=([Partial() if isinstance(p, Shard) else Replicate()
+                         for p in edges],),
+        in_placements=(edges,), device_mesh=mesh)(dst)
+    scale = 1.0 / torch.clamp(count, min=1.0)
+    return out * scale.reshape((-1,) + (1,) * (out.dim() - 1))
 
 
 def _record(x: torch.Tensor, n_out: int, n_edges: int,

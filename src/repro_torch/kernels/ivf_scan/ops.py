@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import sharded
 from repro_torch.kernels.build import (LaunchCounter, check_launch,
                                       counting_work, load, record_work)
 from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref, normalize_rows
@@ -71,6 +72,8 @@ def ivf_scan_topk(q: torch.Tensor, corpus: torch.Tensor, k: int,
     if n_valid < 0 or n_valid > n:
         n_valid = n
     k = min(k, n_valid)
+    if sharded.is_dtensor(q, corpus):
+        return _on_shards(q, corpus, k, metric, n_valid)
     if k <= 0:
         return (torch.zeros((q.shape[0], 0), dtype=torch.float32,
                             device=q.device),
@@ -86,6 +89,42 @@ def ivf_scan_topk(q: torch.Tensor, corpus: torch.Tensor, k: int,
                 torch.empty((q.shape[0], k), dtype=torch.int32,
                             device="meta"))
     return _launch(q, corpus, k, metric, n_valid)
+
+
+def _on_shards(q, corpus, k, metric, n_valid):
+    """``ivf_scan_topk`` on DTensors: the corpus sharded by rows, each rank
+    scans its rows with the kernel, and the ranks' (value, row) windows
+    are all-gathered over the row-sharding mesh dims and merged in row
+    order (the ``sharded_topk`` schedule of
+    ``distributed/collectives.py``); q is gathered whole, the result is
+    whole on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels.topk import stable_topk
+
+    mesh = (corpus if isinstance(corpus, DTensor) else q).device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def dt(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, mesh, rep, run_check=False)
+    q, corpus = sharded.keep_only(dt(q), ()), sharded.keep_only(dt(corpus),
+                                                               (0,))
+    first = sharded.offset(corpus, 0)
+    local = corpus.to_local()
+    n_local = max(0, min(local.shape[0], n_valid - first))
+    k_local = min(k, n_local)
+    vals, rows = ivf_scan_topk(q.to_local(), local, k_local, metric,
+                               n_local)
+    rows = rows.long() + first
+    for i in reversed(sharded.sharded_over(corpus, 0)):
+        vals = sharded.all_gather(vals, 1, mesh, i)
+        rows = sharded.all_gather(rows, 1, mesh, i)
+    vals, pos = stable_topk(vals, k)
+    rows = torch.gather(rows, 1, pos).to(torch.int32)
+    shape = (q.shape[0], k)
+    return sharded.wrap(vals, q, rep, shape), sharded.wrap(rows, q, rep,
+                                                           shape)
 
 
 def _check(q: torch.Tensor, corpus: torch.Tensor) -> None:

@@ -14,7 +14,9 @@ Features past 500,000 nodes are stored in bf16 and cast to the config's
 float32 before compute, as the reference stores them.  ``gnn_rules`` and
 ``cell_of`` read only a mesh's axis names and sizes (a ``DeviceMesh`` or a
 stand-in with ``axis_names`` and a ``shape`` mapping), as the port's
-``distributed/sharding.py`` does; no step here is sharded.
+``distributed/sharding.py`` does.  A bundle's model carries its rules; on
+DTensors placed by them (the dry run on a production mesh) the step runs
+edge-parallel (``models/gnn/common.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchSpec, GraphShape
 from repro_torch.device import DeviceLike
@@ -193,6 +196,11 @@ def gnn_loss(model, batch: Dict[str, torch.Tensor], cell: GNNCell
         pos = torch.zeros((n, 3), dtype=torch.float32, device=feats.device)
     logits = model(feats.to(compute), pos, batch["src"], batch["dst"],
                    batch["edge_mask"].to(torch.float32), n, chunk=cell.chunk)
+    if isinstance(logits, DTensor):
+        # partial sums over the edges' mesh dims reduced, the rows may stay
+        # sharded: the loss's gather reads whole rows
+        from repro_torch.kernels import sharded
+        logits = sharded.keep_only(logits, (0,))
     if cell.graph_level:
         gid = batch["graph_ids"]
         num = segment_sum(logits[:, 0], gid, cell.n_graphs)
@@ -248,6 +256,7 @@ def gnn_bundle(spec: ArchSpec, shape: GraphShape, mesh: Any,
     if rule_overrides:
         rules = rules.with_overrides(**rule_overrides)
     model = gnn_model(spec, cell, device="meta")
+    model.rules = rules
     p_axes = model.param_axes()
     p_specs = tree_specs(rules, p_axes)
     o_specs = tree_specs(rules, opt_state_axes(p_axes))

@@ -1,11 +1,13 @@
 """Meshes and the card's peaks, the reference's ``launch/mesh.py``.
 
-There are no 256 or 512 cards to build a ``DeviceMesh`` over, so
 ``make_production_mesh`` and ``make_mesh_for`` return stand-ins: the axis
 names, a ``shape`` mapping and the ``size``, which is all that
 ``distributed/sharding.py``'s rules, ``lm_rules``, ``gnn_rules``,
-``recsys_rules`` and ``cell_of`` read.  ``make_smoke_mesh`` is a real 1 x 1
-``DeviceMesh`` on a world of one rank.
+``recsys_rules`` and ``cell_of`` read.  ``make_fake_mesh`` builds a real
+``DeviceMesh`` of any shape over torch's ``fake`` process group, whose
+collectives move nothing: the dry run (``launch/dryrun.py``) runs each
+cell's step on DTensors over it, as rank 0, on the ``meta`` device.
+``make_smoke_mesh`` is a real 1 x 1 ``DeviceMesh`` on a world of one rank.
 """
 from __future__ import annotations
 
@@ -25,7 +27,16 @@ HW = {
     "hbm_bw": 3.35e12,           # HBM3 bytes/s
     "hbm_bytes": 80e9,           # HBM3 capacity
     "nvlink_bw": 900e9,          # NVLink bytes/s
+    # the collective roofline's link: one 400 Gb/s ConnectX-7 NIC a GPU
+    # (NVIDIA DGX H100 data sheet), 50e9 bytes/s, the same figure as the
+    # reference's ``ici_bw``.  Not NVLink's 900e9: every production mesh
+    # axis of 16 spans two 8-GPU nodes, so its rings cross the network.
+    "link_bw": 50e9,
 }
+
+
+#: GPUs a node (DGX H100), which NVLink joins
+GPUS_PER_NODE = 8
 
 
 def peak_flops(dtype) -> float:
@@ -74,6 +85,10 @@ def make_smoke_mesh(device: DeviceLike = None):
     from torch.distributed.device_mesh import DeviceMesh
 
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        # NCCL's communicator takes this card
+        torch.cuda.set_device(dev.index if dev.index is not None
+                              else torch.cuda.current_device())
     if not dist.is_initialized():
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 store=dist.HashStore(), rank=0,
@@ -83,6 +98,36 @@ def make_smoke_mesh(device: DeviceLike = None):
                            f"{dist.get_world_size()} ranks, not 1")
     return DeviceMesh(dev.type, torch.arange(1).reshape(1, 1),
                       mesh_dim_names=("data", "model"))
+
+
+def make_fake_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` named ``names`` on the ``meta`` device
+    over a ``fake`` process group of prod(shape) ranks, this process rank
+    0.  Its collectives run
+    no communication and return tensors of their results' shapes, so a
+    step on meta DTensors runs through them.  A process holds one default
+    group: with a live one (of any backend) this raises."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(
+            "make_fake_mesh: a default process group is already live "
+            f"({dist.get_backend()}, {dist.get_world_size()} ranks); the "
+            "fake group needs a process of its own")
+    from torch.distributed.device_mesh import _mesh_resources
+
+    n = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    # DTensor's redistribution cost model asks the mesh's device type for
+    # its devices a host, which "meta" cannot say: the H100 nodes' 8
+    _mesh_resources.num_devices_per_host = lambda device_type: GPUS_PER_NODE
+    # a "meta" mesh: what DTensor makes on the mesh's device (masks,
+    # all-to-all's buffers) is meta too, and its shard-to-shard moves are
+    # all-to-alls (a "cpu" mesh takes gloo's all-gather in their place)
+    return DeviceMesh("meta", torch.arange(n).reshape(*shape),
+                      mesh_dim_names=tuple(names))
 
 
 def mesh_size(mesh: Optional[object]) -> int:

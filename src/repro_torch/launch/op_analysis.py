@@ -1,4 +1,5 @@
-"""Operation count of one call of a step: FLOPs, bytes and collectives.
+"""Operation count of one call of a step, for one device: FLOPs, bytes
+and collectives.
 
 The counterpart of the reference's ``launch/hlo_analysis.py``.  Eager
 PyTorch has no compiled module to walk, so this module counts the
@@ -6,43 +7,63 @@ operations that one call of the step actually runs, on whatever device its
 arguments lie: on ``meta`` tensors nothing is computed or allocated, and a
 full-size step is counted on any host.
 
-* **FLOPs**: ``torch.utils.flop_counter.FlopCounterMode`` (the products:
-  matmuls, batched matmuls, convolutions; elementwise work is not
-  counted, as the reference counts only ``dot`` and ``convolution``).
-* **Bytes**: a ``TorchDispatchMode`` adds each aten operation's operand
-  and result bytes, XLA's "bytes accessed" convention.  As
-  ``hlo_analysis.py`` does, it skips operations that move no data (views,
-  ``empty*``, ``detach``: its ``_SKIP_BYTES_OPS``), counts a gather at
-  twice its result and a scatter at three times its update.
-* **Collectives**: ``torch.distributed.tensor.debug.CommDebugMode``
-  counts them, and the byte mode adds each functional collective's result
-  bytes; on one rank there are none.
+**One device.**  Where the step runs on ``DTensor``s (the dry run on a
+production mesh, ``launch/dryrun.py``), everything is counted for the rank
+this process is, rank 0: the counting mode sits beneath DTensor's
+dispatch.  A ``TorchDispatchMode`` is asked before a tensor subclass; for
+an operation on DTensors it declines (returns ``NotImplemented``), DTensor
+then runs the operation on its local shards and its collectives on the
+process group, and each of those calls reaches the mode with plain local
+tensors.  So the FLOPs and bytes are the local shards' and the collectives
+are the ones DTensor (or a kernel wrapper's explicit redistribution)
+inserts, each at its local result.  DTensor's sharding propagation runs
+operations on ``FakeTensor``s of the global shapes: those are not counted.
+On plain tensors (mesh ``one``) the same mode counts the whole step.
+
+* **FLOPs**: each operation that ``torch.utils.flop_counter``'s registry
+  knows (matmuls, batched matmuls, convolutions and their gradients;
+  elementwise work is not counted, as the reference counts only ``dot``
+  and ``convolution``), by the registry's formula at the local shapes.
+* **Bytes**: each aten operation's operand and result bytes, XLA's "bytes
+  accessed" convention.  As ``hlo_analysis.py`` does, it skips operations
+  that move no data (views, ``empty*``, ``detach``: its
+  ``_SKIP_BYTES_OPS``), counts a gather at twice its result and a scatter
+  at three times its update.
+* **Collectives**: each functional collective (``_c10d_functional``) by
+  kind, under the reference's opcode names (``all-reduce``,
+  ``all-gather``, ``reduce-scatter``, ``all-to-all``), with its count and
+  its bytes, the bytes of its local result (the reference's convention);
+  ``top_collectives`` ranks them by kind and result shape.  On one rank
+  there are none.
 * **Hand kernels**: they run through ``ctypes`` (``kernels/build.py``),
   where no torch mode sees them, so each wrapper records the work of the
   function its kernel computes (its ``work``) as one entry under the
   kernel's name, on the card and on meta (on the CPU the plain version's
-  aten operations are counted instead).
-* **Repeats**: :func:`repeat` scales what a block counts by a trip count,
-  as ``hlo_analysis.py`` scales a ``while`` body: a loop over identical
-  chunks runs one chunk on meta and counts it ``n`` times.
+  aten operations are counted instead).  Under DTensor a wrapper runs on
+  the local shards, so its work is the local shard's.
+* **Repeats**: :func:`repeat` scales what a block counts, collectives
+  included, by a trip count, as ``hlo_analysis.py`` scales a ``while``
+  body: a loop over identical chunks runs one chunk on meta and counts it
+  ``n`` times.
 * **Peak bytes**: the most bytes of tensors alive at once during the call
-  (the arguments and every result an operation allocates, until it is
-  freed), the counterpart of XLA's memory analysis; the hand kernels'
-  scratch is not seen.
+  on this device (the arguments' local shards and every local result an
+  operation allocates, until it is freed), the counterpart of XLA's memory
+  analysis; the hand kernels' scratch is not seen.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
-import warnings
 import weakref
 from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import build
 
@@ -67,26 +88,46 @@ _SCATTER_OPS = {aten.index_add: 3, aten.index_add_: 3,
                 aten.index_copy: 3, aten.index_copy_: 3,
                 aten.index_put: 2, aten.index_put_: 2,
                 aten._index_put_impl_: 2}
+#: functional collectives -> the reference's opcode names; the others of
+#: their namespace (``wait_tensor``, autograd wrappers) move nothing
+_COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "all_gather_into_tensor_out": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all",
+                "broadcast": "broadcast", "broadcast_": "broadcast",
+                "shard_dim_alltoall": "all-to-all"}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard, or the tensor itself."""
+    return t._local_tensor if isinstance(t, DTensor) else t
 
 
 def _storage_bytes(x: Any) -> int:
     """Bytes of the distinct storages of the tensors in ``x`` (a model's
-    parameters included)."""
+    parameters included; a DTensor's local shard)."""
     leaves, _ = tree_flatten(x)
     seen: Dict[int, int] = {}
     for t in leaves:
         ts = (t.parameters() if isinstance(t, torch.nn.Module)
               else [t] if isinstance(t, torch.Tensor) else [])
         for u in ts:
-            st = u.untyped_storage()
+            st = _local(u).untyped_storage()
             seen[st._cdata] = st.nbytes()
     return sum(seen.values())
 
 
 def _nbytes(x: Any) -> int:
-    leaves, _ = tree_flatten(x)
-    return sum(t.numel() * t.element_size() for t in leaves
-               if isinstance(t, torch.Tensor))
+    """Bytes of the tensors in ``x`` (a tensor, or lists, tuples and dicts
+    of them)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(v) for v in x)
+    if isinstance(x, dict):
+        return sum(_nbytes(v) for v in x.values())
+    return 0
 
 
 @dataclasses.dataclass
@@ -106,6 +147,13 @@ class Analysis:
     seconds: float = 0.0
     flops_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
     bytes_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
+    coll_by_shape: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+
+    def top_collectives(self, n: int = 12) -> List[Tuple[str, float]]:
+        """The largest collectives by bytes, keyed by kind and local
+        result (the reference's ``top_collectives``)."""
+        return sorted(self.coll_by_shape.items(), key=lambda kv: -kv[1])[:n]
 
     def top_flops(self, n: int = 12) -> List[Tuple[str, float]]:
         return sorted(self.flops_by_op.items(), key=lambda kv: -kv[1])[:n]
@@ -120,16 +168,26 @@ class Analysis:
                 "repeats": self.repeats, "peak_bytes": self.peak_bytes,
                 "seconds": self.seconds,
                 "top_flops": self.top_flops(),
-                "top_bytes": self.top_bytes()}
+                "top_bytes": self.top_bytes(),
+                "top_collectives": self.top_collectives()}
 
     def _add(self, table: Dict[str, float], key: str, v: float) -> None:
         table[key] = table.get(key, 0.0) + v
 
 
+def _is_fake(out: Any) -> bool:
+    """An operation's result is a ``FakeTensor`` (DTensor's sharding
+    propagation runs operations on them)."""
+    if isinstance(out, (list, tuple)):
+        return any(isinstance(t, FakeTensor) for t in out)
+    return isinstance(out, FakeTensor)
+
+
 class _Counter(TorchDispatchMode):
-    """Bytes (and collective bytes) of every aten operation, times the
-    current repeat factor; the hand kernels' work through
-    ``build.work_sinks``."""
+    """FLOPs, bytes and collectives of every aten operation on plain (or
+    local) tensors, times the current repeat factor; the hand kernels'
+    work through ``build.work_sinks``.  Operations on DTensors are left to
+    DTensor, whose local operations come back here."""
 
     def __init__(self, an: Analysis, live: int = 0) -> None:
         super().__init__()
@@ -164,21 +222,39 @@ class _Counter(TorchDispatchMode):
         an._add(an.flops_by_op, f"kernel {name}", s * flops)
         an._add(an.bytes_by_op, f"kernel {name}", s * n_bytes)
 
+    def _collective(self, kind: str, out: Any) -> None:
+        an, s = self.an, self.scale
+        b = s * _nbytes(out)
+        ent = an.collectives.setdefault(kind, {"count": 0.0, "bytes": 0.0})
+        ent["count"] += s
+        ent["bytes"] += b
+        an.collective_bytes += b
+        r = tree_flatten(out)[0][0]
+        dtype = str(r.dtype).replace("torch.", "")
+        an._add(an.coll_by_shape, f"{kind} {dtype}{list(r.shape)}", b)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if _is_fake(out):
+            return out
         self._allocated(func, out)
         packet = func.overloadpacket
         if packet in _SKIP_BYTES_OPS or func.is_view:
             return out
-        if func.namespace in ("_c10d_functional", "c10d"):
-            b = self.scale * _nbytes(out)
-            ent = self.an.collectives.setdefault(
-                packet.__name__, {"count": 0.0, "bytes": 0.0})
-            ent["count"] += self.scale
-            ent["bytes"] += b
-            self.an.collective_bytes += b
+        if func.namespace in ("_c10d_functional", "c10d", "_dtensor"):
+            kind = _COLLECTIVES.get(packet.__name__)
+            if kind is not None:
+                self._collective(kind, out)
             return out
+        an, s = self.an, self.scale
+        if packet in flop_registry:
+            f = s * flop_registry[packet](*args, **kwargs, out_val=out)
+            if f:
+                an.flops += f
+                an._add(an.flops_by_op, str(packet), f)
         if packet in _GATHER_OPS:
             b = 2 * _nbytes(out)
         elif packet in _SCATTER_OPS:
@@ -186,80 +262,60 @@ class _Counter(TorchDispatchMode):
         else:
             b = _nbytes(args) + _nbytes(kwargs) + _nbytes(out)
         if b:
-            self.an.bytes_accessed += self.scale * b
-            self.an._add(self.an.bytes_by_op, str(packet),
-                         self.scale * b)
+            an.bytes_accessed += s * b
+            an._add(an.bytes_by_op, str(packet), s * b)
         return out
 
 
 #: the counts running now (innermost last)
-_active: List[Tuple[_Counter, FlopCounterMode]] = []
+_active: List[_Counter] = []
 
 
 @contextlib.contextmanager
 def repeat(n: int) -> Iterator[None]:
     """Count what the block runs ``n`` times (a loop of ``n`` identical
-    iterations that runs one of them).  Outside an analysis it does
-    nothing."""
+    iterations that runs one of them), its collectives included.  Outside
+    an analysis it does nothing."""
     if not _active or n == 1:
         yield
         return
-    counter, flop_mode = _active[-1]
-    before = dict(flop_mode.get_flop_counts().get("Global", {}))
+    counter = _active[-1]
     counter.scale *= n
     try:
         yield
     finally:
         counter.scale /= n
         counter.an.repeats.append(n)
-        after = flop_mode.get_flop_counts().get("Global", {})
-        for op, total in after.items():
-            extra = (n - 1) * (total - before.get(op, 0))
-            if extra:
-                counter.an.flops += extra
-                counter.an._add(counter.an.flops_by_op, str(op), extra)
 
 
 def analyze(fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Analysis:
-    """Run ``fn(*args, **kwargs)`` once and count its operations (the
-    module docstring says what is counted).  On ``meta`` arguments nothing
-    is computed; on the card the step runs as it always does, its hand
-    kernels included."""
-    from torch.distributed.tensor.debug import CommDebugMode
-
+    """Run ``fn(*args, **kwargs)`` once and count its operations for this
+    device (the module docstring says what is counted).  On ``meta``
+    arguments nothing is computed; on the card the step runs as it always
+    does, its hand kernels included."""
     an = Analysis()
     counter = _Counter(an, live=_storage_bytes((args, kwargs)))
-    flop_mode = FlopCounterMode(display=False)
     t0 = time.perf_counter()
     build.work_sinks.append(counter.kernel)
-    _active.append((counter, flop_mode))
+    _active.append(counter)
     try:
-        with CommDebugMode() as comm, flop_mode, counter, \
-                warnings.catch_warnings():
-            # the flop counter's module hooks warn on a module whose
-            # inputs need no gradient (a GNN's features)
-            warnings.filterwarnings("ignore", "Full backward hook")
+        with counter:
             fn(*args, **kwargs)
     finally:
         _active.pop()
         build.work_sinks.remove(counter.kernel)
-    for op, n in flop_mode.get_flop_counts().get("Global", {}).items():
-        an._add(an.flops_by_op, str(op), float(n))
-    an.flops += float(flop_mode.get_total_flops())
-    for op, n in comm.get_comm_counts().items():
-        ent = an.collectives.setdefault(getattr(op, "__name__", str(op)),
-                                        {"count": 0.0, "bytes": 0.0})
-        ent["count"] = max(ent["count"], float(n))
     an.seconds = time.perf_counter() - t0
     return an
 
 
 def roofline(an: Analysis, peak_flops: float) -> Dict[str, Any]:
     """``compute_s`` (FLOPs at ``peak_flops``), ``memory_s`` (bytes at the
-    card's memory rate) and which of the two is larger (``dominant``)."""
+    card's memory rate), ``collective_s`` (collective bytes at the link
+    rate, ``HW["link_bw"]``) and the largest of the three (``dominant``)."""
     from repro_torch.launch.mesh import HW
 
-    compute_s = an.flops / peak_flops
-    memory_s = an.bytes_accessed / HW["hbm_bw"]
-    return {"compute_s": compute_s, "memory_s": memory_s,
-            "dominant": "compute" if compute_s >= memory_s else "memory"}
+    terms = {"compute_s": an.flops / peak_flops,
+             "memory_s": an.bytes_accessed / HW["hbm_bw"],
+             "collective_s": an.collective_bytes / HW["link_bw"]}
+    dominant = max(terms, key=terms.get)[:-2]
+    return dict(terms, dominant=dominant)

@@ -1,16 +1,19 @@
 """Perf-iteration runner, the reference's ``launch/perf.py``: count one
 cell VARIANT's step on the ``meta`` device (``launch/op_analysis.py``),
-print its roofline terms against the H100's peaks and its top
-contributors, and keep the result in ``results/perf_torch/``.
+for one device of a mesh, print its roofline terms against the H100's
+peaks (``collective_s`` among them) and its top contributors (the top
+collectives among them), and keep the result in ``results/perf_torch/``.
 
   PYTHONPATH=src python -m repro_torch.launch.perf --arch llama3-8b \\
-      --shape train_4k --variant baseline
+      --shape train_4k --variant fsdp_only --mesh single
   PYTHONPATH=src python -m repro_torch.launch.perf --list
 
 A variant is a (rule_overrides, cfg_overrides) pair registered per cell
-below (the reference's registry as it is).  Mesh ``one``: rules change
+below (the reference's registry as it is).  On mesh ``one`` rules change
 only the specs, so a variant's count moves with its ``cfg`` overrides
-alone.  ``flags`` have no reader in either package.
+alone; on ``single`` and ``multi`` (the reference's meshes) the step runs
+on DTensors over this process's fake group (``launch/dryrun.py``), and the
+rules move the count too.  ``flags`` have no reader in either package.
 """
 from __future__ import annotations
 
@@ -108,28 +111,45 @@ VARIANTS = {
 
 
 def run_variant(arch: str, shape: str, variant: str,
-                out_dir: str = "results/perf_torch") -> Dict[str, Any]:
-    """Count one variant's step at mesh ``one`` on meta and write
-    ``<arch>__<shape>__<variant>.json`` under ``out_dir``."""
+                out_dir: str = "results/perf_torch", mesh: str = "one"
+                ) -> Dict[str, Any]:
+    """Count one variant's step on meta for one device of ``mesh``
+    (``one``, ``single`` or ``multi``; the last two start this process's
+    fake group) and write ``<arch>__<shape>__<variant>.json`` (with
+    ``__<mesh>`` past mesh ``one``) under ``out_dir``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.launch.dryrun import fake_mesh
+
     spec = VARIANTS.get((arch, shape), {"baseline": {}})
     v = spec[variant]
     t0 = time.perf_counter()
-    bundle = build_step(arch, shape, ONE, rule_overrides=v.get("rules"),
+    m = ONE if mesh == "one" else fake_mesh(mesh)
+    bundle = build_step(arch, shape, m, rule_overrides=v.get("rules"),
                         cfg_overrides=v.get("cfg"))
-    an = analyze(bundle.fn, *bundle.abstract_args)
+    args = bundle.abstract_args
+    if mesh != "one":
+        args = tuple(place_tree(a, s, m) for a, s in zip(args,
+                                                         bundle.in_specs))
+    with implicit_replication():
+        an = analyze(bundle.fn, *args)
     model = get_arch(arch).model
     dtype = (v.get("cfg") or {}).get("dtype", getattr(model, "dtype",
                                                       "float32"))
     d = an.as_dict()
-    res = {"arch": arch, "shape": shape, "variant": variant,
+    res = {"arch": arch, "shape": shape, "variant": variant, "mesh": mesh,
            "seconds": time.perf_counter() - t0,
            **roofline(an, peak_flops(dtype)),
            "peak_gb": an.peak_bytes / 1e9, "kernels": d["kernels"],
+           "collectives": d["collectives"],
            "top_bytes": d["top_bytes"], "top_flops": d["top_flops"][:6],
+           "top_collectives": d["top_collectives"],
            "repeats": d["repeats"]}
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"{arch}__{shape}__{variant}.json").write_text(
+    tail = "" if mesh == "one" else f"__{mesh}"
+    (out / f"{arch}__{shape}__{variant}{tail}.json").write_text(
         json.dumps(res, indent=1))
     return res
 
@@ -140,6 +160,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--shape")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out", default="results/perf_torch")
+    ap.add_argument("--mesh", choices=["one", "single", "multi"],
+                    default="one")
     ap.add_argument("--list", action="store_true")
     args = ap.parse_args(argv)
     if args.list:
@@ -148,11 +170,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     if not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --list")
-    res = run_variant(args.arch, args.shape, args.variant, args.out)
+    res = run_variant(args.arch, args.shape, args.variant, args.out,
+                      args.mesh)
     print(json.dumps({k: v for k, v in res.items()
-                      if k not in ("top_bytes", "top_flops")}, indent=1))
+                      if k not in ("top_bytes", "top_flops",
+                                   "top_collectives")}, indent=1))
     print("--- top bytes ---")
     for k, v in res["top_bytes"]:
+        print(f"  {v / 1e9:10.1f} GB  {k}")
+    print("--- top collectives ---")
+    for k, v in res["top_collectives"]:
         print(f"  {v / 1e9:10.1f} GB  {k}")
     print("--- top flops ---")
     for k, v in res["top_flops"]:

@@ -8,8 +8,10 @@ function, its arguments on the ``meta`` device (the model built there, the
 optimizer state, tokens and cache as meta tensors: nothing allocated), and
 each argument's and output's partition spec from the cell's sharding
 rules.  The dry run (``launch/dryrun.py``) counts a bundle's operations on
-meta; the specs become DTensor placements through
-``distributed/sharding.py::spec_placements`` on a real ``DeviceMesh``.
+meta; on a production mesh it places the arguments as DTensors by their
+specs (``distributed/sharding.py::place_tree``) and the step runs on them,
+the model constraining its activations by the bundle's rules
+(``LM.rules``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import ArchSpec, get_arch
 from repro_torch.configs.base import LMShape
@@ -40,17 +43,22 @@ def train_step(model: LM, opt_state: Dict[str, Any], tokens, labels,
     ``init_opt_state(dict(model.named_parameters()))``.  -> (opt_state,
     {"ce", "aux", "loss", "grad_norm", "lr"}).  On meta tensors the
     micro-batches are identical in all but values: one runs, counted
-    ``grad_accum`` times by an operation count (``op_analysis.repeat``)."""
+    ``grad_accum`` times by an operation count (``op_analysis.repeat``).
+
+    On DTensors (the dry run on a mesh) micro-batch i is each rank's i-th
+    slice of its own rows, taken locally, and the summed gradients, partial
+    sums over the batch's mesh dims, are reduced to their parameters'
+    placements once, by the optimizer (``reduce_gradients``)."""
     opt_cfg = opt_cfg or AdamWConfig()
     params = dict(model.named_parameters())
-    tokens = torch.as_tensor(tokens, device=model.device)
-    labels = torch.as_tensor(labels, device=model.device)
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(tokens, device=model.device)
+        labels = torch.as_tensor(labels, device=model.device)
     n_micro = max(1, model.cfg.grad_accum)
     b = tokens.shape[0]
     if b % n_micro:
         raise ValueError(f"train_step: batch {b} does not split into "
                          f"{n_micro} micro-batches")
-    mb = b // n_micro
 
     def grads_of(t, l):
         loss, met = model.loss_fn(t, l)
@@ -59,17 +67,19 @@ def train_step(model: LM, opt_state: Dict[str, Any], tokens, labels,
     if n_micro == 1:
         loss, metrics, grads = grads_of(tokens, labels)
     else:
-        grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for n, p in params.items()}
+        grads = {}
         zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
         loss, ce, aux = zero, zero, zero
         runs = 1 if tokens.device.type == "meta" else n_micro
         with repeat(n_micro // runs):
             for i in range(runs):
-                rows = slice(i * mb, (i + 1) * mb)
-                l_i, met, g = grads_of(tokens[rows], labels[rows])
+                l_i, met, g = grads_of(micro_rows(tokens, i, n_micro),
+                                       micro_rows(labels, i, n_micro))
                 for n, gi in g.items():
-                    grads[n].add_(gi.float())
+                    if n in grads:
+                        grads[n].add_(gi.float())
+                    else:
+                        grads[n] = gi.to(torch.float32, copy=True)
                 del g
                 loss, ce, aux = loss + l_i, ce + met["ce"], aux + met["aux"]
         inv = 1.0 / n_micro
@@ -79,6 +89,28 @@ def train_step(model: LM, opt_state: Dict[str, Any], tokens, labels,
     _, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
                                              opt_cfg)
     return opt_state, dict(metrics, loss=loss, **opt_metrics)
+
+
+def micro_rows(t: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Micro-batch ``i`` of ``n`` of a batch's rows: rows i*B/n .. of a
+    tensor; of a DTensor, each rank's i-th slice of its own rows, taken
+    locally (on a mesh of one rank the same rows).  On meta a rank that
+    holds fewer rows than micro-batches takes one row a micro-batch (the
+    reference's partitioner pads such a micro-batch to a row a device)."""
+    if not isinstance(t, DTensor):
+        mb = t.shape[0] // n
+        return t[i * mb:(i + 1) * mb]
+    from torch.distributed.tensor.experimental import local_map
+
+    def take(x):
+        if x.shape[0] < n and x.device.type != "meta":
+            raise ValueError(f"train_step: {x.shape[0]} rows on this rank "
+                             f"for {n} micro-batches")
+        mb = -(-x.shape[0] // n)
+        return x[i * mb:(i + 1) * mb]
+    return local_map(take, out_placements=(t.placements,),
+                     in_placements=(t.placements,),
+                     device_mesh=t.device_mesh)(t)
 
 
 def prefill_step(model: LM, tokens) -> Tuple[torch.Tensor, Cache]:
@@ -208,6 +240,7 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, mesh: Any,
     rules = lm_rules(cfg, shape, mesh)
     if extra:
         rules = rules.with_overrides(**extra)
+    model.rules = rules
     p_axes = model.param_axes()
     p_specs = tree_specs(rules, p_axes)
     b, s = shape.global_batch, shape.seq_len

@@ -13,9 +13,17 @@ Features are [N, (l_max+1)^2, C] real-SH coefficient blocks.  Big-graph
 shapes run the edge loop in chunks, inside one ``torch.autograd.Function``
 (the reference's ``jax.custom_vjp``): the forward keeps only node-sized
 statistics, the backward recomputes each chunk's messages.  The reference's
-grouped remat is ``torch.utils.checkpoint`` over four groups of layers; its
-channel-sharding pin is a no-op on one device.  The attention's messages
-carry a gradient, so the scatter-sums are torch ``index_add``.
+grouped remat is ``torch.utils.checkpoint`` over four groups of layers.  The
+attention's messages carry a gradient, so the scatter-sums are torch
+``index_add``.
+
+On DTensors (``rules`` set, the dry run on a production mesh) the
+attention-aggregation runs edge-parallel (:func:`_agg_on_shards`): each
+rank runs the chunked primitive on its edges, with the node table and the
+weights gathered whole (the SO(2) convolution mixes every channel), and the
+ranks' node maxima and softmax sums are all-reduced over the edge-sharding
+mesh dims inside it.  Its output is pinned to the channel sharding
+(``_pin_channel``, the reference's), a no-op off a mesh.
 """
 from __future__ import annotations
 
@@ -26,10 +34,12 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.gnn.common import (GNNModule, segment_softmax,
                                            segment_sum)
 from repro_torch.models.gnn.wigner import edge_wigner, l_slices, real_sph_harm
@@ -91,6 +101,62 @@ def _flat(p: Params) -> List[torch.Tensor]:
     for k in sorted(p):
         out.extend(_flat(p[k]) if isinstance(p[k], dict) else [p[k]])
     return out
+
+
+def _pin_channel(x: torch.Tensor, rules) -> torch.Tensor:
+    """The reference's channel-sharding pin: the last (channel) dim on its
+    ``channel`` rule; a no-op off a mesh."""
+    return constrain(x, rules, *([None] * (x.dim() - 1)), "channel")
+
+
+def _agg_on_shards(model, p: Params, n_nodes: int, x, pos, src, dst,
+                   edge_mask, chunk: Optional[int]):
+    """The attention-aggregation of one layer on DTensors (the module
+    docstring): ``_ChunkedAgg`` on each rank's edges, cut into the
+    reference's chunks (each rank takes its share of every chunk), with the
+    node maxima and sums all-reduced over the edge-sharding mesh dims.  The
+    gradients of x and the weights are partial sums over those dims."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels import sharded
+
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def dt(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, mesh, rep, run_check=False)
+    src = sharded.keep_only(dt(src), (0,))
+    edges = list(src.placements)
+    dst, edge_mask = sharded.to(dt(dst), edges), sharded.to(dt(edge_mask),
+                                                            edges)
+    by_edge = [i for i, q in enumerate(edges) if isinstance(q, Shard)]
+    whole = [sharded.keep_only(dt(t), ()) for t in [x, pos] + _flat(p)]
+    grad = [Partial() if i in by_edge else Replicate()
+            for i in range(mesh.ndim)]
+    e = src.shape[0]
+    n_chunks = e // chunk if chunk is not None and e > chunk else 1
+
+    def combine(kind: str, t: torch.Tensor) -> torch.Tensor:
+        for i in by_edge:
+            t = funcol.all_reduce(t, kind, (mesh, i))
+        return t
+
+    def local(xl, pl, sl, dl, ml, *tl):
+        c = sl.shape[0] // n_chunks
+        return _ChunkedAgg.apply(model, p, n_nodes, xl, pl,
+                                 sl.reshape(n_chunks, c),
+                                 dl.reshape(n_chunks, c),
+                                 ml.reshape(n_chunks, c), combine, *tl)
+    n_w = len(whole) - 2
+    return local_map(
+        local, out_placements=(rep,),
+        in_placements=(rep, rep, edges, edges, edges) + (rep,) * n_w,
+        in_grad_placements=(grad, rep, edges, edges, edges) + (grad,) * n_w,
+        device_mesh=mesh)(whole[0], whole[1], src, dst, edge_mask,
+                          *whole[2:])
 
 
 def _unflat(like: Params, ts: List[torch.Tensor]) -> Params:
@@ -257,7 +323,10 @@ class EquiformerV2(GNNModule):
                n_nodes: int, chunk: Optional[int]) -> torch.Tensor:
         e = src.shape[0]
         p = lp.attn_params()
-        if chunk is None or e <= chunk:
+        if isinstance(x, DTensor):
+            agg = _agg_on_shards(self, p, n_nodes, x, pos, src, dst,
+                                 edge_mask, chunk)
+        elif chunk is None or e <= chunk:
             h = self._eq_layernorm(x, lp.ln_scale)
             m_c, rhat, rbf = self._geometry(pos, src, dst, edge_mask)
             rbf = rbf.to(x.dtype)
@@ -283,7 +352,8 @@ class EquiformerV2(GNNModule):
             agg = _ChunkedAgg.apply(
                 self, p, n_nodes, x, pos, src.reshape(n_chunks, chunk),
                 dst.reshape(n_chunks, chunk),
-                edge_mask.reshape(n_chunks, chunk), *_flat(p))
+                edge_mask.reshape(n_chunks, chunk), None, *_flat(p))
+        agg = _pin_channel(agg, self.rules)
 
         x = x + torch.einsum("nic,cd->nid", agg, lp.out_proj.to(x.dtype))
 
@@ -358,10 +428,13 @@ class _ChunkedAgg(torch.autograd.Function):
         <g_dst, agg_dst>),   a_e = exp(l_e - M_dst) / D_dst
 
     through ``autograd.grad`` of the chunk's message function.  Positions
-    and edge indices are data (no gradient)."""
+    and edge indices are data (no gradient).  ``combine(kind, t)``, where
+    given, reduces the node maxima ("max") and the softmax sums ("sum")
+    over the ranks that hold the other edges."""
 
     @staticmethod
-    def forward(ctx, model, like, n_nodes, x, pos, sb, db, mb, *ts):
+    def forward(ctx, model, like, n_nodes, x, pos, sb, db, mb, combine,
+                *ts):
         p = _unflat(like, list(ts))
         node_max = torch.full((n_nodes,), -torch.inf, dtype=torch.float32,
                               device=x.device)
@@ -373,6 +446,8 @@ class _ChunkedAgg(torch.autograd.Function):
                 node_max.scatter_reduce_(
                     0, d_c.long(), torch.where(m_c > 0, lmax, -torch.inf),
                     "amax")
+        if combine is not None:
+            node_max = combine("max", node_max)
         node_max = torch.where(torch.isfinite(node_max), node_max, 0.0)
         num = torch.zeros((n_nodes, model.n_coef, model.c), dtype=x.dtype,
                           device=x.device)
@@ -387,6 +462,8 @@ class _ChunkedAgg(torch.autograd.Function):
                 num.index_add_(0, d_c, (msg * w[:, None, None]).to(
                     num.dtype))
                 den.index_add_(0, d_c, w)
+        if combine is not None:
+            num, den = combine("sum", num), combine("sum", den)
         den = torch.clamp(den, min=1e-9)
         agg = num / den[:, None, None].to(num.dtype)
         ctx.model, ctx.like = model, like
@@ -405,7 +482,8 @@ class _ChunkedAgg(torch.autograd.Function):
                 _ChunkedAgg._chunk_grads(model, ctx.like, g, x, pos, s_c,
                                          d_c, m_c, node_max, den, agg, ts,
                                          p_bar, x_bar)
-        return (None, None, None, x_bar, None, None, None, None, *p_bar)
+        return (None, None, None, x_bar, None, None, None, None, None,
+                *p_bar)
 
     @staticmethod
     def _chunk_grads(model, like, g, x, pos, s_c, d_c, m_c, node_max, den,

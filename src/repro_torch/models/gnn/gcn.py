@@ -30,12 +30,13 @@ class GCN(GNNModule):
         coeff = sym_norm_coeff(src, dst, n_nodes, mask) * edge_mask
         deg_self = 1.0 / (segment_sum(edge_mask * 1.0, dst, n_nodes) + 1.0)
         csr = edge_csr(feats, src, dst, n_nodes)
-        h = feats
+        h = self.pin(feats)
         for i, w in enumerate(self.w):
-            hw = h @ w
-            agg = gather_scatter(hw, src, dst, n_nodes, edge_weight=coeff,
-                                 csr=csr)
+            hw = self.pin(h @ w)
+            agg = self.pin(gather_scatter(hw, src, dst, n_nodes,
+                                          edge_weight=coeff, csr=csr))
             h = agg + hw * deg_self[:, None]               # self-loop term
             if i < len(self.w) - 1:
                 h = torch.relu(h)
+            h = self.pin(h)
         return h

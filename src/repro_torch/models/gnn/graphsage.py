@@ -34,15 +34,16 @@ class GraphSAGE(GNNModule):
 
     def node_logits(self, feats, pos, src, dst, edge_mask, n_nodes,
                     chunk: Optional[int] = None):
-        h = feats
+        h = self.pin(feats)
         ew = edge_mask.to(torch.float32)
         mean = self.cfg.aggregator == "mean"
         csr = edge_csr(feats, src, dst, n_nodes) if mean else None
         for ws, wn in zip(self.w_self, self.w_nbr):
-            agg = gather_scatter(h, src, dst, n_nodes, edge_weight=ew,
-                                 reduce="mean" if mean else "max", csr=csr)
+            agg = self.pin(gather_scatter(h, src, dst, n_nodes,
+                                          edge_weight=ew,
+                                          reduce="mean" if mean else "max",
+                                          csr=csr))
             h = torch.relu(h @ ws + agg @ wn)
-            h = h / torch.clamp(torch.linalg.vector_norm(h, dim=-1,
-                                                         keepdim=True),
-                                min=1e-9)
-        return h @ self.head
+            h = self.pin(h / torch.clamp(torch.linalg.vector_norm(
+                h, dim=-1, keepdim=True), min=1e-9))
+        return self.pin(h @ self.head)

@@ -16,7 +16,8 @@ from torch import nn
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import DeviceLike
-from repro_torch.models.gnn.common import GNNModule, segment_sum
+from repro_torch.models.gnn.common import (GNNModule, gather_rows,
+                                           segment_sum)
 
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
@@ -47,16 +48,18 @@ class SchNet(GNNModule):
 
     def node_logits(self, feats, pos, src, dst, edge_mask, n_nodes,
                     chunk: Optional[int] = None):
-        h = feats @ self.embed
-        rel = pos[dst] - pos[src]
+        h = self.pin(self.pin(feats) @ self.embed)
+        rel = gather_rows(pos, dst) - gather_rows(pos, src)
         r = torch.linalg.vector_norm(rel, dim=-1)
-        rbf = self._rbf(r)
+        rbf = self.pin_edges(self._rbf(r))
         cutoff_w = 0.5 * (torch.cos(math.pi * torch.clamp(
             r / self.cfg.cutoff, 0, 1)) + 1)
         ew = (edge_mask * cutoff_w)[:, None]
         for ip in self.interactions:
-            w = shifted_softplus(rbf @ ip["filter_w1"]) @ ip["filter_w2"]
-            msg = (h @ ip["w_in"])[src] * w * ew
-            agg = segment_sum(msg, dst, n_nodes)
-            h = h + shifted_softplus(agg @ ip["w_out"])
-        return shifted_softplus(h) @ self.head
+            w = self.pin_edges(shifted_softplus(rbf @ ip["filter_w1"])
+                               @ ip["filter_w2"])
+            msg = self.pin_edges(gather_rows(self.pin(h @ ip["w_in"]), src)
+                                 * w * ew)
+            agg = self.pin(segment_sum(msg, dst, n_nodes))
+            h = self.pin(h + shifted_softplus(agg @ ip["w_out"]))
+        return self.pin(shifted_softplus(h) @ self.head)

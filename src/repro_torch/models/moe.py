@@ -33,7 +33,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.kernels.topk import stable_topk
 from repro_torch.models.layers import dense_init_
 
@@ -89,55 +92,96 @@ def expert_capacity(s: int, cfg: TransformerConfig) -> int:
                       * cfg.capacity_factor))
 
 
-def moe_ffn(params: Params, x: torch.Tensor, cfg: TransformerConfig
+def _route(probs: torch.Tensor, k: int, n_experts: int, capacity: int):
+    """Each row's routing from its router probabilities [B, S, E]: (gate
+    weights and expert ids [B, S, k], the expert picks counted [E]
+    (float32), and ``_dispatch_indices``' slot_pair, slot_valid and
+    pair_slot).  Rows route on their own."""
+    b, s, _ = probs.shape
+    gate_w, gate_idx = router_topk(probs, k)                  # [B, S, k]
+    picks = torch.zeros(n_experts, dtype=torch.float32, device=probs.device)
+    picks.scatter_add_(0, gate_idx.reshape(-1),
+                       torch.ones(gate_idx.numel(), device=probs.device))
+    slots = _dispatch_indices(gate_idx.reshape(b, s * k), n_experts,
+                              capacity)
+    return (gate_w, picks) + slots
+
+
+def _experts(x: torch.Tensor, gate_w: torch.Tensor, slot_pair: torch.Tensor,
+             slot_valid: torch.Tensor, pair_slot: torch.Tensor,
+             w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+             k: int, capacity: int, first: int) -> torch.Tensor:
+    """The routed experts ``first`` .. ``first + w_gate.shape[0] - 1`` of
+    the E a dispatch fills, on x [B, S, d]: their slots' tokens through
+    each expert's SwiGLU, then each (token, choice) pair that one of them
+    holds, weighted and summed over the k choices in float32 -> [B, S, d]
+    in x's dtype (pairs of other experts add nothing)."""
+    b, s, d = x.shape
+    e = w_gate.shape[0]
+    cols = slice(first * capacity, (first + e) * capacity)
+    token_of_slot = slot_pair[:, cols] // k                    # [B, e*C]
+    x_e = torch.gather(x, 1, token_of_slot[..., None].expand(-1, -1, d))
+    x_e = torch.where(slot_valid[:, cols, None], x_e, 0)
+    # [e, B*C, d]: one batched product an expert
+    x_e = x_e.reshape(b, e, capacity, d).transpose(0, 1).reshape(
+        e, b * capacity, d)
+
+    # --- expert SwiGLU ---
+    h = F.silu(torch.bmm(x_e, w_gate)) * torch.bmm(x_e, w_up)
+    y_e = torch.bmm(h, w_down)                                # [e, B*C, d]
+    y_e = y_e.reshape(e, b, capacity, d).transpose(0, 1).reshape(
+        b, e * capacity, d)
+
+    # --- combine: each pair's slot, weighted, summed over the k choices ---
+    local = pair_slot - first * capacity
+    held = (local >= 0) & (local < e * capacity)
+    y_pair = torch.gather(y_e, 1, torch.where(held, local, 0)[..., None]
+                          .expand(-1, -1, d)).reshape(b, s, k, d)
+    w = torch.where(held.reshape(b, s, k), gate_w, 0.0)
+    out = y_pair[:, :, 0].float() * w[..., 0, None]
+    for j in range(1, k):
+        out += y_pair[:, :, j].float() * w[..., j, None]
+    return out.to(x.dtype)
+
+
+def moe_ffn(params: Params, x: torch.Tensor, cfg: TransformerConfig,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (output [B, S, d], aux_loss scalar f32).
 
     ``params``: ``router`` [d, E] (float32), ``experts`` {``w_gate``,
     ``w_up`` [E, d, f], ``w_down`` [E, f, d]} and, with shared experts,
-    ``shared`` {``w_gate``, ``w_up`` [d, sf], ``w_down`` [sf, d]}."""
+    ``shared`` {``w_gate``, ``w_up`` [d, sf], ``w_down`` [sf, d]}.
+
+    On DTensors (x sharded by rows, the experts by ``expert``) the routing
+    and each rank's experts run on the local shards (:func:`_on_shards`),
+    and the combined output, a partial sum over the expert-sharding mesh
+    dims, is constrained to ``("batch", None, "embed")``: the reference's
+    all-reduce of the combine.  ``local_map`` fixes the dispatch's
+    placements, so the reference's three constraints inside the dispatch
+    have no counterpart here."""
     b, s, d = x.shape
     e, k = cfg.n_routed_experts, cfg.top_k
     capacity = expert_capacity(s, cfg)
+    ex = params["experts"]
 
     # --- routing (fp32) ---
     logits = x.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
-    gate_w, gate_idx = router_topk(probs, k)                  # [B, S, k]
+    if isinstance(x, DTensor):
+        out, picks = _on_shards(x, probs, ex, k, e, capacity)
+    else:
+        gate_w, picks, slot_pair, slot_valid, pair_slot = _route(
+            probs, k, e, capacity)
+        out = _experts(x, gate_w, slot_pair, slot_valid, pair_slot,
+                       ex["w_gate"], ex["w_up"], ex["w_down"], k, capacity,
+                       0)
+    out = constrain(out, rules, "batch", None, "embed")
 
     # --- aux load-balance loss (DeepSeekMoE expert-level) ---
     me = probs.mean(dim=(0, 1))
-    picks = torch.zeros(e, dtype=torch.float32, device=x.device)
-    picks.scatter_add_(0, gate_idx.reshape(-1),
-                       torch.ones(gate_idx.numel(), device=x.device))
     fe = picks / (b * s) * (e / k)
     aux_loss = torch.sum(me * fe)
-
-    # --- dispatch: each expert's [C, d] block of its tokens ---
-    slot_pair, slot_valid, pair_slot = _dispatch_indices(
-        gate_idx.reshape(b, s * k), e, capacity)
-    token_of_slot = slot_pair // k                            # [B, E*C]
-    x_e = torch.gather(x, 1, token_of_slot[..., None].expand(-1, -1, d))
-    x_e = torch.where(slot_valid[..., None], x_e, 0)
-    # [E, B*C, d]: one batched product an expert
-    x_e = x_e.reshape(b, e, capacity, d).transpose(0, 1).reshape(
-        e, b * capacity, d)
-
-    # --- expert SwiGLU ---
-    ex = params["experts"]
-    h = F.silu(torch.bmm(x_e, ex["w_gate"])) * torch.bmm(x_e, ex["w_up"])
-    y_e = torch.bmm(h, ex["w_down"])                          # [E, B*C, d]
-    y_e = y_e.reshape(e, b, capacity, d).transpose(0, 1).reshape(
-        b, e * capacity, d)
-
-    # --- combine: each pair's slot, weighted, summed over the k choices ---
-    y_pair = torch.gather(y_e, 1, pair_slot.clamp(min=0)[..., None].expand(
-        -1, -1, d)).reshape(b, s, k, d)
-    w = torch.where(pair_slot.reshape(b, s, k) >= 0, gate_w, 0.0)
-    out = y_pair[:, :, 0].float() * w[..., 0, None]
-    for j in range(1, k):
-        out += y_pair[:, :, j].float() * w[..., j, None]
-    out = out.to(x.dtype)
 
     # --- shared experts (always-on dense SwiGLU) ---
     if cfg.n_shared_experts:
@@ -145,6 +189,63 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: TransformerConfig
         hs = F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])
         out = out + hs @ sp["w_down"]
     return out, aux_loss
+
+
+def _on_shards(x, probs, ex: Params, k: int, n_experts: int, capacity: int):
+    """The routed experts on DTensors: each rank routes its rows of x (rows
+    route on their own, so the routing is local) and runs the experts it
+    holds (``w_*`` sharded on their expert dim; any other sharding, an
+    FSDP one, is gathered explicitly) -> (the combine, a ``Partial`` sum
+    over the expert-sharding mesh dims, and the picks, a ``Partial`` sum
+    over x's row-sharding mesh dims)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels import sharded
+
+    mesh = x.device_mesh
+    x = sharded.keep_only(x, (0,))
+    probs = sharded.follow(probs, x, {0: 0})
+    rows = list(x.placements)
+    # the FSDP sharding of the experts' weights gathered (their expert dim
+    # stays sharded)
+    w = {}
+    for n in ("w_gate", "w_up", "w_down"):
+        t = ex[n]
+        t = sharded.unshard(t, [i for i, p in enumerate(t.placements)
+                                if isinstance(p, Shard) and p.dim != 0])
+        w[n] = sharded.keep_only(t, (0,))
+    by_expert = [i for i, p in enumerate(w["w_gate"].placements)
+                 if isinstance(p, Shard)]
+    if any(isinstance(rows[i], Shard) for i in by_expert):
+        raise ValueError("moe_ffn on shards: a mesh dim shards both the "
+                         "rows and the experts")
+    for n in ("w_up", "w_down"):
+        w[n] = sharded.to(w[n], w["w_gate"].placements)
+    first = sharded.offset(w["w_gate"], 0)
+    summed = [Partial() if isinstance(p, Shard) else Replicate()
+              for p in rows]
+    route = local_map(
+        lambda p: _route(p, k, n_experts, capacity),
+        out_placements=(rows, summed, rows, rows, rows),
+        in_placements=(rows,), device_mesh=mesh)
+    gate_w, picks, slot_pair, slot_valid, pair_slot = route(probs)
+    out_pl = sharded.partial_where(rows, by_expert)
+    w_pl = list(w["w_gate"].placements)
+    w_grad = [p if isinstance(p, Shard) else
+              Partial() if isinstance(rows[i], Shard) else Replicate()
+              for i, p in enumerate(w_pl)]
+    experts = local_map(
+        lambda xl, gw, sp, sv, ps, wg, wu, wd: _experts(
+            xl, gw, sp, sv, ps, wg, wu, wd, k, capacity, first),
+        out_placements=(out_pl,),
+        in_placements=(rows, rows, rows, rows, rows, w_pl, w_pl, w_pl),
+        in_grad_placements=(out_pl, out_pl, rows, rows, rows, w_grad,
+                            w_grad, w_grad),
+        device_mesh=mesh)
+    out = experts(x, gate_w, slot_pair, slot_valid, pair_slot,
+                  w["w_gate"], w["w_up"], w["w_down"])
+    return out, picks
 
 
 def moe_param_shapes(cfg: TransformerConfig

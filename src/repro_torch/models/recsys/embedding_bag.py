@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.gather_scatter.ops import EdgeCSR, gather_scatter
 
@@ -39,8 +40,19 @@ def embedding_bag_dense(table: torch.Tensor, ids: torch.Tensor,
                         ) -> torch.Tensor:
     """table [F, V, D]; ids [B, F, H] (each field's ids index its own
     table) -> [B, F, D], reduced over H; ``weights`` [B, F, H] scale each
-    row first.  The mean divides by H."""
+    row first.  The mean divides by H.
+
+    On DTensors each rank runs the kernel on its shard of the table: a
+    table sharded by fields (the reference's ``field`` rule) is looked up
+    by the ids of those fields, cut locally, the bags sharded alike; a
+    table sharded by rows (``table_row``) is looked up by every bag's ids
+    (gathered whole) that fall in its rows, weight 0 for the others, and
+    the pooled bags, partial sums over the row-sharding mesh dims, are
+    reduced (a row-wise sharded embedding's reduce-scatter).  The bags
+    come back placed as the ids were."""
     _mode(mode)
+    if isinstance(table, DTensor) or isinstance(ids, DTensor):
+        return _dense_on_shards(table, ids, mode, weights)
     f, v, d = table.shape
     b, _, h = ids.shape
     rows = table.reshape(f * v, d)
@@ -55,6 +67,51 @@ def embedding_bag_dense(table: torch.Tensor, ids: torch.Tensor,
     w = None if weights is None else weights.reshape(-1)
     return gather_scatter(rows, csr.src, csr.dst, b * f, w, mode,
                           csr).reshape(b, f, d)
+
+
+def _dense_on_shards(table, ids, mode, weights):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels import sharded
+
+    if mode == "max" or weights is not None:
+        raise ValueError("embedding_bag_dense on shards: sum or mean of "
+                         "unweighted bags only")
+    mesh = table.device_mesh
+    table = sharded.keep_only(table, (0, 1))
+    by_field = [i for i, p in enumerate(table.placements)
+                if isinstance(p, Shard) and p.dim == 0]
+    by_row = [i for i, p in enumerate(table.placements)
+              if isinstance(p, Shard) and p.dim == 1]
+    ids = sharded.keep_only(ids, (0,))
+    ids_pl = list(ids.placements)
+    # each rank's fields' ids (a local cut), and every bag where it holds
+    # a share of the rows (gathered)
+    ids = sharded.to(ids, [Shard(1) if i in by_field else Replicate()
+                           if i in by_row else p
+                           for i, p in enumerate(ids_pl)])
+    first = sharded.offset(table, 1)
+    out_pl = [Partial() if i in by_row else p
+              for i, p in enumerate(ids.placements)]
+
+    def local(tl, il):
+        if not by_row:
+            return embedding_bag_dense(tl, il, mode)
+        col = il.long() - first
+        mine = (col >= 0) & (col < tl.shape[1])
+        return embedding_bag_dense(
+            tl, torch.where(mine, col, 0).to(il.dtype), mode,
+            weights=mine.to(tl.dtype))
+    out = local_map(local, out_placements=(out_pl,),
+                    in_placements=(list(table.placements),
+                                   list(ids.placements)),
+                    in_grad_placements=(list(table.placements),
+                                        list(ids.placements)),
+                    device_mesh=mesh)(table, ids)
+    # the bags whole over fields and reduced over rows, placed as the ids
+    # were: the next layer (AutoInt's attention) weighs every field
+    return sharded.to(out, ids_pl)
 
 
 def embedding_bag_ragged(table: torch.Tensor, ids: torch.Tensor,

@@ -7,12 +7,15 @@ layers; MLA latent attention with the absorbed decode (DeepSeek-V2).
 Parameters keep the reference's stacked layout, one stack of dense layers
 (``layers``: ``wq`` [L, d, H, hd], ``wo`` [L, H, hd, d], ...) and, for a
 MoE config, one of MoE layers (``moe_layers``), so :func:`params_from_jax`
-loads a reference param tree as it is.  The model runs on one device and
-applies no sharding rules; ``param_axes`` and ``cache_axes`` name each
-tensor's logical axes for the step bundles' partition specs
-(``launch/steps.py``).  On the card the GQA prefill and MLA's prefill run
-through the hand-written flash-attention kernel and the GQA decode through
-the decode-attention kernel; on the CPU through their plain versions.
+loads a reference param tree as it is.  ``param_axes`` and
+``cache_axes`` name each tensor's logical axes for the step bundles'
+partition specs (``launch/steps.py``).  ``rules`` (None by default) are
+the cell's sharding rules: on DTensors the model constrains its
+activations at the reference's points by their logical names
+(``constrain``), and off a mesh nothing changes.  On the card the GQA
+prefill and MLA's prefill run through the hand-written flash-attention
+kernel and the GQA decode through the decode-attention kernel; on the CPU
+through their plain versions.
 MLA's absorbed decode is plain torch in float32, as the reference's is.
 
 Training: ``loss_fn`` is the reference's (float32 logits, cross-entropy
@@ -35,10 +38,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.models.attention import chunked_attention, decode_attention
 from repro_torch.models.layers import (
     apply_rotary,
@@ -160,6 +165,7 @@ class LM(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
+        self.rules: Optional[ShardingRules] = None
         self.n_dense = cfg.first_dense_layers if cfg.is_moe else cfg.n_layers
         self.n_moe = cfg.n_layers - self.n_dense if cfg.is_moe else 0
         d, v = cfg.d_model, cfg.vocab_size
@@ -242,6 +248,43 @@ class LM(nn.Module):
     def _norm(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, scale, self.cfg.rms_eps, fused=self.cfg.fused_norm)
 
+    def _gathered(self, w: torch.Tensor, axes: Tuple) -> torch.Tensor:
+        """A weight as its product uses it: on DTensors its FSDP sharding
+        (``p_embed``) gathered explicitly, the others kept (the
+        reference's partitioner gathers it alike); the gradient comes back
+        reduce-scattered to the weight's own sharding."""
+        if self.rules is None or not isinstance(w, DTensor):
+            return w
+        from repro_torch.kernels import sharded
+        fsdp = self.rules.spec(*(a if a == "p_embed" else None
+                                 for a in axes))
+        names = list(sharded.mesh_names(w))
+        return sharded.unshard(w, [names.index(a) for a in _flat_axes(fsdp)])
+
+    def _layer_gathered(self, p: Layer, moe: bool) -> Layer:
+        """:meth:`_gathered` of every weight of one layer."""
+        if self.rules is None:
+            return p
+        axes = _layer_axes(self.cfg, moe)
+        return {n: self._gathered(t, axes[n]) for n, t in p.items()}
+
+    def _heads_uneven(self, x: torch.Tensor) -> bool:
+        """Whether x is a DTensor on whose mesh the query or the key heads
+        do not divide the mesh axes of ``heads`` (:meth:`_gqa_local`)."""
+        if self.rules is None or not isinstance(x, DTensor):
+            return False
+        from repro_torch.distributed.sharding import mesh_axes
+        sizes = mesh_axes(x.device_mesh)
+        k = 1
+        for a in _flat_axes(self.rules.spec("heads")):
+            k *= sizes.get(a, 1)
+        return bool(self.cfg.n_heads % k or self.cfg.n_kv_heads % k)
+
+    def _flat(self, w: torch.Tensor, heads: str) -> torch.Tensor:
+        """w [d, H, k] (FSDP-gathered) -> [d, H * k], pinned (on DTensors)
+        to (None, ``heads``)."""
+        return constrain(w.reshape(w.shape[0], -1), self.rules, None, heads)
+
     def _rope_dim(self) -> int:
         cfg = self.cfg
         return cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
@@ -249,19 +292,29 @@ class LM(nn.Module):
     # -- attention ----------------------------------------------------------
 
     def _gqa(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
-             sin: torch.Tensor, cache=None, slot: "_Slot" = None):
+             sin: torch.Tensor, cache=None, slot: "_Slot" = None,
+             want_cache: bool = False):
         cfg = self.cfg
         b, s, d = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (x @ p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
-        k = (x @ p["wk"].reshape(d, kvh * hd)).reshape(b, s, kvh, hd)
-        v = (x @ p["wv"].reshape(d, kvh * hd)).reshape(b, s, kvh, hd)
+        if cache is None and self._heads_uneven(x):
+            return self._gqa_local(p, x, cos, sin, want_cache)
+        # on DTensors the products and their weights' gradients are pinned
+        # to the heads' sharding before a split: DTensor may shard the
+        # columns of a product (or of its gradient) where its heads cannot go
+        q = constrain(x @ self._flat(p["wq"], "p_heads"), self.rules,
+                      "batch", "seq", "heads").reshape(b, s, h, hd)
+        k = constrain(x @ self._flat(p["wk"], "p_kv_heads"), self.rules,
+                      "batch", "seq", "kv_heads").reshape(b, s, kvh, hd)
+        v = constrain(x @ self._flat(p["wv"], "p_kv_heads"), self.rules,
+                      "batch", "seq", "kv_heads").reshape(b, s, kvh, hd)
         if cfg.qk_norm:
             q = self._norm(q, p["q_norm"])
             k = self._norm(k, p["k_norm"])
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         if cache is None:
+            q = constrain(q, self.rules, "batch", "seq", "heads", None)
             # k and v keep their KVH heads: the kernel reads head h // G
             out = chunked_attention(q, k, v, causal=True,
                                     block_kv=min(cfg.attn_block_kv, s),
@@ -271,10 +324,124 @@ class LM(nn.Module):
             k_cache, v_cache = cache
             _write_rows(k_cache, k[:, 0], slot)
             _write_rows(v_cache, v[:, 0], slot)
+            k_cache = constrain(k_cache, self.rules, "batch", "kv_seq",
+                                "kv_heads", None)
+            v_cache = constrain(v_cache, self.rules, "batch", "kv_seq",
+                                "kv_heads", None)
             out = decode_attention(q, k_cache, v_cache, slot.pos)
             new_cache = cache
         o = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, d)
         return o, new_cache
+
+    def _gqa_local(self, p: Layer, x: DTensor, cos: torch.Tensor,
+                   sin: torch.Tensor, want_cache: bool):
+        """Train or prefill attention on DTensors whose query or key heads
+        do not divide the mesh axes of ``heads`` (the reference's
+        partitioner pads such a head dim).  Each rank takes its query
+        heads as ``torch.chunk`` splits them (rank 0 the most, a trailing
+        rank maybe none) and the key heads they read, projects them from
+        its shards of the weights or its slices of replicated ones, runs
+        attention on its rows and heads (a kernel call on local tensors)
+        and projects back: the output is a partial sum over the heads'
+        mesh dims, which the residual's constraint reduces.  A query head
+        group that a rank holds in part reads its key head once a query
+        head.  Under ``want_cache`` each rank also projects the key and
+        value heads of its share of the cache, as the cache's axes place
+        it (prefill: its ``kv_seq`` rows).  -> (output, cache entry or
+        None)."""
+        from torch.distributed.tensor import Partial, Shard
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+
+        from repro_torch.distributed.sharding import spec_placements
+        from repro_torch.kernels import sharded
+
+        cfg = self.cfg
+        b, s, d = x.shape
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        g = h // kvh
+        mesh = x.device_mesh
+        names = sharded.mesh_names(x)
+        head_dims = [names.index(a) for a in _flat_axes(
+            self.rules.spec("heads"))]
+        x = sharded.keep_only(x, (0,))
+        rows = list(x.placements)
+        by_rows = [i for i, pl in enumerate(rows) if isinstance(pl, Shard)]
+        q_pl = [Shard(2) if i in head_dims else pl
+                for i, pl in enumerate(rows)]
+        (bl, _, hl, _), (_, _, oq, _) = compute_local_shape_and_global_offset(
+            (b, s, h, hd), mesh, q_pl)
+
+        def local(w: torch.Tensor, dim: int, first: int, n: int):
+            """w's heads first .. first + n - 1 along ``dim``, local; its
+            gradient a partial sum over the rows' and the heads' mesh
+            dims (the heads' only where w is whole there).  A weight the
+            rules shard on its head dim holds just these heads: they shard
+            it only where its heads divide the axis (``lm_rules``), and
+            then the query heads split evenly too."""
+            held = [i for i, pl in enumerate(w.placements)
+                    if isinstance(pl, Shard) and pl.dim == dim]
+            w = sharded.keep_only(w, (dim,) if held else ())
+            grad = [pl if i in held else Partial()
+                    if i in by_rows or i in head_dims else pl
+                    for i, pl in enumerate(w.placements)]
+            wl = w.to_local(grad_placements=grad)
+            return wl if held else wl.narrow(dim, first, n)
+
+        def whole(t: torch.Tensor) -> torch.Tensor:
+            if not isinstance(t, DTensor):
+                return t
+            t = sharded.keep_only(t, ())
+            return t.to_local(grad_placements=[
+                Partial() if i in by_rows or i in head_dims else pl
+                for i, pl in enumerate(t.placements)])
+
+        def proj(xs, w, norm, c, sn):
+            y = torch.einsum("bsd,dhk->bshk", xs, w)
+            if norm is not None:
+                y = self._norm(y, norm)
+            return y if c is None else apply_rotary(y, c, sn)
+
+        q_norm = whole(p["q_norm"]) if cfg.qk_norm else None
+        k_norm = whole(p["k_norm"]) if cfg.qk_norm else None
+        cos, sin = whole(cos), whole(sin)
+        xl = x.to_local(grad_placements=[
+            Partial() if i in head_dims else pl for i, pl in enumerate(rows)])
+        first = oq // g
+        nk = (oq + hl - 1) // g - first + 1 if hl else 0
+        q = proj(xl, local(p["wq"], 1, oq, hl), q_norm, cos, sin)
+        wk, wv = local(p["wk"], 1, first, nk), local(p["wv"], 1, first, nk)
+        k, v = proj(xl, wk, k_norm, cos, sin), proj(xl, wv, None, None, None)
+        reads = [(oq + i) // g - first for i in range(hl)]
+        if any(reads.count(j) != hl // nk for j in range(nk)):
+            # this rank's query heads split a group: a key head a query head
+            idx = torch.tensor(reads, device=k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        if hl:
+            out = chunked_attention(q, k, v, causal=True,
+                                    block_kv=min(cfg.attn_block_kv, s),
+                                    bf16_probs=cfg.bf16_probs)
+        else:
+            out = q
+        o = torch.einsum("bshk,hkd->bsd", out, local(p["wo"], 0, oq, hl))
+        o = sharded.wrap(o, x, [Partial() if i in head_dims else pl
+                                for i, pl in enumerate(rows)], (b, s, d))
+        if not want_cache:
+            return o, None
+        c_pl = spec_placements(mesh, self.rules.spec("batch", "kv_seq",
+                                                     "kv_heads", None))
+        (cb, cs, ck, _), (ob, os_, ok, _) = \
+            compute_local_shape_and_global_offset((b, s, kvh, hd), mesh, c_pl)
+        ob -= sharded.offset(x, 0)
+        if ob < 0 or ob + cb > bl:
+            raise ValueError("attention on shards: the cache's batch rows "
+                             "are not this rank's rows")
+        xc = xl[ob:ob + cb, os_:os_ + cs]
+        kc = proj(xc, local(p["wk"], 1, ok, ck), k_norm, cos[os_:os_ + cs],
+                  sin[os_:os_ + cs])
+        vc = proj(xc, local(p["wv"], 1, ok, ck), None, None, None)
+        return o, tuple(sharded.wrap(t, x, c_pl, (b, s, kvh, hd))
+                        for t in (kc, vc))
 
     def _mla(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
              sin: torch.Tensor, cache=None, slot: "_Slot" = None):
@@ -305,7 +472,8 @@ class LM(nn.Module):
                 b, s, h, dn + dv)
             k = torch.cat([kv[..., :dn],
                            k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
-            qf = torch.cat([q_nope, q_rope], dim=-1)
+            qf = constrain(torch.cat([q_nope, q_rope], dim=-1), self.rules,
+                           "batch", "seq", "heads", None)
             out = chunked_attention(qf, k, kv[..., dn:].contiguous(),
                                     causal=True, scale=scale,
                                     block_kv=min(cfg.attn_block_kv, s),
@@ -316,6 +484,10 @@ class LM(nn.Module):
             ckv_cache, krope_cache = cache
             _write_rows(ckv_cache, c_kv[:, 0], slot)
             _write_rows(krope_cache, k_rope[:, 0], slot)
+            ckv_cache = constrain(ckv_cache, self.rules, "batch", "kv_seq",
+                                  None)
+            krope_cache = constrain(krope_cache, self.rules, "batch",
+                                    "kv_seq", None)
             ckv = ckv_cache.float()
             q_lat = torch.einsum("bqhn,chn->bqhc", q_nope, wk_b)
             s_lat = torch.einsum("bqhc,bsc->bhqs", q_lat.float(), ckv)
@@ -325,7 +497,7 @@ class LM(nn.Module):
             valid = torch.arange(ckv.shape[1], device=x.device)[None, :] \
                 <= slot.pos[:, None]
             scores = torch.where(valid[:, None, None, :], scores, -1e30)
-            probs = torch.softmax(scores, dim=-1)
+            probs = _softmax(scores)
             ctx_lat = torch.einsum("bhqs,bsc->bqhc", probs, ckv).to(x.dtype)
             out = torch.einsum("bqhc,chv->bqhv", ctx_lat, wv_b)
             new_cache = cache
@@ -336,26 +508,38 @@ class LM(nn.Module):
 
     def _block(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor, moe: bool, cache=None,
-               slot: "_Slot" = None):
+               slot: "_Slot" = None, want_cache: bool = False):
         """One layer -> (x, its aux loss (0 for a dense layer), its cache
-        entry)."""
+        entry: the new one under ``want_cache``, the decode's given one)."""
+        p = self._layer_gathered(p, moe)
         h = self._norm(x, p["ln1"])
-        attn = self._mla if self.cfg.is_mla else self._gqa
-        attn_out, new_cache = attn(p, h, cos, sin, cache=cache, slot=slot)
-        x = x + attn_out
+        if self.cfg.is_mla:
+            attn_out, new_cache = self._mla(p, h, cos, sin, cache=cache,
+                                            slot=slot)
+        else:
+            attn_out, new_cache = self._gqa(p, h, cos, sin, cache=cache,
+                                            slot=slot, want_cache=want_cache)
+        x = constrain(x + attn_out, self.rules, "batch", "seq", "embed")
         h = self._norm(x, p["ln2"])
         if moe:
             ffn_out, aux = moe_ffn(nest_moe_params(
-                {n: p[n] for n in moe_param_shapes(self.cfg)}), h, self.cfg)
+                {n: p[n] for n in moe_param_shapes(self.cfg)}), h, self.cfg,
+                self.rules)
         else:
             g = F.silu(h @ p["w_gate"])
-            ffn_out = (g * (h @ p["w_up"])) @ p["w_down"]
+            gu = constrain(g * (h @ p["w_up"]), self.rules, "batch", "seq",
+                           "mlp")
+            ffn_out = gu @ p["w_down"]
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x + ffn_out, aux, new_cache
+        x = constrain(x + ffn_out, self.rules, "batch", "seq", "embed")
+        return x, aux, new_cache
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self._norm(x, self.final_norm)
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        if self.cfg.tie_embeddings:
+            head = self._gathered(self.embed, ("p_vocab", "p_embed")).T
+        else:
+            head = self._gathered(self.lm_head, ("p_embed", "p_vocab"))
         return x @ head
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -373,10 +557,23 @@ class LM(nn.Module):
         kv = (n, batch, seq, cfg.n_kv_heads, cfg.head_dim)
         return kv, kv
 
-    def _new_cache(self, batch: int, seq: int, alloc) -> Cache:
-        return {key: tuple(alloc(shape, dtype=self.dtype, device=self.device)
-                           for shape in self._cache_shapes(n, batch, seq))
-                for key, _, n in self._stacks()}
+    def _new_cache(self, batch: int, seq: int, alloc, like=None) -> Cache:
+        """A cache of ``alloc``'s tensors; where ``like`` is a DTensor (the
+        prefill's activations) each is placed on its mesh by the cache's
+        axes, made without a collective (``sharding.place``)."""
+        if self.rules is None or not isinstance(like, DTensor):
+            return {key: tuple(alloc(shape, dtype=self.dtype,
+                                     device=self.device)
+                               for shape in self._cache_shapes(n, batch, seq))
+                    for key, _, n in self._stacks()}
+        from repro_torch.distributed.sharding import place_new
+        axes = self.cache_axes()
+        return {key: tuple(
+            place_new(shape, self.dtype, like.device_mesh,
+                      self.rules.spec(*ax), self.device)
+            for shape, ax in zip(self._cache_shapes(n, batch, seq),
+                                 axes[key]))
+            for key, _, n in self._stacks()}
 
     # -- full forward (train / prefill) ---------------------------------------
 
@@ -387,10 +584,13 @@ class LM(nn.Module):
         (no cache then)."""
         cfg = self.cfg
         b, s = tokens.shape
-        x = F.embedding(tokens, self.embed)
+        x = constrain(F.embedding(tokens, self._gathered(
+            self.embed, ("p_vocab", "p_embed"))), self.rules, "batch", "seq",
+            "embed")
         cos, sin = rotary_cos_sin(torch.arange(s, device=self.device),
                                   self._rope_dim(), cfg.rope_theta)
-        cache = self._new_cache(b, s, torch.empty) if collect_cache else None
+        cache = self._new_cache(b, s, torch.empty, like=x) \
+            if collect_cache else None
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for key, lp, _ in self._stacks():
             moe = key == "moe"
@@ -399,7 +599,8 @@ class LM(nn.Module):
                     x, aux_i = checkpoint(self._remat_block, p, x, cos, sin,
                                           moe, use_reentrant=False)
                 else:
-                    x, aux_i, layer_cache = self._block(p, x, cos, sin, moe)
+                    x, aux_i, layer_cache = self._block(
+                        p, x, cos, sin, moe, want_cache=cache is not None)
                     if cache is not None:
                         for dst, src in zip(cache[key], layer_cache):
                             dst[i].copy_(src)
@@ -418,7 +619,8 @@ class LM(nn.Module):
         ``{"dense": ..., "moe": ...}`` ("moe" for a MoE config only), each
         entry a pair as :meth:`init_cache` lays it out."""
         x, _, cache = self._trunk(self._tokens(tokens), collect_cache)
-        return self._head(x), cache
+        return constrain(self._head(x), self.rules, "batch", "seq",
+                         "vocab"), cache
 
     @torch.no_grad()
     def prefill(self, tokens) -> Tuple[torch.Tensor, Cache]:
@@ -426,7 +628,8 @@ class LM(nn.Module):
         runs on the last position only: the same values as the reference's
         ``logits[:, -1]``, without the [B, S, V] logits."""
         x, _, cache = self._trunk(self._tokens(tokens), True)
-        return self._head(x[:, -1:])[:, 0], cache
+        return constrain(self._head(x[:, -1:])[:, 0], self.rules, "batch",
+                         "vocab"), cache
 
     # -- loss ---------------------------------------------------------------
 
@@ -439,9 +642,10 @@ class LM(nn.Module):
         recomputed in the backward under ``cfg.remat``."""
         tokens, labels = self._tokens(tokens), self._tokens(labels)
         x, aux, _ = self._trunk(tokens, False, remat=self.cfg.remat)
-        logits = self._head(x).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+        logits = constrain(self._head(x), self.rules, "batch", "seq",
+                           "vocab").float()
+        lse = _logsumexp(logits)
+        ll = _label_logit(logits, labels)
         ce = torch.mean(lse - ll)
         return ce + AUX_LOSS_COEF * aux, {"ce": ce.detach(),
                                            "aux": aux.detach()}
@@ -485,7 +689,9 @@ class LM(nn.Module):
         cfg = self.cfg
         tokens = self._tokens(tokens)
         pos = torch.as_tensor(pos, device=self.device).to(torch.int32)
-        x = F.embedding(tokens, self.embed)
+        x = constrain(F.embedding(tokens, self._gathered(
+            self.embed, ("p_vocab", "p_embed"))), self.rules, "batch", "seq",
+            "embed")
         cos, sin = rotary_cos_sin(pos[:, None].float(), self._rope_dim(),
                                   cfg.rope_theta)
         slot = _Slot(pos, cache["dense"][0].shape[2])
@@ -494,7 +700,84 @@ class LM(nn.Module):
             for i, p in enumerate(self._unstack(lp)):
                 x, _, _ = self._block(p, x, cos, sin, key == "moe",
                                       cache=(first[i], second[i]), slot=slot)
-        return self._head(x)[:, 0], cache
+        return constrain(self._head(x)[:, 0], self.rules, "batch",
+                         "vocab"), cache
+
+
+def _flat_axes(spec) -> list:
+    """The mesh axes a partition spec names, in order."""
+    out = []
+    for e in spec:
+        out += [] if e is None else [e] if isinstance(e, str) else list(e)
+    return out
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """softmax over the last dim.  Where a DTensor's last dim is sharded
+    (MLA's decode scores over a position-sharded cache) it is taken as
+    exp(x - max) / sum: an all-reduce of the max and one of the sum over
+    the sharding mesh dims, the flash-decoding combine, where DTensor's own
+    softmax would gather the whole dim."""
+    if isinstance(x, DTensor):
+        from repro_torch.kernels import sharded
+        if sharded.sharded_over(x, x.dim() - 1):
+            e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+            return e / e.sum(dim=-1, keepdim=True)
+    return torch.softmax(x, dim=-1)
+
+
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim.  Where a DTensor's last dim is sharded
+    it is taken as max + log(sum(exp(x - max))): an all-reduce of the max
+    and one of the sum over the sharding mesh dims, where DTensor's own
+    logsumexp would gather the whole dim."""
+    if not isinstance(x, DTensor):
+        return torch.logsumexp(x, dim=-1)
+    from repro_torch.kernels import sharded
+    if not sharded.sharded_over(x, x.dim() - 1):
+        return torch.logsumexp(x, dim=-1)
+    m = x.detach().amax(dim=-1, keepdim=True)
+    return (m + torch.log(torch.exp(x - m).sum(dim=-1, keepdim=True)))[
+        ..., 0]
+
+
+def _label_logit(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """logits [B, S, V], labels [B, S] -> each label's logit [B, S].  On a
+    DTensor whose vocab is sharded each rank gathers the labels that fall
+    in its columns (0 for the others): a partial sum over the vocab's mesh
+    dims, where DTensor's own gather would replicate the logits' gradient
+    in the backward."""
+    if isinstance(logits, DTensor):
+        from repro_torch.kernels import sharded
+        if sharded.sharded_over(logits, 2):
+            return _label_logit_on_shards(logits, labels)
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
+def _label_logit_on_shards(logits: DTensor, labels) -> DTensor:
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels import sharded
+
+    logits = sharded.keep_only(logits, (0, 2))
+    labels = sharded.follow(labels, logits, {0: 0})
+    first = sharded.offset(logits, 2)
+    out_pl = [p if p.is_shard() and p.dim == 0 else
+              sharded.Partial() if p.is_shard() else Replicate()
+              for p in logits.placements]
+
+    def local(lg, lab):
+        col = lab.long() - first
+        mine = (col >= 0) & (col < lg.shape[-1])
+        v = torch.gather(lg, -1, col.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(mine, v[..., 0], 0.0)
+    return local_map(local, out_placements=(out_pl,),
+                     in_placements=(logits.placements, labels.placements),
+                     in_grad_placements=(logits.placements,
+                                         labels.placements),
+                     device_mesh=logits.device_mesh)(logits, labels)
 
 
 class _Slot:
@@ -505,6 +788,7 @@ class _Slot:
 
     def __init__(self, pos: torch.Tensor, max_seq: int) -> None:
         self.pos = pos
+        self.max_seq = max_seq
         self.rows = torch.arange(pos.shape[0], device=pos.device)
         self.at = pos.clamp(max=max_seq - 1).long()
         self.keep = pos < max_seq
@@ -513,10 +797,33 @@ class _Slot:
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, slot: _Slot
                 ) -> None:
     """cache[b, pos[b]] = rows[b] in place ([B, S, ...] <- [B, ...]) for
-    the rows ``slot`` keeps."""
+    the rows ``slot`` keeps.  A DTensor cache, sharded by rows and by
+    positions, is written on each rank's shard alone."""
+    if isinstance(cache, DTensor):
+        return _write_rows_on_shards(cache, rows, slot)
     old = cache[slot.rows, slot.at]
     keep = slot.keep.view(-1, *([1] * (rows.dim() - 1)))
     cache[slot.rows, slot.at] = torch.where(keep, rows.to(cache.dtype), old)
+
+
+def _write_rows_on_shards(cache: DTensor, rows: torch.Tensor, slot: _Slot
+                          ) -> None:
+    """:func:`_write_rows` on this rank's shard of a DTensor cache: its rows
+    of the batch, each written where its position falls in the rank's
+    positions (the others are some other rank's to write)."""
+    from repro_torch.kernels import sharded
+
+    dims = {0: 0, **{i: i - 1 for i in range(2, cache.dim())}}
+    mine = sharded.follow(rows, cache, dims).to_local()
+    pos = sharded.follow(slot.pos, cache, {0: 0}).to_local()
+    local = cache.to_local()
+    at = pos.long() - sharded.offset(cache, 1)
+    keep = (at >= 0) & (at < local.shape[1]) & (pos < slot.max_seq)
+    at = at.clamp(0, max(local.shape[1] - 1, 0))
+    b = torch.arange(local.shape[0], device=local.device)
+    old = local[b, at]
+    keep = keep.view(-1, *([1] * (mine.dim() - 1)))
+    local[b, at] = torch.where(keep, mine.to(local.dtype), old)
 
 
 @torch.no_grad()

@@ -42,6 +42,23 @@ def gradients(loss: torch.Tensor, params: Tensors) -> Tensors:
             for (n, p), g in zip(params.items(), gs)}
 
 
+def reduce_gradients(grads: Tensors, params: Tensors) -> Tensors:
+    """Each DTensor gradient redistributed to its parameter's placements:
+    a gradient that autograd leaves as a partial sum over the batch's mesh
+    dims is all-reduced (or reduce-scattered, for an FSDP-sharded
+    parameter) once, explicitly.  Plain tensors pass as they are."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for n, g in grads.items():
+        p = params[n]
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(
+                p.placements):
+            g = g.redistribute(g.device_mesh, p.placements)
+        out[n] = g
+    return out
+
+
 def init_opt_state(params: Tensors) -> Dict[str, Any]:
     """{"m", "v": float32 zeros like each parameter, "step": int32 0}."""
     dev = next(iter(params.values())).device if params else None
@@ -75,7 +92,10 @@ def adamw_update(grads: Tensors, opt_state: Dict[str, Any], params: Tensors,
                  cfg: AdamWConfig
                  ) -> Tuple[Tensors, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: params and the moments updated in place ->
-    (params, opt_state with the step advanced, {"grad_norm", "lr"})."""
+    (params, opt_state with the step advanced, {"grad_norm", "lr"}).
+    DTensor gradients are first reduced to their parameters' placements
+    (:func:`reduce_gradients`)."""
+    grads = reduce_gradients(grads, params)
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),

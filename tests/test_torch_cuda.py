@@ -586,6 +586,34 @@ def test_decode_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d, dv):
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,d", [(2, 1000, 8, 2, 64),
+                                         (3, 4096, 32, 8, 128),
+                                         (2, 77, 16, 2, 160)])
+def test_decode_kernel_log_sum_exp_matches_plain(cuda, dtype, b, s, h, kvh,
+                                                 d):
+    """The rows' log-sum-exp that a rank of a position-sharded decode keeps
+    beside its output (``_with_lse``: from the kernel's chunk partials on
+    the card) against the plain scores' on the CPU; positions at S - 1, 0
+    and between."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    gen = torch.Generator().manual_seed(s + h)
+    q = _randn(gen, b, 1, h, d, dtype=dtype, device=cuda)
+    k = _randn(gen, b, s, kvh, d, dtype=dtype, device=cuda)
+    v = _randn(gen, b, s, kvh, d, dtype=dtype, device=cuda)
+    pos = torch.randint(0, s, (b,), generator=gen, dtype=torch.int32)
+    pos[0], pos[-1] = s - 1, 0
+    scale = d ** -0.5
+    out, lse = decode_ops._with_lse(q, k, v, pos.to(cuda), scale)
+    want_out, want_lse = decode_ops._with_lse(q.cpu(), k.cpu(), v.cpu(), pos,
+                                              scale)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h) and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float().cpu(), want_out.float(),
+                               **ATTN_TOL[dtype])
+    torch.testing.assert_close(lse.cpu(), want_lse, rtol=1e-4, atol=1e-3)
+
+
 def test_attention_on_card_never_takes_the_plain_version(cuda, monkeypatch):
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops

@@ -14,11 +14,18 @@ instead.
 * The per-device argument bytes on the 16 x 16 and 2 x 16 x 16 meshes
   equal the reference's, from each leaf's ``NamedSharding.shard_shape``
   on an ``AbstractMesh`` of the same axes, exactly.
-* ``run_cell``, the resumable CLI and ``run_variant`` on cheap cells.
+* ``run_cell`` on mesh ``one`` and, in a process of its own (it starts a
+  fake process group of 256 ranks), on ``single``: the per-device counts,
+  collectives and roofline terms; the resumable CLI (each production
+  mesh's cells in worker processes of their own) and ``run_variant`` on
+  cheap cells.
 """
 import ast
 import json
 import math
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -148,12 +155,35 @@ def test_run_cell_one_and_single():
     assert an["kernels"]["gather_scatter"]["calls"] == 4     # 2 layers
     assert r["compute_s"] == an["flops"] / HW["peak_flops_fp32"]
     assert r["memory_s"] == an["bytes_accessed"] / HW["hbm_bw"]
+    assert r["collective_s"] == 0 and one["collectives"] == {}
     assert one["fits_80GB"] and one["peak_bytes"] >= \
         one["arg_bytes_per_device"]
-    single = dryrun.run_cell("gcn-cora", "full_graph_sm", "single")
-    assert single["n_chips"] == 256 and single["collectives"] is None
-    assert single["even_split"]["flops_per_chip"] == pytest.approx(
-        single["flops_total"] / 256)
+    # the production mesh starts a fake process group: a process of its own
+    code = ("import json\n"
+            "from repro_torch.launch import dryrun\n"
+            "print(json.dumps(dryrun.run_cell('gcn-cora', 'full_graph_sm',"
+            " 'single')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=REF_LAUNCH.parents[2],
+                         env=dict(os.environ, PYTHONPATH=str(
+                             REF_LAUNCH.parents[1])))
+    assert out.returncode == 0, out.stderr[-3000:]
+    single = json.loads(out.stdout.strip().splitlines()[-1])
+    assert single["n_chips"] == 256 and "even_split" not in single
+    assert single["flops"] == single["analysis"]["flops"] > 0
+    assert single["bytes"] == single["analysis"]["bytes_accessed"]
+    assert single["collectives"]["all-reduce"]["count"] > 0
+    assert single["collective_bytes"] == pytest.approx(sum(
+        e["bytes"] for e in single["collectives"].values()))
+    sr = single["roofline"]
+    assert sr["collective_s"] == pytest.approx(
+        single["collective_bytes"] / HW["link_bw"])
+    assert sr["dominant"] == max(("compute", "memory", "collective"),
+                                 key=lambda k: sr[f"{k}_s"])
+    assert single["fits_80GB"] == (single["peak_bytes"] <= HW["hbm_bytes"])
+    # edges shard over data: a device gathers a sixteenth of them
+    assert an["kernels"]["gather_scatter"]["bytes"] > \
+        single["analysis"]["kernels"]["gather_scatter"]["bytes"]
     lm = dryrun.run_cell("llama3-8b", "long_500k", "one")
     assert lm["roofline"]["peak_flops"] == HW["peak_flops_bf16"]
     assert lm["useful_flops_ratio"] == pytest.approx(

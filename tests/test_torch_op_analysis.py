@@ -317,3 +317,67 @@ def test_gather_scatter_kernel_path_records_its_csr(monkeypatch):
     an = analyze(lambda: gs_ops._GatherScatter.apply(x, None, bag, True))
     assert an.kernels["gather_scatter"]["bytes"] == gs_ops.work(
         50, 70, 8, 280, 4, 4, weighted=False, ptr_rows=0, mean=True)[1]
+
+
+def test_roofline_takes_the_link_term():
+    from repro_torch.launch.op_analysis import Analysis, roofline
+    an = Analysis(flops=1e12, bytes_accessed=1e9, collective_bytes=1e11)
+    r = roofline(an, HW["peak_flops_bf16"])
+    assert r["collective_s"] == 1e11 / HW["link_bw"] == 2.0
+    assert r["dominant"] == "collective"
+    an.collective_bytes = 0.0
+    assert roofline(an, HW["peak_flops_bf16"])["dominant"] == "compute"
+
+
+_LOCAL = """
+import json
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch.mesh import make_fake_mesh
+from repro_torch.launch.op_analysis import analyze, repeat
+mesh = make_fake_mesh((4, 2), ("data", "model"))
+m, k, n = 1024, 512, 256
+a = DTensor.from_local(torch.empty(m // 4, k // 2, device="meta"), mesh,
+                       [Shard(0), Shard(1)], run_check=False,
+                       shape=(m, k), stride=(k, 1))
+b = DTensor.from_local(torch.empty(k // 2, n, device="meta"), mesh,
+                       [Replicate(), Shard(0)], run_check=False,
+                       shape=(k, n), stride=(n, 1))
+
+def fn(a, b):
+    with repeat(2):
+        c = a @ b                      # a partial sum over model
+        c.redistribute(mesh, [Shard(0), Replicate()])
+
+an = analyze(fn, a, b)
+print(json.dumps({"flops": an.flops, "collectives": an.collectives,
+                  "top": an.top_collectives(), "peak": an.peak_bytes,
+                  "repeats": an.repeats}))
+"""
+
+
+def test_a_dtensor_product_is_counted_on_its_local_shards():
+    """Beneath DTensor's dispatch: the local product's FLOPs (not the
+    global one's), the all-reduce DTensor runs at its local result's
+    bytes, scaled by ``repeat``; its sharding propagation's fake tensors
+    are not counted.  In a process of its own (a fake group of 8)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _LOCAL], capture_output=True,
+                         text=True, timeout=300, cwd=root,
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    local = (1024 // 4) * 256 * 4                 # [M/4, N] float32
+    assert res["flops"] == 2 * 2 * (1024 // 4) * (512 // 2) * 256
+    assert res["collectives"] == {"all-reduce": {"count": 2.0,
+                                                 "bytes": 2.0 * local}}
+    assert res["top"] == [["all-reduce float32[256, 256]", 2.0 * local]]
+    assert res["repeats"] == [2]
+    # the arguments' local shards and the local results: less than the
+    # argument shards beside one global result
+    assert 0 < res["peak"] < 2 * local + 1024 * 256 * 4

@@ -435,7 +435,8 @@ def test_stand_in_meshes_match_the_reference_layouts():
                                                          "model": 4}
     assert stand_in(("a",), (3,)).size == 3
     assert HW == {"peak_flops_bf16": 989e12, "peak_flops_fp32": 67e12,
-                  "hbm_bw": 3.35e12, "hbm_bytes": 80e9, "nvlink_bw": 900e9}
+                  "hbm_bw": 3.35e12, "hbm_bytes": 80e9, "nvlink_bw": 900e9,
+                  "link_bw": 50e9}
 
 
 def test_smoke_mesh_is_a_one_rank_gloo_device_mesh(tmp_path):
