@@ -148,7 +148,7 @@ def _copy_piece(piece: IVFIndex) -> IVFIndex:
     out._pend_vecs, out._pend_ids = {}, {}
     out._pend_codes, out._pend_bias = {}, {}
     out.pending_count = 0
-    out.scan_rows, out.scan_time = 0, 0.0
+    out.scan_rows = 0
     return out
 
 

@@ -56,6 +56,7 @@ from repro_torch.core.cypherplus import (
     Prop,
     SubProp,
 )
+from repro_torch.obs.trace import span
 
 Bindings = Dict[str, np.ndarray]
 
@@ -1256,18 +1257,17 @@ def _index_matches(index, qvecs: np.ndarray,
                 step, approximate=(step == "skip_rerank"))
             if ctx.trace is not None:
                 ctx.trace.event("degradation", step=step)
-    t0 = time.perf_counter()
-    while True:
-        vals, ids = index.search_many(qvecs, k, nprobe=nprobe, rerank=rerank,
-                                      stats=ctx.stats)
-        ok = vals >= thr
-        if int(ok.sum(axis=1).max(initial=0)) < k or k >= n_index:
-            break
-        k = min(2 * k, n_index)
-    if ctx.trace is not None:
-        ctx.trace.add_timed("index.knn", time.perf_counter() - t0,
-                            q=qvecs.shape[0], k=k, nprobe=nprobe,
-                            rerank=rerank)
+    with span(ctx.trace, "index.knn", q=qvecs.shape[0], nprobe=nprobe,
+              rerank=rerank) as sp:
+        while True:
+            vals, ids = index.search_many(qvecs, k, nprobe=nprobe,
+                                          rerank=rerank, stats=ctx.stats,
+                                          trace=ctx.trace)
+            ok = vals >= thr
+            if int(ok.sum(axis=1).max(initial=0)) < k or k >= n_index:
+                break
+            k = min(2 * k, n_index)
+        sp.set(k=k)
     return [ids[i][ok[i]] for i in range(qvecs.shape[0])]
 
 

@@ -35,6 +35,16 @@ does a local scan per shard, then the per-shard top-k windows meet in one
 k-way merge on the shards' device -- :func:`scatter_gather_knn`, which runs
 the ``topk_merge`` CUDA kernel on the card.  ``ShardedPandaDB.knn``,
 ``ReplicatedPandaDB.knn`` and :func:`distributed_knn` all go through it.
+
+Observability: ``search_many(..., trace=)`` opens ``ivf.*`` spans
+(``ivf.search`` around ``ivf.probe``, ``ivf.group``, ``ivf.gather``,
+``ivf.scan``, ``ivf.fetch``, ``ivf.map``, and ``ivf.luts`` /
+``ivf.rerank`` on the PQ paths, ``ivf.search_one`` for one query) through
+:func:`repro_torch.obs.trace.phases`, which also mirrors them onto the
+torch profiler's timeline while it records, and costs one truth test a
+step when nothing records.  :data:`METRICS` counts batches,
+queries, probe signatures, the path taken and the bytes the search path
+copies between host and device, always on.
 """
 from __future__ import annotations
 
@@ -52,6 +62,30 @@ from repro_torch.kernels.ivf_scan.ops import ivf_scan_topk
 from repro_torch.kernels.pq_scan.ops import pq_adc_topk
 from repro_torch.kernels.topk import stable_topk
 from repro_torch.kernels.topk_merge.ops import merge_topk_dev
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import phases
+
+#: the index's counters, on the process roster (``launch/serve.py
+#: --metrics``): ``ivf.batches`` and ``ivf.queries`` (calls that search),
+#: ``ivf.signatures`` (distinct probe signatures), ``ivf.path.<path>``
+#: (batches by the path taken), ``ivf.h2d_bytes`` / ``ivf.d2h_bytes`` (the
+#: search path's explicit copies; table uploads are not counted)
+METRICS = MetricsRegistry("vector_index")
+PATHS = ("one", "grouped", "dense", "adc", "fused")
+_BATCHES = METRICS.counter("ivf.batches")
+_QUERIES = METRICS.counter("ivf.queries")
+_SIGNATURES = METRICS.counter("ivf.signatures")
+_H2D = METRICS.counter("ivf.h2d_bytes")
+_D2H = METRICS.counter("ivf.d2h_bytes")
+_PATH = {p: METRICS.counter(f"ivf.path.{p}") for p in PATHS}
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """A search result on the host (waits on the device); its bytes are
+    counted in ``ivf.d2h_bytes``."""
+    a = t.cpu().numpy()
+    _D2H.inc(a.nbytes)
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -503,9 +537,8 @@ class IVFIndex:
     _pend_bias: Dict[int, List[float]] = dataclasses.field(
         default_factory=dict, repr=False)
     pending_count: int = 0
-    # observed scan throughput (feeds the cost model's kNN term)
+    # rows scanned (feeds the cost model's kNN term with each scan's time)
     scan_rows: int = 0
-    scan_time: float = 0.0
     # where the scan-resident tables live (None: the CUDA card)
     device: DeviceLike = None
 
@@ -516,6 +549,13 @@ class IVFIndex:
     def _to_device(self, a: np.ndarray, dtype=None) -> torch.Tensor:
         a = np.ascontiguousarray(a if dtype is None else a.astype(dtype))
         return torch.from_numpy(a).to(self.device)
+
+    def _upload(self, a: np.ndarray, dtype=None) -> torch.Tensor:
+        """:meth:`_to_device` for the search path: its bytes are counted in
+        ``ivf.h2d_bytes``."""
+        t = self._to_device(a, dtype)
+        _H2D.inc(t.nbytes)
+        return t
 
     def _refresh_device(self) -> None:
         """Upload the compacted tables: the scans read only these."""
@@ -827,11 +867,11 @@ class IVFIndex:
         else:
             rows = self._bucket_rows(buckets)
             corpus = torch.index_select(self.t_vectors, 0,
-                                        self._to_device(rows, np.int64))
+                                        self._upload(rows, np.int64))
             ids = self.ids[rows]
             pend_v, pend_i = self._pending_of(buckets)
         if pend_v:
-            corpus = torch.cat([corpus, self._to_device(np.stack(pend_v))])
+            corpus = torch.cat([corpus, self._upload(np.stack(pend_v))])
             ids = np.concatenate([ids, np.asarray(pend_i, ids.dtype)])
         return corpus, ids
 
@@ -846,7 +886,7 @@ class IVFIndex:
     def search_many(self, queries: np.ndarray, k: int,
                     nprobe: Optional[int] = None, stats=None,
                     mode: str = "auto", rerank: bool = True,
-                    rerank_mult: Optional[int] = None
+                    rerank_mult: Optional[int] = None, trace=None
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """Batched two-phase kNN over the whole query set.
 
@@ -882,54 +922,90 @@ class IVFIndex:
         ADC scores/ids truncated to ``k``.  ``rerank_mult`` overrides
         ``cfg.rerank_mult`` for this call.  Positions with no candidate
         hold val=-inf / id=-1.  ``stats``, if given, receives the observed
-        scan throughput (cost-model feedback)."""
+        scan throughput (cost-model feedback).
+
+        ``trace`` (a :class:`repro_torch.obs.Trace`, optional) receives the
+        ``ivf.*`` spans (module docstring); the same spans are profiler
+        ranges while the torch profiler records.  ``ivf.search`` carries
+        ``q``, ``k``, ``nprobe``, the ``path`` taken (one of
+        :data:`PATHS`) and the probe ``signatures`` (None on the fused
+        path, which does not group)."""
         if mode not in ("auto", "adc", "float", "fused"):
             raise ValueError(f"unknown scan mode {mode!r}; "
                              f"expected auto | adc | float | fused")
-        queries = np.asarray(queries, np.float32)
-        qn = queries.shape[0]
-        out_v = np.full((qn, k), -np.inf, np.float32)
-        out_i = np.full((qn, k), -1, np.int64)
-        if qn == 0 or self.n_total == 0:
-            return out_v, out_i
-        m = self.centroids.shape[0]
-        nprobe = min(nprobe or self.cfg.nprobe, m)
-        kind = self._pick_scan(mode, stats, qn, k)
-        if qn == 1:
-            t0 = time.perf_counter()
-            rows_scanned = self._search_one(queries, k, nprobe, out_v, out_i,
-                                            kind == "adc", rerank,
-                                            rerank_mult)
+        # the span covers the whole call, so that the card's idle time while
+        # this method runs is put down to one of its spans
+        with phases(trace, "ivf.search", k=k) as ph:
+            queries = np.asarray(queries, np.float32)
+            qn = queries.shape[0]
+            out_v = np.full((qn, k), -np.inf, np.float32)
+            out_i = np.full((qn, k), -1, np.int64)
+            if qn == 0 or self.n_total == 0:
+                if ph:
+                    ph.span.set(q=qn)
+                return out_v, out_i
+            m = self.centroids.shape[0]
+            nprobe = min(nprobe or self.cfg.nprobe, m)
+            kind = self._pick_scan(mode, stats, qn, k)
+            if qn == 1:
+                if ph:
+                    ph.next("ivf.search_one")
+                path, n_sigs = "one", 1
+                t0 = time.perf_counter()
+                rows_scanned = self._search_one(
+                    queries, k, nprobe, out_v, out_i, kind == "adc", rerank,
+                    rerank_mult)
+            else:
+                if ph:
+                    ph.next("ivf.probe")
+                q = self._upload(queries)
+                cscores = pairwise_scores(q, self.t_centroids,
+                                          self.cfg.metric)
+                _, probe = stable_topk(cscores, nprobe)        # [Q, nprobe]
+                cterm = None
+                if self.cfg.pq_residual and kind in ("adc", "fused"):
+                    cterm = self._cterm_np(queries, _fetch(cscores))
+                # probe *signature* = the bucket set; sort so order never
+                # splits groups
+                probe = np.sort(_fetch(probe), axis=1)
+                t0 = time.perf_counter()
+                if kind == "fused":
+                    path, n_sigs = "fused", None
+                    rows_scanned = self._scan_fused(
+                        queries, cterm, probe, k, out_v, out_i, rerank,
+                        rerank_mult, ph)
+                else:
+                    if ph:
+                        ph.next("ivf.group")
+                    sigs, inverse = np.unique(probe, axis=0,
+                                              return_inverse=True)
+                    inverse = inverse.reshape(-1)
+                    n_sigs = sigs.shape[0]
+                    path = ("adc" if kind == "adc" else
+                            "dense" if n_sigs > 1 and n_sigs * nprobe >= m
+                            else "grouped")
+                    if ph:
+                        ph.set(signatures=n_sigs, path=path)
+                    if path == "adc":
+                        rows_scanned = self._scan_groups_pq(
+                            queries, sigs, inverse, k, out_v, out_i, rerank,
+                            cterm, rerank_mult, ph)
+                    elif path == "dense":
+                        rows_scanned = self._scan_dense(q, probe, k, out_v,
+                                                        out_i, ph)
+                    else:
+                        rows_scanned = self._scan_groups(q, sigs, inverse, k,
+                                                         out_v, out_i, ph)
             self._note_scan(stats, time.perf_counter() - t0, rows_scanned,
                             kind)
-            return out_v, out_i
-        q = self._to_device(queries)
-        cscores = pairwise_scores(q, self.t_centroids, self.cfg.metric)
-        _, probe = stable_topk(cscores, nprobe)                # [Q, nprobe]
-        cterm = None
-        if self.cfg.pq_residual and kind in ("adc", "fused"):
-            cterm = self._cterm_np(queries, cscores.cpu().numpy())
-        # probe *signature* = the bucket set; sort so order never splits groups
-        probe = np.sort(probe.cpu().numpy(), axis=1)
-        t0 = time.perf_counter()
-        if kind == "fused":
-            rows_scanned = self._scan_fused(queries, cterm, probe, k,
-                                            out_v, out_i, rerank,
-                                            rerank_mult)
-        else:
-            sigs, inverse = np.unique(probe, axis=0, return_inverse=True)
-            inverse = inverse.reshape(-1)
-            if kind == "adc":
-                rows_scanned = self._scan_groups_pq(queries, sigs, inverse,
-                                                    k, out_v, out_i, rerank,
-                                                    cterm, rerank_mult)
-            elif sigs.shape[0] > 1 and sigs.shape[0] * nprobe >= m:
-                rows_scanned = self._scan_dense(q, probe, k, out_v, out_i)
-            else:
-                rows_scanned = self._scan_groups(q, sigs, inverse, k,
-                                                 out_v, out_i)
-        self._note_scan(stats, time.perf_counter() - t0, rows_scanned,
-                        kind)
+            _BATCHES.inc()
+            _QUERIES.inc(qn)
+            if n_sigs is not None:
+                _SIGNATURES.inc(n_sigs)
+            _PATH[path].inc()
+            if ph:
+                ph.span.set(q=qn, nprobe=nprobe, path=path,
+                            signatures=n_sigs)
         return out_v, out_i
 
     def _pick_scan(self, mode: str, stats, qn: int, k: int) -> str:
@@ -950,7 +1026,6 @@ class IVFIndex:
     def _note_scan(self, stats, dt: float, rows_scanned: int,
                    kind: str) -> None:
         self.scan_rows += rows_scanned
-        self.scan_time += dt
         if stats is not None and rows_scanned:
             if kind == "fused":
                 stats.record_fused_scan(dt, rows_scanned)
@@ -1066,7 +1141,7 @@ class IVFIndex:
         else:
             comp_rows = self._bucket_rows(buckets)
             pend_sel = [int(b) for b in buckets if int(b) in self._pend_vecs]
-            rows = self._to_device(comp_rows, np.int64)
+            rows = self._upload(comp_rows, np.int64)
             codes = torch.index_select(self.t_codes, 0, rows)
             ids = self.ids[comp_rows]
             rb = (torch.index_select(self.t_bucket32, 0, rows)
@@ -1077,11 +1152,11 @@ class IVFIndex:
         pend_stack = None
         if pend is not None:
             pend_stack, pc, pi, pb, ps = pend
-            codes = torch.cat([codes, self._to_device(pc, np.uint8)])
+            codes = torch.cat([codes, self._upload(pc, np.uint8)])
             ids = np.concatenate([ids, np.asarray(pi, ids.dtype)])
             if residual:
-                rb = torch.cat([rb, self._to_device(pb, np.int32)])
-                bias = torch.cat([bias, self._to_device(ps, np.float32)])
+                rb = torch.cat([rb, self._upload(pb, np.int32)])
+                bias = torch.cat([bias, self._upload(ps, np.float32)])
         return codes, ids, comp_rows, pend_stack, rb, bias
 
     def _fetch_rows(self, comp_rows: np.ndarray,
@@ -1156,23 +1231,36 @@ class IVFIndex:
 
     def _scan_groups(self, q: torch.Tensor, sigs: np.ndarray,
                      inverse: np.ndarray, k: int,
-                     out_v: np.ndarray, out_i: np.ndarray) -> int:
-        """One gathered kernel scan per distinct probe signature."""
+                     out_v: np.ndarray, out_i: np.ndarray, ph=None) -> int:
+        """One gathered kernel scan per distinct probe signature.  ``ph``
+        (:class:`repro_torch.obs.trace.Phases`, or None) takes each step."""
         rows_scanned = 0
         for g in range(sigs.shape[0]):
+            if ph:
+                ph.next("ivf.gather")
             qsel = np.nonzero(inverse == g)[0]
             corpus, ids = self._gather_buckets_dev(sigs[g])
             n_real = corpus.shape[0]
+            if ph:
+                ph.set(rows=n_real)
             if n_real == 0:
                 continue
-            k_eff = min(k, n_real)
             qg = q if len(qsel) == q.shape[0] else \
-                torch.index_select(q, 0, self._to_device(qsel, np.int64))
+                torch.index_select(q, 0, self._upload(qsel, np.int64))
+            k_eff = min(k, n_real)
+            if ph:
+                ph.next("ivf.scan", rows=n_real, q=len(qsel))
             vals, idx = ivf_scan_topk(qg, corpus, k_eff,
                                       metric=self.cfg.metric)
+            if ph:
+                ph.next("ivf.fetch")
+            vals, idx = _fetch(vals), _fetch(idx)
+            if ph:
+                ph.set(bytes=vals.nbytes + idx.nbytes)
+                ph.next("ivf.map")
             cols = np.arange(k_eff)[None, :]
-            out_v[qsel[:, None], cols] = vals.cpu().numpy()
-            out_i[qsel[:, None], cols] = ids[idx.cpu().numpy()]
+            out_v[qsel[:, None], cols] = vals
+            out_i[qsel[:, None], cols] = ids[idx]
             rows_scanned += n_real * len(qsel)
         return rows_scanned
 
@@ -1180,52 +1268,69 @@ class IVFIndex:
                         inverse: np.ndarray, k: int,
                         out_v: np.ndarray, out_i: np.ndarray,
                         rerank: bool, cterm: Optional[np.ndarray] = None,
-                        rerank_mult: Optional[int] = None) -> int:
+                        rerank_mult: Optional[int] = None, ph=None) -> int:
         """PQ two-stage scan, one kernel dispatch per distinct probe
         signature: ADC top-k' over the gathered uint8 codes, then exact
         re-rank of the k' candidates against the original float rows.
         ``cterm`` ([Q, m], residual mode) carries each query's centroid
         term; the per-row bias + bucket id ride along from
         :meth:`_gather_codes_dev`."""
-        luts = self._to_device(self._pq_luts(queries))      # [Q, m, ksub]
-        cterm_t = None if cterm is None else self._to_device(cterm)
+        if ph:
+            ph.next("ivf.luts")
+        luts = self._upload(self._pq_luts(queries))         # [Q, m, ksub]
+        cterm_t = None if cterm is None else self._upload(cterm)
         rows_scanned = 0
         for g in range(sigs.shape[0]):
+            if ph:
+                ph.next("ivf.gather")
             qsel = np.nonzero(inverse == g)[0]
             codes, ids, comp_rows, pend_stack, rb, bias = \
                 self._gather_codes_dev(sigs[g])
             n_real = codes.shape[0]
+            if ph:
+                ph.set(rows=n_real)
             if n_real == 0:
                 continue
+            qsel_t = self._upload(qsel, np.int64)
             k_eff = min(k, n_real)
             kprime = self._kprime(k_eff, n_real, rerank, rerank_mult)
-            qsel_t = self._to_device(qsel, np.int64)
+            if ph:
+                ph.next("ivf.scan", rows=n_real, q=len(qsel))
             vals, idx = pq_adc_topk(
                 torch.index_select(luts, 0, qsel_t).contiguous(), codes,
                 kprime, bias=bias, row_bucket=rb,
                 cscores=(None if cterm_t is None else
                          torch.index_select(cterm_t, 0, qsel_t).contiguous()))
-            idx = idx.cpu().numpy().astype(np.int64)         # [Qg, k']
+            if ph:
+                ph.next("ivf.fetch")
+            idx = _fetch(idx)                                # [Qg, k']
+            vals = None if rerank else _fetch(vals)
+            if ph:
+                ph.set(bytes=idx.nbytes + (0 if rerank else vals.nbytes))
+            idx = idx.astype(np.int64)
             cols = np.arange(k_eff)[None, :]
             if rerank:
+                if ph:
+                    ph.next("ivf.rerank")
                 cand = self._fetch_rows(comp_rows, pend_stack,
                                         idx)                 # [Qg, k', d]
                 exact = _exact_scores_np(queries[qsel], cand,
                                          self.cfg.metric)    # [Qg, k']
                 order = np.argsort(-exact, axis=1, kind="stable")[:, :k_eff]
                 rows = np.arange(len(qsel))[:, None]
-                out_v[qsel[:, None], cols] = exact[rows, order]
-                out_i[qsel[:, None], cols] = ids[idx[rows, order]]
-            else:
-                out_v[qsel[:, None], cols] = vals.cpu().numpy()[:, :k_eff]
-                out_i[qsel[:, None], cols] = ids[idx[:, :k_eff]]
+                vals, idx = exact[rows, order], idx[rows, order]
+            if ph:
+                ph.next("ivf.map")
+            out_v[qsel[:, None], cols] = vals[:, :k_eff]
+            out_i[qsel[:, None], cols] = ids[idx[:, :k_eff]]
             rows_scanned += n_real * len(qsel)
         return rows_scanned
 
     def _scan_fused(self, queries: np.ndarray, cterm: Optional[np.ndarray],
                     probe: np.ndarray, k: int,
                     out_v: np.ndarray, out_i: np.ndarray,
-                    rerank: bool, rerank_mult: Optional[int] = None) -> int:
+                    rerank: bool, rerank_mult: Optional[int] = None,
+                    ph=None) -> int:
         """Fused probe->ADC->top-k': ONE ``pq_adc_topk`` dispatch over the
         resident code table for the entire batch, each query's non-probed
         buckets pinned to -inf in-kernel via ``probe_mask``.  Precondition
@@ -1239,56 +1344,74 @@ class IVFIndex:
             return 0
         k_eff = min(k, n_real)
         kprime = self._kprime(k_eff, n_real, rerank, rerank_mult)
+        residual = cterm is not None
+        if ph:
+            ph.next("ivf.luts")
+        luts = self._upload(self._pq_luts(queries))         # [Q, m, ksub]
+        if ph:
+            ph.next("ivf.scan", rows=n_real, q=qn)
         pm = np.zeros((qn, m), np.uint8)
         pm[np.arange(qn)[:, None], probe] = 1
-        luts = self._to_device(self._pq_luts(queries))      # [Q, m, ksub]
-        residual = cterm is not None
         vals, idx = pq_adc_topk(
             luts, self.t_codes, kprime,
             bias=(self.t_bias if residual else None),
             row_bucket=self.t_bucket32,
-            cscores=(self._to_device(cterm) if residual else None),
-            probe_mask=self._to_device(pm))
-        vals = vals.cpu().numpy()
-        idx = idx.cpu().numpy().astype(np.int64)             # [Q, k']; -1 pad
+            cscores=(self._upload(cterm) if residual else None),
+            probe_mask=self._upload(pm))
+        if ph:
+            ph.next("ivf.fetch")
+        vals, idx = _fetch(vals), _fetch(idx)                # [Q, k']; -1 pad
+        if ph:
+            ph.set(bytes=vals.nbytes + idx.nbytes)
         valid = idx >= 0
-        safe = np.where(valid, idx, 0)
-        rows = np.arange(qn)[:, None]
+        safe = np.where(valid, idx, 0).astype(np.int64)
         if rerank:
+            if ph:
+                ph.next("ivf.rerank")
+            rows = np.arange(qn)[:, None]
             cand = self.vectors[safe]                        # [Q, k', d]
             exact = _exact_scores_np(queries, cand, self.cfg.metric)
             exact = np.where(valid, exact, -np.inf)
             order = np.argsort(-exact, axis=1, kind="stable")[:, :k_eff]
-            v = exact[rows, order]
-            gid = self.ids[safe][rows, order]
-        else:
-            v = vals[:, :k_eff]
-            gid = self.ids[safe[:, :k_eff]]
+            vals, safe = exact[rows, order], safe[rows, order]
+        if ph:
+            ph.next("ivf.map")
+        v = vals[:, :k_eff]
         out_v[:, :k_eff] = v
-        out_i[:, :k_eff] = np.where(np.isfinite(v), gid, -1)
+        out_i[:, :k_eff] = np.where(np.isfinite(v), self.ids[safe[:, :k_eff]],
+                                    -1)
         return qn * n_real
 
     def _scan_dense(self, q: torch.Tensor, probe: np.ndarray, k: int,
-                    out_v: np.ndarray, out_i: np.ndarray) -> int:
+                    out_v: np.ndarray, out_i: np.ndarray, ph=None) -> int:
         """One masked scan of the full table for scattered probe batches."""
         m = self.centroids.shape[0]
         qn = q.shape[0]
+        if ph:
+            ph.next("ivf.gather")
         corpus, ids = self._gather_buckets_dev(np.arange(m))
         row_bucket = self.t_bucket
         if self.pending_count:
             _, _, all_buckets = self._full_corpus()
-            row_bucket = self._to_device(all_buckets, np.int64)
+            row_bucket = self._upload(all_buckets, np.int64)
         n_real = corpus.shape[0]
+        k_eff = min(k, n_real)
+        if ph:
+            ph.set(rows=n_real)
+            ph.next("ivf.scan", rows=n_real, q=qn)
         probe_mask = np.zeros((qn, m), bool)
         probe_mask[np.arange(qn)[:, None], probe] = True
-        k_eff = min(k, n_real)
         vals, idx = masked_scan_topk(q, corpus, row_bucket,
-                                     self._to_device(probe_mask), k_eff,
+                                     self._upload(probe_mask), k_eff,
                                      self.cfg.metric)
-        vals = vals.cpu().numpy()
-        gids = ids[idx.cpu().numpy()]
+        if ph:
+            ph.next("ivf.fetch")
+        vals, idx = _fetch(vals), _fetch(idx)
+        if ph:
+            ph.set(bytes=vals.nbytes + idx.nbytes)
+            ph.next("ivf.map")
         out_v[:, :k_eff] = vals
-        out_i[:, :k_eff] = np.where(np.isfinite(vals), gids, -1)
+        out_i[:, :k_eff] = np.where(np.isfinite(vals), ids[idx], -1)
         return qn * n_real
 
     def _full_corpus(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -4,7 +4,8 @@ Three layers:
 
 - :mod:`.trace` — per-query span trees threaded Deadline-style through the
   session → executor → cluster → serving stack; off by default, near-zero
-  cost when disabled.
+  cost when disabled; :func:`.trace.span` also mirrors spans onto the
+  torch profiler's timeline while it records.
 - :mod:`.metrics` — thread-safe counters / gauges / fixed-bucket latency
   histograms behind per-component registries, with JSON snapshot,
   Prometheus-style text dump, and a JSON-lines slow-query log.

@@ -12,6 +12,12 @@ Design contract:
   per-thread via a thread-local stack; work that hops threads (shard
   scatter pools, hedge legs, AIPM callbacks) attaches children with an
   explicit ``parent=`` handle.
+- That clock is not the device's.  :func:`span` mirrors a span onto the
+  torch profiler's timeline, whose clock every kernel, copy and idle gap
+  shares, as a ``record_function`` range while the profiler records;
+  with neither a trace nor the profiler it costs one call and two checks.
+  :func:`phases` does the same for a span of consecutive steps, at one
+  truth test a step when nothing records.
 - Spans are always closed: ``__exit__`` runs on any exception and stamps
   the error type on the span before re-raising.
 """
@@ -23,7 +29,10 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import torch
+
 _perf = time.perf_counter
+_profiler_enabled = torch._C._autograd._profiler_enabled
 _trace_ids = itertools.count(1)
 
 
@@ -236,6 +245,129 @@ class Trace:
 
     def to_dict(self) -> Dict[str, Any]:
         return {"trace_id": self.trace_id, "root": self.root.to_dict()}
+
+
+class _NullSpan:
+    """What :func:`span` gives when nothing records: a context manager
+    that enters as itself and drops attributes.  One shared instance."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
+
+    def set(self, **attrs: Any) -> "_NullSpan":
+        return self
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _ProfiledSpan:
+    """A ``record_function`` range on the profiler's timeline, with the
+    trace's span inside it when a trace is given (the range's ``args``
+    then carry the trace id)."""
+
+    __slots__ = ("_range", "_span")
+
+    def __init__(self, trace: Optional[Trace], name: str,
+                 attrs: Dict[str, Any]):
+        self._range = torch.autograd.profiler.record_function(
+            name, None if trace is None else trace.trace_id)
+        self._span = None if trace is None else trace.span(name, **attrs)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return NULL_SPAN if self._span is None else self._span.__enter__()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        try:
+            if self._span is not None:
+                self._span.__exit__(exc_type, exc, tb)
+        finally:
+            self._range.__exit__(exc_type, exc, tb)
+        return False
+
+
+def span(trace: Optional[Trace], name: str, **attrs: Any):
+    """``with span(trace, "op", k=v) as sp: ...``: ``trace.span`` when a
+    trace is given, mirrored as a profiler range while the torch profiler
+    records, and :data:`NULL_SPAN` when neither (no ``record_function``,
+    nothing allocated).  ``sp.set(...)`` works on all three."""
+    if _profiler_enabled():
+        return _ProfiledSpan(trace, name, attrs)
+    if trace is None:
+        return NULL_SPAN
+    return trace.span(name, **attrs)
+
+
+class _NullPhases:
+    """What :func:`phases` gives when nothing records: enters as None."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
+
+
+_NULL_PHASES = _NullPhases()
+
+
+class Phases:
+    """A :func:`span` whose children run one after another (see
+    :func:`phases`).  ``span`` is the span itself, for its attributes."""
+
+    __slots__ = ("_trace", "_outer", "span", "_child", "_child_sp")
+
+    def __init__(self, trace: Optional[Trace], name: str,
+                 attrs: Dict[str, Any]):
+        self._trace = trace
+        self._outer = span(trace, name, **attrs)
+        self._child = None
+
+    def __enter__(self) -> "Phases":
+        self.span = self._outer.__enter__()
+        return self
+
+    def next(self, name: str, **attrs: Any) -> None:
+        """End the running child, if any, and start ``name``."""
+        self._end(None, None, None)
+        self._child = span(self._trace, name, **attrs)
+        self._child_sp = self._child.__enter__()
+
+    def set(self, **attrs: Any) -> None:
+        """Attributes of the running child."""
+        self._child_sp.set(**attrs)
+
+    def _end(self, exc_type, exc, tb) -> None:
+        child, self._child = self._child, None
+        if child is not None:
+            child.__exit__(exc_type, exc, tb)
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        try:
+            self._end(exc_type, exc, tb)
+        finally:
+            self._outer.__exit__(exc_type, exc, tb)
+        return False
+
+
+def phases(trace: Optional[Trace], name: str, **attrs: Any):
+    """``with phases(trace, "op", k=v) as ph: ...``: the span :func:`span`
+    opens, whose children follow one another: ``if ph: ph.next("step")``
+    ends the running child and starts the next, and the exit ends the last
+    (an escaping error is stamped on both).  ``ph`` is None when nothing
+    records, so that a site costs one truth test: a hot path with many
+    steps pays no call, no ``with`` and no allocation a step."""
+    if trace is None and not _profiler_enabled():
+        return _NULL_PHASES
+    return Phases(trace, name, attrs)
 
 
 class Tracer:
