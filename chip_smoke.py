@@ -12,7 +12,11 @@ fails:
    version on the card, at the main paths' shapes (IVF: Q in {256, 930}, N =
    200,000, d = 128, k in {10, 64, 20,001}, and the serving knows request's
    chunk scan, Q = 800, N = 100,000, k = 10,002, each timed whole and split
-   into scoring, selection and the sort of the k survivors; PQ, both forms:
+   into scoring, selection and the sort of the k survivors; the index's
+   masked dense scan at the probe8 cell's shape, Q = 256, N = 1,000,000,
+   k = 10, each query probing 8 of 10 buckets, 1,000 rows' buckets out of
+   order, against the plain version with the same mask, max |delta| 0,
+   with its device time split the same way; PQ, both forms:
    Q = 256, N = 1,000,000, M = 16, K = 256, k' in {80, 800}, and the adc
    path's probe groups, Q in {1, 6, 20} over 800,000 rows, k' in {80, 800},
    split the same way, the scoring also timed at each query-slot count;
@@ -432,6 +436,76 @@ def ivf_case(torch, q, corpus, k: int, n_valid: int) -> dict:
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
 
 
+def ivf_masked_case(torch, dev) -> dict:
+    """The index's dense probe scan at the probe8 cell's shape (Q = 256,
+    N = 1M, d = 128, k = 10, each query probing 8 of 10 buckets): the
+    masked ``ivf_scan_topk`` against the plain version given the same mask
+    (``where`` + a stable sort of [Q, N]), on integer vectors (exact sums,
+    ties); the buckets sorted as the table stores them, then 1,000 pending
+    rows in no order.  Its launches a call, device ms whole and split, the
+    unmasked scan's at the same shape, and the bound."""
+    import numpy as np
+
+    from repro_torch.kernels.ivf_scan import ops as ivf_ops
+    from repro_torch.kernels.ivf_scan.ref import ivf_scan_topk_ref
+    from repro_torch.kernels.topk import sort_survivors
+
+    rng = np.random.default_rng(8)
+    qn, n, d, k, m, nprobe, pending = 256, 1_000_000, 128, 10, 10, 8, 1_000
+    corpus = torch.from_numpy(rng.integers(-3, 4, (n, d)).astype(
+        np.float32)).to(dev)
+    q = torch.from_numpy(rng.integers(-3, 4, (qn, d)).astype(
+        np.float32)).to(dev)
+    rb = np.sort(rng.integers(0, m, n))
+    rb[-pending:] = rng.integers(0, m, pending)
+    rb = torch.from_numpy(rb.astype(np.int32)).to(dev)
+    pm = np.zeros((qn, m), np.uint8)
+    pm[np.arange(qn)[:, None], rng.random((qn, m)).argsort(1)[:, :nprobe]] \
+        = 1
+    pm = torch.from_numpy(pm).to(dev)
+    mask = dict(row_bucket=rb, probe_mask=pm)
+    before = ivf_ops.launches.n
+    kv, ki = ivf_ops.ivf_scan_topk(q, corpus, k, **mask)
+    n_launch = ivf_ops.launches.n - before
+    pv, pi = ivf_scan_topk_ref(q, corpus, k, **mask)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(ki, pi))
+    err = float((kv - pv).abs().max())
+    del kv, ki, pv, pi
+    dms = device_ms(torch, lambda: ivf_ops.ivf_scan_topk(q, corpus, k,
+                                                         **mask))
+    ms = time_ms(torch, lambda: ivf_ops.ivf_scan_topk(q, corpus, k, **mask))
+    score_ms = device_ms(torch, lambda: ivf_ops.ivf_scores(q, corpus, True,
+                                                           rb, pm))
+    scores = ivf_ops.ivf_scores(q, corpus, True, rb, pm)
+    sv, si = ivf_ops.ivf_select(scores, n, k)
+    select_ms = device_ms(torch, lambda: ivf_ops.ivf_select(scores, n, k))
+    sort_ms = device_ms(torch, lambda: sort_survivors(sv, si, k))
+    del scores, sv, si
+    unmasked_ms = device_ms(torch, lambda: ivf_ops.ivf_scan_topk(q, corpus,
+                                                                 k))
+    unmasked_score_ms = device_ms(torch, lambda: ivf_ops.ivf_scores(
+        q, corpus, True))
+    plain_ms = device_ms(torch, lambda: ivf_scan_topk_ref(q, corpus, k,
+                                                          **mask), 5)
+    b_ms, b_by = bound(ivf_ops.work(q, corpus, k))
+    log(f"[kernels] ivf_scan masked Q={qn} N={n} d={d} k={k} nprobe "
+        f"{nprobe} of {m} ({pending} pending rows): ids_equal={same} "
+        f"max_abs_err={err} launches={n_launch} device_ms={dms:.3f} (score "
+        f"{score_ms:.3f} + select {select_ms:.3f} + sort {sort_ms:.3f}) "
+        f"ms={ms:.3f} unmasked_device_ms={unmasked_ms:.3f} (score "
+        f"{unmasked_score_ms:.3f}) plain_device_ms={plain_ms:.3f} "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    check(same, f"masked ivf_scan ids differ at Q={qn} N={n} k={k}")
+    check(err == 0.0, f"masked ivf_scan max|delta| {err} at Q={qn} N={n}")
+    check(n_launch == 1, f"masked ivf_scan made {n_launch} launches")
+    return dict(ms=ms, device_ms=dms, score_ms=score_ms,
+                select_ms=select_ms, sort_ms=sort_ms, launches=n_launch,
+                unmasked_device_ms=unmasked_ms,
+                unmasked_score_ms=unmasked_score_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
+
 def pq_case(torch, name: str, luts, codes, k: int, nv: int, kw: dict
             ) -> dict:
     """One pq_scan case (``kw`` holds the extended form's terms): ids,
@@ -554,6 +628,10 @@ def phase_kernels(torch, pq_rows: int):
                     main = dict(r, shape=label)
         del corpus, half
         torch.cuda.empty_cache()
+    r = ivf_masked_case(torch, dev)
+    worst = max(worst, r["max_abs_err"])
+    split["masked Q=256 N=1M d=128 k=10 nprobe 8 of 10"] = r
+    torch.cuda.empty_cache()
     out["ivf_scan"] = dict(main, max_abs_err=worst, cases=split)
 
     # -- pq_scan / pq_scan_ext: float LUTs, sums in the plain order.  The
@@ -4099,7 +4177,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.gather_scatter import ops as gs_ops
     from repro_torch.kernels.topk_merge import ops as merge_ops
+    from repro_torch.core.vector_index import METRICS
 
+    dense_scans = METRICS.counter("ivf.path.dense")
     t_start = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -4153,13 +4233,18 @@ def main() -> int:
 
     def main_path(label, needs, *phases):
         """Run one main path's phases with every count zeroed just before
-        and read just after; each kernel in ``needs`` must have launched."""
+        and read just after; each kernel in ``needs`` must have launched.
+        Beside the counts: the index's batches on the masked dense scan
+        (``ivf_score<true>``), which the ivf_scan count includes."""
         for c in counters.values():
             c.reset()
+        dense0 = dense_scans.value
         for phase in phases:
             run(*phase)
         got = {name: c.n for name, c in counters.items()}
-        log(f"[main path] {label} launches {got}")
+        log(f"[main path] {label} launches {got}, dense scans "
+            f"{dense_scans.value - dense0}")
+        got["ivf_scan_dense"] = dense_scans.value - dense0
         for name in needs:
             if got[name] <= 0:
                 failed.append(f"{name} never launched on the {label} path")

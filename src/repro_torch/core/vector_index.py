@@ -135,23 +135,6 @@ def scan_topk(q: torch.Tensor, corpus: torch.Tensor, ids: torch.Tensor,
     return vals, ids[idx]
 
 
-def masked_scan_topk(q: torch.Tensor, corpus: torch.Tensor,
-                     row_bucket: torch.Tensor, probe_mask: torch.Tensor,
-                     k: int, metric: str
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense probe scan: ONE [Q, N] score product with each query's
-    non-probed buckets masked to -inf before the top-k.
-
-    ``row_bucket[N]`` is each corpus row's bucket id, ``probe_mask[Q, m]``
-    is True at the buckets a query probes.  Scans the whole table, so it
-    only wins when the batch's probe signatures are scattered enough that
-    per-signature gathers would touch >= the table anyway --
-    ``IVFIndex.search_many`` makes that call."""
-    s = pairwise_scores(q, corpus, metric)              # [Q, N]
-    s = torch.where(probe_mask[:, row_bucket], s, -torch.inf)
-    return stable_topk(s, k)
-
-
 def merge_topk(vals_parts: torch.Tensor, ids_parts: torch.Tensor, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge per-shard top-k: [P, Q, k] -> [Q, k] (associative), through
@@ -563,8 +546,8 @@ class IVFIndex:
         self.t_centroids = self._to_device(np.asarray(self.centroids,
                                                       np.float32))
         self.t_vectors = self._to_device(self.vectors)
-        self.t_bucket = self._to_device(np.asarray(self.bucket_of), np.int64)
-        self.t_bucket32 = self.t_bucket.to(torch.int32)
+        self.t_bucket32 = self._to_device(np.asarray(self.bucket_of),
+                                          np.int32)
         self.t_codes = (None if self.codes is None
                         else self._to_device(np.asarray(self.codes),
                                              np.uint8))
@@ -900,9 +883,9 @@ class IVFIndex:
           (nprobe=m is one signature).
         * **masked dense scan** (float mode) -- when the signatures are so
           scattered that per-signature gathers would touch at least the
-          whole table (#signatures x nprobe >= m), ONE scan of the full
-          corpus with each query's non-probed buckets masked to -inf
-          (:func:`masked_scan_topk`).
+          whole table (#signatures x nprobe >= m), ONE ``ivf_scan_topk``
+          of the full corpus with each query's non-probed buckets masked
+          to -inf in the scoring kernel (``probe_mask``).
         * **ADC + exact re-rank** (PQ mode) -- per-query score LUTs, an
           ADC top-k' scan of the probed buckets' uint8 codes through
           ``pq_adc_topk`` (k' = ``rerank_mult * k``), then an exact
@@ -1384,26 +1367,28 @@ class IVFIndex:
 
     def _scan_dense(self, q: torch.Tensor, probe: np.ndarray, k: int,
                     out_v: np.ndarray, out_i: np.ndarray, ph=None) -> int:
-        """One masked scan of the full table for scattered probe batches."""
+        """One masked scan of the full table for scattered probe batches:
+        ``ivf_scan_topk`` over every row, each query's non-probed buckets
+        at -inf (positions past a query's probed rows map to id -1)."""
         m = self.centroids.shape[0]
         qn = q.shape[0]
         if ph:
             ph.next("ivf.gather")
         corpus, ids = self._gather_buckets_dev(np.arange(m))
-        row_bucket = self.t_bucket
+        row_bucket = self.t_bucket32
         if self.pending_count:
             _, _, all_buckets = self._full_corpus()
-            row_bucket = self._upload(all_buckets, np.int64)
+            row_bucket = self._upload(all_buckets, np.int32)
         n_real = corpus.shape[0]
         k_eff = min(k, n_real)
         if ph:
             ph.set(rows=n_real)
             ph.next("ivf.scan", rows=n_real, q=qn)
-        probe_mask = np.zeros((qn, m), bool)
-        probe_mask[np.arange(qn)[:, None], probe] = True
-        vals, idx = masked_scan_topk(q, corpus, row_bucket,
-                                     self._upload(probe_mask), k_eff,
-                                     self.cfg.metric)
+        probe_mask = np.zeros((qn, m), np.uint8)
+        probe_mask[np.arange(qn)[:, None], probe] = 1
+        vals, idx = ivf_scan_topk(q, corpus, k_eff, self.cfg.metric,
+                                  row_bucket=row_bucket,
+                                  probe_mask=self._upload(probe_mask))
         if ph:
             ph.next("ivf.fetch")
         vals, idx = _fetch(vals), _fetch(idx)

@@ -20,6 +20,14 @@
 // double-buffered with cp.async.  The l2 norms come from ivf_norms, one
 // warp a row.  The scores go to a [Q, N] scratch matrix.
 //
+// Its MASKED instantiation is the index's dense probe scan (the reference's
+// masked_scan_topk, plain jnp there): one scan of the whole table in which
+// row n scores -inf for query q unless probe_mask[q, row_bucket[n]] is set,
+// written in the epilogue, where the staging registers are free.  -inf lies
+// below every finite score in radix_select's order and its ties go to the
+// lower row, as in the full stable sort that formulation used.  The plain
+// instantiation reads no mask.
+//
 // The selection is radix_select.cuh's, over the scratch rows: a radix
 // select of each query's k-th largest score, then, in row order, the rows
 // above it and the first rows equal to it: k survivors, which a stable sort
@@ -27,6 +35,8 @@
 // Pallas kernel's per-tile top-L has no counterpart: the selection costs
 // the same for every k, where a tile sort grows with it, and measured
 // faster at every k on the card.
+#include <cmath>
+
 #include "hopper.cuh"
 #include "radix_select.cuh"
 
@@ -82,12 +92,16 @@ ivf_norms(const float* __restrict__ x, float* __restrict__ out, int n, int d) {
   if (lane == 0) out[row] = s;
 }
 
-// q2 [n_q] and c2 [n_rows] are the rows' |x|^2 (read for l2 only)
+// q2 [n_q] and c2 [n_rows] are the rows' |x|^2 (read for l2 only);
+// row_bucket [n_rows] in [0, m) and probe_mask [n_q, m] are read when MASKED
+// (last, so the plain instantiation's other parameters keep their offsets)
+template <bool MASKED>
 __global__ void __launch_bounds__(STHREADS, 2)
 ivf_score(const float* __restrict__ q, const float* __restrict__ c,
           const float* __restrict__ q2, const float* __restrict__ c2,
           float* __restrict__ scores, int n_q, int n_rows, int d, size_t ld,
-          int l2) {
+          int l2, const int* __restrict__ row_bucket,
+          const uint8_t* __restrict__ probe_mask, int m) {
   __shared__ __align__(16) float qs[2][SQ * SLD];
   __shared__ __align__(16) float cs[2][SN * SLD];
   const int tx = threadIdx.x % 16;             // rows tx + 16 j
@@ -140,6 +154,14 @@ ivf_score(const float* __restrict__ q, const float* __restrict__ c,
     __syncthreads();                           // the stage may be refilled
   }
 
+  [[maybe_unused]] int bucket[8];              // this thread's rows' buckets
+  if constexpr (MASKED) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = r0 + tx + 16 * j;
+      bucket[j] = row < n_rows ? row_bucket[row] : 0;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int qi = q0 + ty + 16 * i;
@@ -155,6 +177,9 @@ ivf_score(const float* __restrict__ q, const float* __restrict__ c,
         // the reference's -(q2 - 2 s + c2), rounded step by step (no FMA)
         s = -__fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, s)), c2[row]);
       }
+      if constexpr (MASKED) {
+        if (probe_mask[(size_t)qi * m + bucket[j]] == 0) s = -INFINITY;
+      }
       out[row] = s;
     }
   }
@@ -164,12 +189,18 @@ ivf_score(const float* __restrict__ q, const float* __restrict__ c,
 
 // q [n_q, d] f32, c [n_rows, d] f32 -> scores [n_q, ld] f32 (columns
 // < n_rows written), ld >= n_rows; norms [n_q + n_rows] f32 is scratch
-// for the rows' |x|^2 (l2 only).  Returns cudaError_t.
+// for the rows' |x|^2 (l2 only).  With a probe_mask (else null) row n of
+// query q scores -inf unless probe_mask[q * m + row_bucket[n]] != 0:
+// row_bucket [n_rows] int32 in [0, m), probe_mask [n_q, m] uint8, m >= 1.
+// Returns cudaError_t.
 extern "C" int ivf_scan_scores(const float* q, const float* c, float* scores,
                                float* norms, int n_q, int n_rows, int d,
-                               long long ld, int l2, void* stream) {
+                               long long ld, int l2, const int* row_bucket,
+                               const uint8_t* probe_mask, int m,
+                               void* stream) {
   if (n_q <= 0 || n_rows <= 0) return 0;
-  if (d <= 0 || ld < n_rows || (n_q + SQ - 1) / SQ > MAX_GRID_Y)
+  if (d <= 0 || ld < n_rows || (n_q + SQ - 1) / SQ > MAX_GRID_Y ||
+      (probe_mask != nullptr && (row_bucket == nullptr || m < 1)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (l2) {
@@ -177,8 +208,14 @@ extern "C" int ivf_scan_scores(const float* q, const float* c, float* scores,
     ivf_norms<<<(n_rows + 7) / 8, 256, 0, st>>>(c, norms + n_q, n_rows, d);
   }
   const dim3 grid((n_rows + SN - 1) / SN, (n_q + SQ - 1) / SQ);
-  ivf_score<<<grid, STHREADS, 0, st>>>(q, c, norms, norms + n_q, scores, n_q,
-                                       n_rows, d, (size_t)ld, l2);
+  if (probe_mask != nullptr)
+    ivf_score<true><<<grid, STHREADS, 0, st>>>(
+        q, c, norms, norms + n_q, scores, n_q, n_rows, d, (size_t)ld, l2,
+        row_bucket, probe_mask, m);
+  else
+    ivf_score<false><<<grid, STHREADS, 0, st>>>(
+        q, c, norms, norms + n_q, scores, n_q, n_rows, d, (size_t)ld, l2,
+        nullptr, nullptr, 0);
   return (int)cudaGetLastError();
 }
 

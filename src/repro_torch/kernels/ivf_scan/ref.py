@@ -2,10 +2,12 @@
 
 The arithmetic of the reference's XLA twin (``_scan_topk_xla``): one
 matrix product for the scores, padding rows masked to -inf, then a top-k
-in ``lax.top_k`` order (ties to the lower row)."""
+in ``lax.top_k`` order (ties to the lower row).  With a probe mask, the
+rows of each query's non-probed buckets are -inf too, as in the
+reference's dense probe scan (``masked_scan_topk``)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,13 +34,26 @@ def scores_ref(q: torch.Tensor, corpus: torch.Tensor, metric: str
     return -(q2 - 2.0 * (qf @ cf.T) + c2[None, :])
 
 
+def mask_scores(s: torch.Tensor, row_bucket: Optional[torch.Tensor],
+                probe_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Scores [Q, N] with row n of query q at -inf unless
+    ``probe_mask[q, row_bucket[n]]`` is set (no mask: ``s`` as it is)."""
+    if probe_mask is None:
+        return s
+    return torch.where(probe_mask.bool()[:, row_bucket.long()], s,
+                       -torch.inf)
+
+
 def ivf_scan_topk_ref(q: torch.Tensor, corpus: torch.Tensor, k: int,
-                      metric: str = "l2", n_valid: int = -1
+                      metric: str = "l2", n_valid: int = -1,
+                      row_bucket: Optional[torch.Tensor] = None,
+                      probe_mask: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[Q, d] x [N, d] -> (scores [Q, k] f32, rows [Q, k] int32).
 
-    ``n_valid`` (< N) masks trailing padding rows to -inf."""
-    s = scores_ref(q, corpus, metric)
+    ``n_valid`` (< N) masks trailing padding rows to -inf, ``probe_mask``
+    each query's non-probed buckets' rows (:func:`mask_scores`)."""
+    s = mask_scores(scores_ref(q, corpus, metric), row_bucket, probe_mask)
     if 0 <= n_valid < corpus.shape[0]:
         s[:, n_valid:] = -torch.inf
     vals, idx = stable_topk(s, k)
@@ -49,13 +64,17 @@ def ivf_scan_topk_ref(q: torch.Tensor, corpus: torch.Tensor, k: int,
 
 
 def ivf_scan_select_ref(q: torch.Tensor, corpus: torch.Tensor, k: int,
-                        metric: str = "l2", n_valid: int = -1
+                        metric: str = "l2", n_valid: int = -1,
+                        row_bucket: Optional[torch.Tensor] = None,
+                        probe_mask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel route in plain torch: scores, :func:`radix_select_ref`,
-    then a stable sort of the k survivors -> (scores [Q, k], rows [Q, k]
-    int32), equal to :func:`ivf_scan_topk_ref`."""
+    """The kernel route in plain torch: scores (masked as the scoring
+    kernel's epilogue masks them), :func:`radix_select_ref`, then a stable
+    sort of the k survivors -> (scores [Q, k], rows [Q, k] int32), equal to
+    :func:`ivf_scan_topk_ref`."""
     if n_valid < 0 or n_valid > corpus.shape[0]:
         n_valid = corpus.shape[0]
-    vals, rows = radix_select_ref(scores_ref(q, corpus, metric), n_valid, k)
+    s = mask_scores(scores_ref(q, corpus, metric), row_bucket, probe_mask)
+    vals, rows = radix_select_ref(s, n_valid, k)
     order_v, pos = stable_topk(vals, k)
     return order_v, torch.gather(rows, 1, pos)

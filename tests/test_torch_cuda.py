@@ -77,6 +77,88 @@ def test_ivf_kernel_duplicate_rows_tie_to_lower_row(cuda):
     assert torch.equal(ki, pi) and torch.equal(kv, pv)
 
 
+MASKED_CASES = ["l2", "ip", "cosine", "q_past_128", "starved_query",
+                "fewer_rows_than_k", "ties_across_mask_edge",
+                "unsorted_buckets", "query_chunks"]
+
+
+def masked_case(case):
+    """(q, corpus, row_bucket int32, probe_mask uint8, k, metric) of one
+    case of the index's dense probe scan, on the CPU; integer-valued (one
+    nonzero a row for cosine), so every score is exact."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    qn, n, d, m, k, metric = {
+        "l2": (37, 5000, 128, 10, 10, "l2"),             # ragged last tile
+        "ip": (9, 777, 16, 4, 20, "ip"),
+        "cosine": (5, 1000, 32, 6, 50, "cosine"),
+        "q_past_128": (300, 3001, 64, 10, 64, "l2"),     # 3 query blocks
+        "starved_query": (11, 700, 32, 5, 10, "l2"),
+        "fewer_rows_than_k": (6, 900, 16, 8, 40, "l2"),
+        "ties_across_mask_edge": (13, 900, 32, 3, 60, "l2"),
+        "unsorted_buckets": (20, 1200, 32, 7, 30, "ip"),
+        "query_chunks": (30, 2001, 32, 5, 300, "l2"),
+    }[case]
+    q, c = _int(rng, qn, d), _int(rng, n, d)
+    if metric == "cosine":
+        q, c = _one_hot(rng, qn, d), _one_hot(rng, n, d)
+    rb = np.sort(rng.integers(0, m, n))
+    pm = rng.random((qn, m)) < 0.7
+    if case == "starved_query":
+        pm[0] = False                           # every bucket masked
+    if case == "fewer_rows_than_k":
+        rb = np.sort(rng.integers(0, m - 1, n))
+        rb[-5:] = m - 1                         # the last bucket: 5 rows
+        pm[1] = np.arange(m) == m - 1           # query 1 probes only it
+    if case == "ties_across_mask_edge":
+        c = torch.cat([c[:n // 3]] * 3)         # row r ties r +- 300, 600
+        rb = np.repeat(np.arange(m), n // m)    # each copy its own bucket
+    if case == "unsorted_buckets":
+        rb[-200:] = rng.integers(0, m, 200)     # pending rows after the table
+    return (q, c, torch.from_numpy(rb.astype(np.int32)),
+            torch.from_numpy(pm.astype(np.uint8)), k, metric)
+
+
+def stable_sort_masked(q, c, row_bucket, probe_mask, k, metric):
+    """The dense probe scan as one formula: every score, the non-probed
+    rows set to -inf by ``where``, a full stable sort -> (vals, rows
+    int32)."""
+    from repro_torch.kernels.ivf_scan.ref import scores_ref
+    s = torch.where(probe_mask.bool()[:, row_bucket.long()],
+                    scores_ref(q, c, metric), -torch.inf)
+    vals, rows = torch.sort(s, dim=1, descending=True, stable=True)
+    return vals[:, :k], rows[:, :k].to(torch.int32)
+
+
+@pytest.mark.parametrize("case", MASKED_CASES)
+def test_ivf_masked_kernel_matches_plain(cuda, monkeypatch, case):
+    """The masked scoring kernel, radix select and the survivors' sort
+    against the plain version with the same mask and against the full
+    stable sort of the ``where``-masked scores: values and int32 rows
+    equal, -inf ties to the lower row, and a query keeps finite values
+    only on its probed rows (none: every id -1 once mapped)."""
+    q, c, rb, pm, k, metric = (t.to(cuda) if torch.is_tensor(t) else t
+                               for t in masked_case(case))
+    chunks = 1
+    if case == "query_chunks":
+        ld = -(-c.shape[0] // 4) * 4
+        monkeypatch.setattr(ivf_ops, "SCRATCH_BYTES", 4 * ld * 7)
+        chunks = 5                              # ceil(30 / 7)
+    mask = pm.bool() if case == "ip" else pm    # bool is taken as uint8
+    before = ivf_ops.launches.n
+    kv, ki = ivf_scan_topk(q, c, k, metric, row_bucket=rb, probe_mask=mask)
+    pv, pi = ivf_scan_topk_ref(q, c, k, metric, row_bucket=rb, probe_mask=pm)
+    sv, si = stable_sort_masked(q, c, rb, pm, k, metric)
+    torch.cuda.synchronize()
+    assert ivf_ops.launches.n == before + chunks
+    assert ki.dtype == torch.int32
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert torch.equal(ki, si) and torch.equal(kv, sv)
+    probed = pm.bool()[:, rb.long()].sum(1).clamp(max=k)
+    assert torch.equal(torch.isfinite(kv).sum(1), probed)
+    if case == "starved_query":
+        assert bool((torch.where(torch.isfinite(kv), ki, -1)[0] == -1).all())
+
+
 @pytest.mark.parametrize("k", [10, 256, 800])
 def test_pq_kernels_match_plain(cuda, k):
     rng = np.random.default_rng(k)

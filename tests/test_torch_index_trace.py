@@ -119,7 +119,7 @@ def _expected(case, index, queries, nprobe):
         kprime = min(N, RERANK * K)
         return None, h2d + qn * M, d2h + qn * kprime * 8
     if path == "dense":
-        return len(sigs), h2d + qn * M, d2h + qn * K * (4 + 8)
+        return len(sigs), h2d + qn * M, d2h + qn * K * (4 + 4)
     for g, sig in enumerate(sigs):
         nq = int((inverse == g).sum())
         rows = int(np.isin(index.bucket_of, sig).sum())

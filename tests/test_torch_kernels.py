@@ -18,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+import repro.core.vector_index as rvi
 from repro.kernels.ivf_scan.ops import ivf_scan_topk as ivf_ref_jax
 from repro.kernels.pq_scan.ops import pq_adc_topk as pq_ref_jax
 from repro.kernels.topk_merge.ops import merge_topk_dev as merge_ref_jax
@@ -35,6 +36,7 @@ from repro_torch.kernels.topk_merge import ops as merge_ops
 from repro_torch.kernels.topk_merge.ops import merge_topk_dev
 from repro_torch.kernels.topk_merge.ref import (merge_select_ref,
                                                merge_topk_ref)
+from test_torch_cuda import MASKED_CASES, masked_case, stable_sort_masked
 
 # the suite runs in several workers at once: a torch process here keeps
 # to one intra-op thread, so that the timing-driven tests beside it (the
@@ -141,6 +143,41 @@ def test_ivf_scan_on_cpu_never_launches():
     ivf_scan_topk(torch.from_numpy(_int_mat(rng, 2, 8)),
                   torch.from_numpy(_int_mat(rng, 50, 8)), 5)
     assert ivf_ops.launches.n == before
+
+
+@pytest.mark.parametrize("case", [c for c in MASKED_CASES
+                                  if c != "query_chunks"])
+def test_ivf_scan_probe_mask_matches_stable_sort(case):
+    """The index's dense probe scan on the CPU: ``ivf_scan_topk`` with
+    ``row_bucket`` / ``probe_mask``, and the kernel route in plain torch
+    (masked scores, radix select, the survivors' sort), against the full
+    stable sort of the ``where``-masked scores and the JAX package's
+    ``masked_scan_topk``: rows and values equal, -inf ties to the lower
+    row."""
+    q, c, rb, pm, k, metric = masked_case(case)
+    want = stable_sort_masked(q, c, rb, pm, k, metric)
+    for got in (ivf_scan_topk(q, c, k, metric, row_bucket=rb, probe_mask=pm),
+                ivf_scan_select_ref(q, c, k, metric, row_bucket=rb,
+                                    probe_mask=pm)):
+        assert got[1].dtype == torch.int32
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    ref = rvi.masked_scan_topk(jnp.asarray(q.numpy()), jnp.asarray(c.numpy()),
+                               jnp.asarray(rb.numpy()),
+                               jnp.asarray(pm.numpy().astype(bool)), k=k,
+                               metric=metric)
+    _assert_same(want, ref)
+
+
+def test_ivf_scan_probe_mask_arguments():
+    """``row_bucket`` and ``probe_mask`` go together; the card path's
+    checks refuse CPU tensors before any library is loaded."""
+    q, c, rb, pm, k, metric = masked_case("ip")
+    with pytest.raises(ValueError, match="together"):
+        ivf_scan_topk(q, c, k, metric, row_bucket=rb)
+    with pytest.raises(ValueError, match="together"):
+        ivf_scan_topk(q, c, k, metric, probe_mask=pm)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ivf_ops._launch(q, c, k, metric, c.shape[0], rb, pm)
 
 
 def _select_case(name):
