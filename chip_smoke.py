@@ -16,7 +16,9 @@ fails:
    masked dense scan at the probe8 cell's shape, Q = 256, N = 1,000,000,
    k = 10, each query probing 8 of 10 buckets, 1,000 rows' buckets out of
    order, against the plain version with the same mask, max |delta| 0,
-   with its device time split the same way; PQ, both forms:
+   with its device time split the same way, and in cosine, the phi cell's
+   scan, on +-1 vectors of norm 8 (exact normalised sums), max |delta| 0;
+   PQ, both forms:
    Q = 256, N = 1,000,000, M = 16, K = 256, k' in {80, 800}, and the adc
    path's probe groups, Q in {1, 6, 20} over 800,000 rows, k' in {80, 800},
    split the same way, the scoring also timed at each query-slot count;
@@ -32,7 +34,9 @@ fails:
    forward's S=64, a ragged S, head width 160, each with the
    float32-faithful weights and with ``bf16_probs``, and a float32 case;
    deepseek-moe-16b's prefill, 16/16 heads; deepseek-v2's MLA prefill at
-   B=8, 128 heads, q and k at 192, v at 128; decode: B=8 over a
+   B=8, 128 heads, q and k at 192, v at 128; the phi cell's
+   DeepSeek-V2-Lite MLA, B=256, S=64, 16 heads, q and k at 192, v at 128;
+   decode: B=8 over a
    32,768-position cache with positions spread over it, at the LM path's
    positions, head width 160, float32; deepseek-moe-16b's decode, B=4, 16/16
    heads, spread and at its path's positions) and at the other shapes the
@@ -120,7 +124,14 @@ fails:
 7. mla-lm: ``LM(deepseek-v2-236b)`` at full width, cut to 5 layers (the
    dense layer 0 and 4 MoE layers, ~34.6 GB; all 60 take ~472 GB): MLA at
    128 heads, 160 routed + 2 shared experts; the same prefill, 16 greedy
-   steps at B = 8 over a 32,768-position latent cache.
+   steps at B = 8 over a 32,768-position latent cache.  Then, a main path
+   of its own, the phi cell's (``dsv2lite-msmarco1m.phi-q256-t64-k10``):
+   ``LM(deepseek-v2-lite)`` at its published widths and depth (27 layers,
+   bf16, dropless) as ``textvec`` phi through the AIPM service, 256 seeded
+   lowercase texts of 16-64 bytes at 64 tokens, then ``search_many`` (k =
+   10, nprobe 8) over a 1,000,000-row cosine IVF-Flat index of 10
+   buckets: unit, finite vectors, no (token, expert) pair dropped, every
+   answer a row of the index, the batch on the masked dense scan.
 8. distributed: a world of one NCCL rank (NCCL takes one rank per card):
    ``sharded_topk`` over 200,000 rows (d = 128, Q = 256, k in {10, 100})
    must return ``scan_topk``'s ids over the whole corpus;
@@ -214,8 +225,8 @@ fails:
    phase.
 
 Launch counts are zeroed just before each main path (phases 2-3, the
-single node; phase 4, the cluster; phases 5, 6, 7, 8, 9, 10, 14 and 17,
-each alone) and read just after it; every kernel of a path must have launched
+single node; phase 4, the cluster; phases 5, 6, 7, the phi cell's path,
+8, 9, 10, 14 and 17, each alone) and read just after it; every kernel of a path must have launched
 on it.  ``--profile`` runs each serving request, each PQ search mode, one
 cluster kNN, one fan-out request, one prefill and one decode step of each
 LM, one training step, one gnn-products step, one recsys training step,
@@ -436,14 +447,16 @@ def ivf_case(torch, q, corpus, k: int, n_valid: int) -> dict:
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
 
 
-def ivf_masked_case(torch, dev) -> dict:
+def ivf_masked_case(torch, dev, metric: str = "l2") -> dict:
     """The index's dense probe scan at the probe8 cell's shape (Q = 256,
     N = 1M, d = 128, k = 10, each query probing 8 of 10 buckets): the
     masked ``ivf_scan_topk`` against the plain version given the same mask
     (``where`` + a stable sort of [Q, N]), on integer vectors (exact sums,
     ties); the buckets sorted as the table stores them, then 1,000 pending
     rows in no order.  Its launches a call, device ms whole and split, the
-    unmasked scan's at the same shape, and the bound."""
+    unmasked scan's at the same shape, and the bound.  In ``cosine`` (the
+    phi cell's scan) each vector holds +-1 at 64 of its 128 places, so its
+    norm is 8 and the normalised sums stay exact; the split is l2's only."""
     import numpy as np
 
     from repro_torch.kernels.ivf_scan import ops as ivf_ops
@@ -452,10 +465,21 @@ def ivf_masked_case(torch, dev) -> dict:
 
     rng = np.random.default_rng(8)
     qn, n, d, k, m, nprobe, pending = 256, 1_000_000, 128, 10, 10, 8, 1_000
-    corpus = torch.from_numpy(rng.integers(-3, 4, (n, d)).astype(
-        np.float32)).to(dev)
-    q = torch.from_numpy(rng.integers(-3, 4, (qn, d)).astype(
-        np.float32)).to(dev)
+    if metric == "cosine":
+        gen = torch.Generator(device=dev).manual_seed(8)
+
+        def signs(rows):
+            half = torch.rand(rows, d, device=dev, generator=gen).argsort(
+                dim=1) < d // 2
+            sign = torch.randint(0, 2, (rows, d), device=dev,
+                                 generator=gen) * 2 - 1
+            return (half * sign).float()
+        corpus, q = signs(n), signs(qn)
+    else:
+        corpus = torch.from_numpy(rng.integers(-3, 4, (n, d)).astype(
+            np.float32)).to(dev)
+        q = torch.from_numpy(rng.integers(-3, 4, (qn, d)).astype(
+            np.float32)).to(dev)
     rb = np.sort(rng.integers(0, m, n))
     rb[-pending:] = rng.integers(0, m, pending)
     rb = torch.from_numpy(rb.astype(np.int32)).to(dev)
@@ -463,7 +487,7 @@ def ivf_masked_case(torch, dev) -> dict:
     pm[np.arange(qn)[:, None], rng.random((qn, m)).argsort(1)[:, :nprobe]] \
         = 1
     pm = torch.from_numpy(pm).to(dev)
-    mask = dict(row_bucket=rb, probe_mask=pm)
+    mask = dict(metric=metric, row_bucket=rb, probe_mask=pm)
     before = ivf_ops.launches.n
     kv, ki = ivf_ops.ivf_scan_topk(q, corpus, k, **mask)
     n_launch = ivf_ops.launches.n - before
@@ -475,6 +499,25 @@ def ivf_masked_case(torch, dev) -> dict:
     dms = device_ms(torch, lambda: ivf_ops.ivf_scan_topk(q, corpus, k,
                                                          **mask))
     ms = time_ms(torch, lambda: ivf_ops.ivf_scan_topk(q, corpus, k, **mask))
+    plain_ms = device_ms(torch, lambda: ivf_scan_topk_ref(q, corpus, k,
+                                                          **mask), 5)
+    b_ms, b_by = bound(ivf_ops.work(q, corpus, k))
+    head = (f"[kernels] ivf_scan masked {metric} Q={qn} N={n} d={d} k={k} "
+            f"nprobe {nprobe} of {m} ({pending} pending rows): "
+            f"ids_equal={same} max_abs_err={err} launches={n_launch} "
+            f"device_ms={dms:.3f}")
+    check(same, f"masked ivf_scan ({metric}) ids differ at Q={qn} N={n} "
+          f"k={k}")
+    check(err == 0.0, f"masked ivf_scan ({metric}) max|delta| {err} at "
+          f"Q={qn} N={n}")
+    check(n_launch == 1, f"masked ivf_scan ({metric}) made {n_launch} "
+          f"launches")
+    if metric != "l2":
+        log(f"{head} ms={ms:.3f} plain_device_ms={plain_ms:.3f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        return dict(ms=ms, device_ms=dms, launches=n_launch,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=err)
     score_ms = device_ms(torch, lambda: ivf_ops.ivf_scores(q, corpus, True,
                                                            rb, pm))
     scores = ivf_ops.ivf_scores(q, corpus, True, rb, pm)
@@ -486,19 +529,10 @@ def ivf_masked_case(torch, dev) -> dict:
                                                                  k))
     unmasked_score_ms = device_ms(torch, lambda: ivf_ops.ivf_scores(
         q, corpus, True))
-    plain_ms = device_ms(torch, lambda: ivf_scan_topk_ref(q, corpus, k,
-                                                          **mask), 5)
-    b_ms, b_by = bound(ivf_ops.work(q, corpus, k))
-    log(f"[kernels] ivf_scan masked Q={qn} N={n} d={d} k={k} nprobe "
-        f"{nprobe} of {m} ({pending} pending rows): ids_equal={same} "
-        f"max_abs_err={err} launches={n_launch} device_ms={dms:.3f} (score "
-        f"{score_ms:.3f} + select {select_ms:.3f} + sort {sort_ms:.3f}) "
-        f"ms={ms:.3f} unmasked_device_ms={unmasked_ms:.3f} (score "
-        f"{unmasked_score_ms:.3f}) plain_device_ms={plain_ms:.3f} "
+    log(f"{head} (score {score_ms:.3f} + select {select_ms:.3f} + sort "
+        f"{sort_ms:.3f}) ms={ms:.3f} unmasked_device_ms={unmasked_ms:.3f} "
+        f"(score {unmasked_score_ms:.3f}) plain_device_ms={plain_ms:.3f} "
         f"bound_ms={b_ms:.4f} ({b_by})")
-    check(same, f"masked ivf_scan ids differ at Q={qn} N={n} k={k}")
-    check(err == 0.0, f"masked ivf_scan max|delta| {err} at Q={qn} N={n}")
-    check(n_launch == 1, f"masked ivf_scan made {n_launch} launches")
     return dict(ms=ms, device_ms=dms, score_ms=score_ms,
                 select_ms=select_ms, sort_ms=sort_ms, launches=n_launch,
                 unmasked_device_ms=unmasked_ms,
@@ -628,10 +662,12 @@ def phase_kernels(torch, pq_rows: int):
                     main = dict(r, shape=label)
         del corpus, half
         torch.cuda.empty_cache()
-    r = ivf_masked_case(torch, dev)
-    worst = max(worst, r["max_abs_err"])
-    split["masked Q=256 N=1M d=128 k=10 nprobe 8 of 10"] = r
-    torch.cuda.empty_cache()
+    for metric in ("l2", "cosine"):
+        r = ivf_masked_case(torch, dev, metric)
+        worst = max(worst, r["max_abs_err"])
+        tag = "" if metric == "l2" else " cosine"
+        split[f"masked{tag} Q=256 N=1M d=128 k=10 nprobe 8 of 10"] = r
+        torch.cuda.empty_cache()
     out["ivf_scan"] = dict(main, max_abs_err=worst, cases=split)
 
     # -- pq_scan / pq_scan_ext: float LUTs, sums in the plain order.  The
@@ -793,7 +829,7 @@ FAULT_KEYS = 32                 # keys a planted fault zeroes (<= a key tile)
 # the attention cases of the MoE and MLA paths, also timed on the device
 # alone (torch.profiler), kernel and SDPA
 DEVICE_MS_CASES = {"moe_prefill", "mla_prefill_b8", "moe_spread",
-                   "moe_lm_path"}
+                   "moe_lm_path", "phi_dsv2lite"}
 
 
 def attn_err(got, want, dtype_name: str, slack=0.0):
@@ -822,6 +858,22 @@ def sdpa(torch, q, k, v, **kw):
         qt, kt, vt, enable_gqa=True, **kw).transpose(1, 2)
 
 
+#: flash_attention's cases: (label, B, Sq, Skv, H, KVH, D, Dv, dtype name)
+FLASH_CASES = [("prefill", 8, 4096, 4096, 32, 8, 128, 128, "bfloat16"),
+               ("phi", 8, 64, 64, 32, 8, 128, 128, "bfloat16"),
+               ("ragged", 2, 1000, 1000, 32, 8, 128, 128, "bfloat16"),
+               ("head_dim_160", 2, 2048, 2048, 32, 8, 160, 160, "bfloat16"),
+               ("parity_f32", 2, 37, 37, 4, 2, 32, 32, "float32"),
+               ("sq_below_skv", 8, 512, 4096, 32, 8, 128, 128, "bfloat16"),
+               ("mla_prefill", 1, 4096, 4096, 128, 128, 192, 128,
+                "bfloat16"),
+               ("padded_d80", 2, 1024, 1024, 32, 8, 80, 80, "bfloat16"),
+               ("moe_prefill", 8, 4096, 4096, 16, 16, 128, 128, "bfloat16"),
+               ("mla_prefill_b8", 8, 4096, 4096, 128, 128, 192, 128,
+                "bfloat16"),
+               ("phi_dsv2lite", 256, 64, 64, 16, 16, 192, 128, "bfloat16")]
+
+
 def kernel_flash_attention(torch, dev):
     """flash_attention at the LM path's shapes: the llama3-8b prefill (B=8,
     S=4,096, 32 query / 8 key heads of 128, bf16), the phi forward (S=64),
@@ -829,7 +881,8 @@ def kernel_flash_attention(torch, dev):
     then the shapes the reference's chunked_attention also serves: 512
     queries against 4,096 keys, MLA's prefill at deepseek-v2's full head
     count (q and k at 192, v at 128, 128 heads), and a width the wrapper
-    pads (80); the bf16 cases with the float32-faithful weights (the LM's
+    pads (80); the phi cell's (DeepSeek-V2-Lite's MLA over 256 texts of 64
+    tokens: 16 heads, q and k at 192, v at 128, one key tile); the bf16 cases with the float32-faithful weights (the LM's
     path) and with ``bf16_probs``, held against the plain version rounding
     on the kernel's key tiles."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -839,20 +892,9 @@ def kernel_flash_attention(torch, dev):
                                                          flash_attention_ref)
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    bf, f32 = torch.bfloat16, torch.float32
-    # (label, B, Sq, Skv, H, KVH, D, Dv, dtype)
-    cases = [("prefill", 8, 4096, 4096, 32, 8, 128, 128, bf),
-             ("phi", 8, 64, 64, 32, 8, 128, 128, bf),
-             ("ragged", 2, 1000, 1000, 32, 8, 128, 128, bf),
-             ("head_dim_160", 2, 2048, 2048, 32, 8, 160, 160, bf),
-             ("parity_f32", 2, 37, 37, 4, 2, 32, 32, f32),
-             ("sq_below_skv", 8, 512, 4096, 32, 8, 128, 128, bf),
-             ("mla_prefill", 1, 4096, 4096, 128, 128, 192, 128, bf),
-             ("padded_d80", 2, 1024, 1024, 32, 8, 80, 80, bf),
-             ("moe_prefill", 8, 4096, 4096, 16, 16, 128, 128, bf),
-             ("mla_prefill_b8", 8, 4096, 4096, 128, 128, 192, 128, bf)]
     worst, main, table = 0.0, None, {}
-    for label, b, sq, skv, h, kvh, d, dv, dt in cases:
+    for label, b, sq, skv, h, kvh, d, dv, dt in FLASH_CASES:
+        dt = getattr(torch, dt)
         # the plain version's key block for its timing: 256 at MLA's B = 8,
         # whose [B, H, Sq, 1,024] float32 blocks would take ~17 GB apiece
         plain_block = 256 if label == "mla_prefill_b8" else 1024
@@ -1876,6 +1918,80 @@ def phase_mla_lm(torch, prof=None):
     out, _ = serve_lm(torch, "mla-lm", cfg, MLA_DECODE_BATCH,
                       MOE_DECODE_STEPS, prof)
     return out
+
+
+PHI_CELL_ARCH = "deepseek-v2-lite"
+PHI_CELL_ROWS, PHI_CELL_BATCH = 1_000_000, 256
+
+
+def phase_phi_cell(torch):
+    """The phi cell's path once (the module docstring's, after phase 7),
+    the model with the port's own init: its vectors, the index's answers,
+    the pairs dropped, the batch's ms, the model's build and the index's."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import (AIPMConfig, PandaDBConfig,
+                                     VectorIndexConfig, get_arch)
+    from repro_torch.core import PandaDB
+    from repro_torch.core.aipm import model_embedding_extractor
+    from repro_torch.core.vector_index import METRICS, IVFIndex
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import LM
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    rows = rng.standard_normal((PHI_CELL_ROWS, FACE_DIM), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    t0 = time.perf_counter()
+    index = IVFIndex.build(rows, cfg=VectorIndexConfig(
+        dim=FACE_DIM, metric="cosine", vectors_per_bucket=100_000,
+        min_buckets=4, nprobe=8, kmeans_iters=8, pq_m=0), seed=29,
+        device=dev)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = LM(get_arch(PHI_CELL_ARCH).model, device=dev)
+    torch.cuda.synchronize()
+    model_s = time.perf_counter() - t0
+    db = PandaDB(PandaDBConfig(aipm=AIPMConfig(
+        max_batch=PHI_CELL_BATCH, auto_batch=False)), device=dev)
+    fn = model_embedding_extractor(lm, dim=FACE_DIM, max_tokens=64)
+    db.register_extractor("textvec", fn, batch_size=PHI_CELL_BATCH)
+    texts = [rng.integers(97, 123, int(n), dtype=np.uint8)
+             for n in rng.integers(16, 65, PHI_CELL_BATCH)]
+    fn(texts)          # the first forward, outside the request's timeout
+    dropped0 = moe.METRICS.counter("moe.dropped_pairs").value
+    dense0 = METRICS.counter("ivf.path.dense").value
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = db.aipm.extract_sync("textvec", list(enumerate(texts)))
+    q = np.stack([got[i] for i in range(PHI_CELL_BATCH)]).astype(np.float32)
+    vals, ids = index.search_many(q, 10, 8)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    dropped = moe.METRICS.counter("moe.dropped_pairs").value - dropped0
+    dense = METRICS.counter("ivf.path.dense").value - dense0
+    ids, vals = np.asarray(ids), np.asarray(vals)
+    unit = float(np.abs(np.linalg.norm(q, axis=1) - 1).max())
+    log(f"[phi-cell] {PHI_CELL_ARCH} ({lm.cfg.n_layers} layers, built in "
+        f"{model_s:.1f}s) as textvec over {PHI_CELL_BATCH} texts, then "
+        f"search_many k=10 nprobe=8 over {PHI_CELL_ROWS} cosine rows "
+        f"({index.centroids.shape[0]} buckets, built in {build_s:.1f}s): "
+        f"{ms:.1f} ms; max | |phi| - 1 | {unit:.3g}, pairs dropped "
+        f"{dropped}, dense scans {dense}, best score mean "
+        f"{float(vals[:, 0].mean()):.4f}")
+    db.aipm.shutdown()
+    check(bool(np.isfinite(q).all()) and unit < 1e-5,
+          f"phi cell: vectors not unit ({unit})")
+    check(dropped == 0, f"phi cell: {dropped} (token, expert) pairs dropped")
+    check(bool(((ids >= 0) & (ids < PHI_CELL_ROWS)).all()),
+          "phi cell: an answer outside the index")
+    check(dense == 1, f"phi cell: {dense} batches on the dense scan")
+    del db, fn, lm, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "model_build_s": model_s, "index_build_s": build_s,
+            "pairs_dropped": dropped, "dense_scans": dense}
 
 
 def phase_phi(torch, model):
@@ -4271,6 +4387,9 @@ def main() -> int:
     paths["mla_lm"] = main_path(
         "mla-lm", ("flash_attention",),
         ("mla-lm", phase_mla_lm, torch, maybe_prof))
+    paths["phi_cell"] = main_path(
+        "phi-cell", ("flash_attention", "ivf_scan"),
+        ("phi-cell", phase_phi_cell, torch))
     paths["distributed"] = main_path(
         "distributed", ("topk_merge",),
         ("distributed", phase_distributed, torch))

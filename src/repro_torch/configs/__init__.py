@@ -58,17 +58,24 @@ _ARCH_MODULES = {
 
 ASSIGNED = [n for n in _ARCH_MODULES if not n.endswith("-bonus")]
 
+#: the port's own architectures, outside the reference's registry: ``get_arch``
+#: resolves them, ``arch_names`` and ``all_cells`` leave them out
+_PORT_MODULES = {
+    "deepseek-v2-lite": "repro_torch.configs.deepseek_v2_lite",
+}
+
 
 def arch_names() -> List[str]:
     return list(_ARCH_MODULES)
 
 
 def get_arch(name: str) -> ArchSpec:
+    modules = {**_ARCH_MODULES, **_PORT_MODULES}
     try:
-        mod = importlib.import_module(_ARCH_MODULES[name])
+        mod = importlib.import_module(modules[name])
     except KeyError:
         raise KeyError(f"unknown arch {name!r}; known: "
-                       f"{sorted(_ARCH_MODULES)}") from None
+                       f"{sorted(modules)}") from None
     return mod.ARCH
 
 

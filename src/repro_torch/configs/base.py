@@ -81,6 +81,26 @@ Shape = Any  # LMShape | GraphShape | RecsysShape
 
 
 @dataclass(frozen=True)
+class YarnRope:
+    """DeepSeek-V2's YaRN RoPE scaling (its ``rope_scaling`` of type
+    "yarn"), as its published modeling code computes it: the rotary
+    frequencies ramp from interpolated (``base / factor``) to the
+    original ones between the dims that ``beta_fast`` and ``beta_slow``
+    name at ``original_max_position`` positions; cos and sin are scaled
+    by ``m(mscale) / m(mscale_all_dim)`` and the softmax scale by
+    ``m(mscale_all_dim)^2``, m(a) = 0.1 a ln(factor) + 1.  The rotary
+    dims are paired as that code pairs them: (0, 1), (2, 3), ...
+    (interleaved), where the port's plain RoPE pairs i with i + D/2."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclass(frozen=True)
 class TransformerConfig:
     """Decoder-only LM; covers dense, GQA, qk-norm, fine-grained MoE and MLA."""
 
@@ -117,6 +137,11 @@ class TransformerConfig:
     attn_block_kv: int = 1024
     fused_norm: bool = False          # §Perf: no fp32 materialization in norms
     bf16_probs: bool = False          # §Perf: bf16 softmax weights in attention
+    # --- the port's own (the reference's configs have none of them; each
+    # off by default, so every registered arch runs as before) ---
+    yarn: Optional[YarnRope] = None   # YaRN RoPE scaling (MLA's rope dims)
+    norm_topk_prob: bool = True       # renormalise the top-k gate weights
+    dropless: bool = False            # MoE: every (token, choice) pair runs
 
     @property
     def is_moe(self) -> bool:

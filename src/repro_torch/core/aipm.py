@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.pandadb import AIPMConfig
+from repro_torch.obs.trace import phases, span
 
 
 @dataclasses.dataclass
@@ -170,16 +171,21 @@ class AIPMService:
                                  self.cfg.max_batch, self.cfg.target_batch_s)
 
     def _execute(self, req: AIPMRequest) -> Dict[int, np.ndarray]:
+        """One request through its φ, in slices; span ``aipm.execute``
+        (``sub_key``, ``rows``, ``slices``) while anything records."""
         spec = self.registry.get(req.sub_key)
         batch_rows = self._slice_rows(spec)
         out: Dict[int, np.ndarray] = {}
         t0 = time.perf_counter()
-        for off in range(0, len(req.items), batch_rows):
-            chunk = req.items[off:off + batch_rows]
-            raws = [r for (_i, r) in chunk]
-            vecs = np.asarray(spec.fn(raws))
-            for (item_id, _r), v in zip(chunk, vecs):
-                out[item_id] = v
+        with span(None, "aipm.execute", sub_key=req.sub_key,
+                  rows=len(req.items),
+                  slices=-(-len(req.items) // batch_rows)):
+            for off in range(0, len(req.items), batch_rows):
+                chunk = req.items[off:off + batch_rows]
+                raws = [r for (_i, r) in chunk]
+                vecs = np.asarray(spec.fn(raws))
+                for (item_id, _r), v in zip(chunk, vecs):
+                    out[item_id] = v
         dt = time.perf_counter() - t0
         with self._stats_lock:
             spec.calls += 1
@@ -294,19 +300,41 @@ def model_embedding_extractor(model, dim: int, max_tokens: int = 64
     first ``max_tokens`` bytes become tokens ``byte % vocab``, zero-padded;
     φ is the mean of the logits over all positions (padding included, as the
     reference does), cut or zero-padded to ``dim`` and L2-normalised (floor
-    1e-9), as float32 numpy.  The forward runs on the model's device."""
+    1e-9), as float32 numpy.  The forward runs on the model's device.
+
+    ``fn.raw(raws)`` gives the vectors before the normalisation; ``fn``
+    calls it through the attribute, so a caller that wraps it keeps the
+    vectors each call normalised.  Spans ``phi.forward`` (``rows``,
+    ``tokens``; the model's own inside it) and ``phi.pool`` (the mean, the
+    cut, the copy to the host) in ``phi.extract`` while anything records;
+    counters ``phi.calls``, ``phi.rows``, ``phi.tokens`` and the MoE
+    layers' (``models/moe.py``: ``METRICS``, whose registry is "phi")."""
+    from repro_torch.models import moe
+
     vocab = model.cfg.vocab_size
 
-    def fn(raws: List[np.ndarray]) -> np.ndarray:
+    def raw(raws: List[np.ndarray]) -> np.ndarray:
         toks = np.zeros((len(raws), max_tokens), np.int64)
-        for i, raw in enumerate(raws):
-            b = np.asarray(raw, np.uint8).ravel()[:max_tokens]
+        for i, blob in enumerate(raws):
+            b = np.asarray(blob, np.uint8).ravel()[:max_tokens]
             toks[i, :len(b)] = b.astype(np.int64) % vocab
-        logits, _ = model.forward(torch.from_numpy(toks).to(model.device))
-        out = logits.mean(dim=1).float().cpu().numpy()
-        out = out[:, :dim] if out.shape[1] >= dim else np.pad(
+        with phases(None, "phi.extract") as ph, moe.counting():
+            if ph:
+                ph.next("phi.forward", rows=len(raws), tokens=toks.size)
+            logits, _ = model.forward(torch.from_numpy(toks).to(model.device))
+            if ph:
+                ph.next("phi.pool")
+            out = logits.mean(dim=1)[:, :dim].float().cpu().numpy()
+        moe.METRICS.counter("phi.calls").inc()
+        moe.METRICS.counter("phi.rows").inc(len(raws))
+        moe.METRICS.counter("phi.tokens").inc(toks.size)
+        return out if out.shape[1] >= dim else np.pad(
             out, [(0, 0), (0, dim - out.shape[1])])
+
+    def fn(raws: List[np.ndarray]) -> np.ndarray:
+        out = fn.raw(raws)
         norms = np.linalg.norm(out, axis=1, keepdims=True)
         return out / np.maximum(norms, 1e-9)
 
+    fn.raw = raw
     return fn

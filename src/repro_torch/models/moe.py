@@ -25,10 +25,24 @@ are their gradients where no expert overflows: the output differentiates
 through the gathers and the gate weights into the router, the aux loss
 through the mean router probabilities (the expert counts, as the
 reference's one-hot, carry none).
+
+The port's own options (``TransformerConfig``; off by default, where the
+layer is the reference's): ``norm_topk_prob`` False keeps the top-k
+softmax weights as they are, and ``dropless`` dispatches every (token, choice) pair of the call at once,
+grouped by expert with no capacity and no per-row groups: one grouped
+product a projection (``torch._grouped_mm``) over the pairs sorted by
+expert.  DeepSeek-V2-Lite as φ routes so (``configs/deepseek_v2_lite.py``).
+
+Spans ``moe.route``, ``moe.experts``, ``moe.shared`` in ``moe.ffn`` while
+anything records (``obs/trace.py::phases``).  Inside :func:`counting`
+each layer's pairs, dropped pairs and most pairs an expert took are kept
+on the device and folded into :data:`METRICS` when the block ends.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import contextlib
+import threading
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +53,50 @@ from repro_torch.configs.base import TransformerConfig
 from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.kernels.topk import stable_topk
 from repro_torch.models.layers import dense_init_
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import phases
 
 Params = Dict[str, Any]
+
+#: the φ model's counters: ``moe.pairs``, ``moe.dropped_pairs`` and the
+#: gauge ``moe.max_expert_pairs`` (the most pairs one expert took in one
+#: layer of the last counted block) here; ``phi.calls``, ``phi.rows``,
+#: ``phi.tokens`` from ``core/aipm.py::model_embedding_extractor``
+METRICS = MetricsRegistry("phi")
+
+
+class _Counting(threading.local):
+    rows: Optional[List[Tuple[int, torch.Tensor, torch.Tensor]]] = None
+
+
+_COUNTING = _Counting()
+
+
+@contextlib.contextmanager
+def counting() -> Iterator[None]:
+    """Count the MoE layers this thread runs inside the block: each keeps
+    (pairs, dropped pairs, most pairs an expert took) on the device, with
+    no host sync; the block's end folds them into :data:`METRICS` (one
+    copy to the host: end the block after the caller's own sync).  Layers
+    on DTensors are not counted."""
+    outer, _COUNTING.rows = _COUNTING.rows, []
+    rows = _COUNTING.rows
+    try:
+        yield
+    finally:
+        _COUNTING.rows = outer
+        if rows:
+            got = torch.stack([torch.stack([r[1], r[2]])
+                               for r in rows]).tolist()
+            METRICS.counter("moe.pairs").inc(sum(r[0] for r in rows))
+            METRICS.counter("moe.dropped_pairs").inc(sum(d for d, _ in got))
+            METRICS.gauge("moe.max_expert_pairs").set(max(m for _, m in got))
+
+
+def _count(pairs: int, dropped: torch.Tensor, most: torch.Tensor) -> None:
+    """One layer's counts, kept where :func:`counting` collects (callers
+    test ``_COUNTING.rows`` first: outside it nothing is computed)."""
+    _COUNTING.rows.append((pairs, dropped.long(), most.long()))
 
 
 def router_topk(probs: torch.Tensor, k: int
@@ -51,6 +107,21 @@ def router_topk(probs: torch.Tensor, k: int
     w, idx = stable_topk(probs.reshape(-1, probs.shape[-1]), k)
     w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
     return w.reshape(*lead, k), idx.reshape(*lead, k)
+
+
+def _gate(probs: torch.Tensor, cfg: TransformerConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gate weights and expert ids [..., k]: :func:`router_topk`'s,
+    or under ``norm_topk_prob`` False the top-k probabilities as they are
+    (the same ids)."""
+    k = cfg.top_k
+    if cfg.norm_topk_prob:
+        w, idx = router_topk(probs, k)
+    else:
+        lead = probs.shape[:-1]
+        w, idx = stable_topk(probs.reshape(-1, probs.shape[-1]), k)
+        w, idx = w.reshape(*lead, k), idx.reshape(*lead, k)
+    return w, idx
 
 
 def _dispatch_indices(expert_ids: torch.Tensor, n_experts: int,
@@ -92,13 +163,14 @@ def expert_capacity(s: int, cfg: TransformerConfig) -> int:
                       * cfg.capacity_factor))
 
 
-def _route(probs: torch.Tensor, k: int, n_experts: int, capacity: int):
+def _route(probs: torch.Tensor, cfg: TransformerConfig, capacity: int):
     """Each row's routing from its router probabilities [B, S, E]: (gate
-    weights and expert ids [B, S, k], the expert picks counted [E]
-    (float32), and ``_dispatch_indices``' slot_pair, slot_valid and
-    pair_slot).  Rows route on their own."""
+    weights [B, S, k], the expert picks counted [E] (float32), and
+    ``_dispatch_indices``' slot_pair, slot_valid and pair_slot).  Rows
+    route on their own."""
     b, s, _ = probs.shape
-    gate_w, gate_idx = router_topk(probs, k)                  # [B, S, k]
+    k, n_experts = cfg.top_k, cfg.n_routed_experts
+    gate_w, gate_idx = _gate(probs, cfg)                      # [B, S, k]
     picks = torch.zeros(n_experts, dtype=torch.float32, device=probs.device)
     picks.scatter_add_(0, gate_idx.reshape(-1),
                        torch.ones(gate_idx.numel(), device=probs.device))
@@ -144,6 +216,51 @@ def _experts(x: torch.Tensor, gate_w: torch.Tensor, slot_pair: torch.Tensor,
     return out.to(x.dtype)
 
 
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
+               ) -> torch.Tensor:
+    """x [P, a] rows grouped by expert (expert e's rows end at ends[e],
+    int32, cumulative) times w [E, a, b] -> [P, b]: one grouped product
+    (``torch._grouped_mm``).  The card's takes bf16 only; another dtype
+    there takes one product an expert."""
+    if x.is_cuda and x.dtype != torch.bfloat16:
+        out = x.new_empty(x.shape[0], w.shape[-1])
+        start = 0
+        for e, end in enumerate(ends.tolist()):
+            torch.mm(x[start:end], w[e], out=out[start:end])
+            start = end
+        return out
+    return torch._grouped_mm(x, w, offs=ends)
+
+
+def shared_experts(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                   w_down: torch.Tensor) -> torch.Tensor:
+    """The shared experts, one SwiGLU of their summed width."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def _dropless(x: torch.Tensor, gate_w: torch.Tensor, gate_idx: torch.Tensor,
+              ex: Params, n_experts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every (token, choice) pair of x [B, S, d] through its expert, no
+    capacity: the pairs sorted by expert (stable), each expert's SwiGLU as
+    one grouped product a projection, its hidden row scaled by the pair's
+    gate weight (the down projection is linear), the k choices of a token
+    summed in float32 and rounded once -> (output [B, S, d] in x's dtype,
+    pairs an expert [E] int64)."""
+    b, s, d = x.shape
+    k = gate_idx.shape[-1]
+    flat = gate_idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=n_experts)
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    xs = x.reshape(b * s, d).index_select(0, order // k)
+    h = F.silu(grouped_mm(xs, ex["w_gate"], ends)) \
+        * grouped_mm(xs, ex["w_up"], ends)
+    h *= gate_w.reshape(-1)[order, None].to(h.dtype)
+    ys = grouped_mm(h, ex["w_down"], ends)
+    y = torch.empty_like(ys).index_copy_(0, order, ys).view(b, s, k, d)
+    return y.sum(dim=2), counts         # accumulated in float32
+
+
 def moe_ffn(params: Params, x: torch.Tensor, cfg: TransformerConfig,
             rules: Optional[ShardingRules] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -165,33 +282,62 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: TransformerConfig,
     capacity = expert_capacity(s, cfg)
     ex = params["experts"]
 
-    # --- routing (fp32) ---
-    logits = x.float() @ params["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    if isinstance(x, DTensor):
-        out, picks = _on_shards(x, probs, ex, k, e, capacity)
-    else:
-        gate_w, picks, slot_pair, slot_valid, pair_slot = _route(
-            probs, k, e, capacity)
-        out = _experts(x, gate_w, slot_pair, slot_valid, pair_slot,
-                       ex["w_gate"], ex["w_up"], ex["w_down"], k, capacity,
-                       0)
-    out = constrain(out, rules, "batch", None, "embed")
+    with phases(None, "moe.ffn") as ph:
+        if ph:
+            ph.next("moe.route")
+        # --- routing (fp32) ---
+        logits = x.float() @ params["router"].float()
+        probs = torch.softmax(logits, dim=-1)
+        if isinstance(x, DTensor):
+            if cfg.dropless:
+                raise NotImplementedError(
+                    "moe_ffn: dropless routing runs on one device")
+            if ph:
+                ph.next("moe.experts")
+            out, picks = _on_shards(x, probs, ex, cfg, capacity)
+        elif cfg.dropless:
+            gate_w, gate_idx = _gate(probs, cfg)
+            if ph:
+                ph.next("moe.experts")
+            out, counts = _dropless(x, gate_w, gate_idx, ex, e)
+            picks = counts.float()
+            if _COUNTING.rows is not None:
+                _count(gate_idx.numel(), gate_idx.numel() - counts.sum(),
+                       counts.max())
+        else:
+            gate_w, picks, slot_pair, slot_valid, pair_slot = _route(
+                probs, cfg, capacity)
+            if ph:
+                ph.next("moe.experts")
+            out = _experts(x, gate_w, slot_pair, slot_valid, pair_slot,
+                           ex["w_gate"], ex["w_up"], ex["w_down"], k,
+                           capacity, 0)
+            if _COUNTING.rows is not None:
+                # the pairs each expert was given in each row, before its
+                # capacity
+                ids = _gate(probs, cfg)[1].reshape(b, s * k)
+                loads = torch.zeros(b, e, dtype=torch.int64,
+                                    device=ids.device).scatter_add_(
+                    1, ids, torch.ones_like(ids))
+                _count(pair_slot.numel(), (pair_slot < 0).sum(), loads.max())
+        out = constrain(out, rules, "batch", None, "embed")
 
-    # --- aux load-balance loss (DeepSeekMoE expert-level) ---
-    me = probs.mean(dim=(0, 1))
-    fe = picks / (b * s) * (e / k)
-    aux_loss = torch.sum(me * fe)
+        # --- aux load-balance loss (DeepSeekMoE expert-level) ---
+        me = probs.mean(dim=(0, 1))
+        fe = picks / (b * s) * (e / k)
+        aux_loss = torch.sum(me * fe)
 
-    # --- shared experts (always-on dense SwiGLU) ---
-    if cfg.n_shared_experts:
-        sp = params["shared"]
-        hs = F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])
-        out = out + hs @ sp["w_down"]
+        # --- shared experts (always-on dense SwiGLU) ---
+        if cfg.n_shared_experts:
+            if ph:
+                ph.next("moe.shared")
+            sp = params["shared"]
+            out = out + shared_experts(x, sp["w_gate"], sp["w_up"],
+                                       sp["w_down"])
     return out, aux_loss
 
 
-def _on_shards(x, probs, ex: Params, k: int, n_experts: int, capacity: int):
+def _on_shards(x, probs, ex: Params, cfg: TransformerConfig, capacity: int):
     """The routed experts on DTensors: each rank routes its rows of x (rows
     route on their own, so the routing is local) and runs the experts it
     holds (``w_*`` sharded on their expert dim; any other sharding, an
@@ -203,6 +349,7 @@ def _on_shards(x, probs, ex: Params, k: int, n_experts: int, capacity: int):
 
     from repro_torch.kernels import sharded
 
+    k, n_experts = cfg.top_k, cfg.n_routed_experts
     mesh = x.device_mesh
     x = sharded.keep_only(x, (0,))
     probs = sharded.follow(probs, x, {0: 0})
@@ -226,7 +373,7 @@ def _on_shards(x, probs, ex: Params, k: int, n_experts: int, capacity: int):
     summed = [Partial() if isinstance(p, Shard) else Replicate()
               for p in rows]
     route = local_map(
-        lambda p: _route(p, k, n_experts, capacity),
+        lambda p: _route(p, cfg, capacity),
         out_placements=(rows, summed, rows, rows, rows),
         in_placements=(rows,), device_mesh=mesh)
     gate_w, picks, slot_pair, slot_valid, pair_slot = route(probs)

@@ -1,4 +1,5 @@
-"""Decoder-only LM for serving: the five transformer configs of the registry.
+"""Decoder-only LM for serving: the five transformer configs of the registry
+and DeepSeek-V2-Lite (YaRN RoPE, dropless MoE; ``configs/deepseek_v2_lite.py``).
 
 The reference's ``models/transformer.py``: GQA with optional per-head
 qk-norm, RoPE, SwiGLU, an untied or tied head; fine-grained MoE with shared
@@ -49,8 +50,10 @@ from repro_torch.models.layers import (
     apply_rotary,
     dense_init_,
     embed_init_,
+    interleaved_pairs,
     rms_norm,
     rotary_cos_sin,
+    yarn_softmax_scale,
 )
 from repro_torch.models.moe import (
     moe_ffn,
@@ -59,6 +62,7 @@ from repro_torch.models.moe import (
     moe_param_shapes,
     nest_moe_params,
 )
+from repro_torch.obs.trace import phases
 
 Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 Layer = Dict[str, torch.Tensor]
@@ -162,6 +166,8 @@ class LM(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
+        if cfg.yarn is not None and not cfg.is_mla:
+            raise ValueError("LM: YaRN RoPE is DeepSeek-V2's, for MLA only")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -449,7 +455,7 @@ class LM(nn.Module):
         b, s, d = x.shape
         dc, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
         dr, dv, h = cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.n_heads
-        scale = (dn + dr) ** -0.5
+        scale = yarn_softmax_scale(cfg.yarn, dn + dr)
 
         if cfg.q_lora_rank:
             qc = self._norm(x @ p["wq_a"], p["q_a_norm"])
@@ -459,11 +465,13 @@ class LM(nn.Module):
         q = (qc @ wq.reshape(wq.shape[0], h * (dn + dr))).reshape(
             b, s, h, dn + dr)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
-        q_rope = apply_rotary(q_rope, cos, sin)
-
         kv_a = x @ p["wkv_a"]
+        k_rope = kv_a[..., None, dc:]
+        if cfg.yarn is not None:        # DeepSeek-V2's pairing of rope dims
+            q_rope, k_rope = interleaved_pairs(q_rope), interleaved_pairs(k_rope)
+        q_rope = apply_rotary(q_rope, cos, sin)
         c_kv = self._norm(kv_a[..., :dc], p["kv_a_norm"])
-        k_rope = apply_rotary(kv_a[..., None, dc:], cos, sin)[:, :, 0]
+        k_rope = apply_rotary(k_rope, cos, sin)[:, :, 0]
         wkv_b = p["wkv_b"]                              # [dc, H, dn + dv]
         wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]
 
@@ -510,37 +518,47 @@ class LM(nn.Module):
                sin: torch.Tensor, moe: bool, cache=None,
                slot: "_Slot" = None, want_cache: bool = False):
         """One layer -> (x, its aux loss (0 for a dense layer), its cache
-        entry: the new one under ``want_cache``, the decode's given one)."""
-        p = self._layer_gathered(p, moe)
-        h = self._norm(x, p["ln1"])
-        if self.cfg.is_mla:
-            attn_out, new_cache = self._mla(p, h, cos, sin, cache=cache,
-                                            slot=slot)
-        else:
-            attn_out, new_cache = self._gqa(p, h, cos, sin, cache=cache,
-                                            slot=slot, want_cache=want_cache)
-        x = constrain(x + attn_out, self.rules, "batch", "seq", "embed")
-        h = self._norm(x, p["ln2"])
-        if moe:
-            ffn_out, aux = moe_ffn(nest_moe_params(
-                {n: p[n] for n in moe_param_shapes(self.cfg)}), h, self.cfg,
-                self.rules)
-        else:
-            g = F.silu(h @ p["w_gate"])
-            gu = constrain(g * (h @ p["w_up"]), self.rules, "batch", "seq",
-                           "mlp")
-            ffn_out = gu @ p["w_down"]
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        x = constrain(x + ffn_out, self.rules, "batch", "seq", "embed")
+        entry: the new one under ``want_cache``, the decode's given one).
+        Spans ``lm.attn`` and ``lm.ffn`` in ``lm.layer`` while anything
+        records (``obs/trace.py::phases``)."""
+        with phases(None, "lm.layer", moe=moe) as ph:
+            if ph:
+                ph.next("lm.attn")
+            p = self._layer_gathered(p, moe)
+            h = self._norm(x, p["ln1"])
+            if self.cfg.is_mla:
+                attn_out, new_cache = self._mla(p, h, cos, sin, cache=cache,
+                                                slot=slot)
+            else:
+                attn_out, new_cache = self._gqa(p, h, cos, sin, cache=cache,
+                                                slot=slot,
+                                                want_cache=want_cache)
+            x = constrain(x + attn_out, self.rules, "batch", "seq", "embed")
+            if ph:
+                ph.next("lm.ffn")
+            h = self._norm(x, p["ln2"])
+            if moe:
+                ffn_out, aux = moe_ffn(nest_moe_params(
+                    {n: p[n] for n in moe_param_shapes(self.cfg)}), h,
+                    self.cfg, self.rules)
+            else:
+                g = F.silu(h @ p["w_gate"])
+                gu = constrain(g * (h @ p["w_up"]), self.rules, "batch",
+                               "seq", "mlp")
+                ffn_out = gu @ p["w_down"]
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x = constrain(x + ffn_out, self.rules, "batch", "seq", "embed")
         return x, aux, new_cache
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._norm(x, self.final_norm)
-        if self.cfg.tie_embeddings:
-            head = self._gathered(self.embed, ("p_vocab", "p_embed")).T
-        else:
-            head = self._gathered(self.lm_head, ("p_embed", "p_vocab"))
-        return x @ head
+        """The final norm and the head, in span ``lm.head``."""
+        with phases(None, "lm.head"):
+            x = self._norm(x, self.final_norm)
+            if self.cfg.tie_embeddings:
+                head = self._gathered(self.embed, ("p_vocab", "p_embed")).T
+            else:
+                head = self._gathered(self.lm_head, ("p_embed", "p_vocab"))
+            return x @ head
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
@@ -588,7 +606,8 @@ class LM(nn.Module):
             self.embed, ("p_vocab", "p_embed"))), self.rules, "batch", "seq",
             "embed")
         cos, sin = rotary_cos_sin(torch.arange(s, device=self.device),
-                                  self._rope_dim(), cfg.rope_theta)
+                                  self._rope_dim(), cfg.rope_theta,
+                                  yarn=cfg.yarn)
         cache = self._new_cache(b, s, torch.empty, like=x) \
             if collect_cache else None
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -693,7 +712,7 @@ class LM(nn.Module):
             self.embed, ("p_vocab", "p_embed"))), self.rules, "batch", "seq",
             "embed")
         cos, sin = rotary_cos_sin(pos[:, None].float(), self._rope_dim(),
-                                  cfg.rope_theta)
+                                  cfg.rope_theta, yarn=cfg.yarn)
         slot = _Slot(pos, cache["dense"][0].shape[2])
         for key, lp, _ in self._stacks():
             first, second = cache[key]

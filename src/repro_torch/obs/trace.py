@@ -14,8 +14,10 @@ Design contract:
   explicit ``parent=`` handle.
 - That clock is not the device's.  :func:`span` mirrors a span onto the
   torch profiler's timeline, whose clock every kernel, copy and idle gap
-  shares, as a ``record_function`` range while the profiler records;
-  with neither a trace nor the profiler it costs one call and two checks.
+  shares, as a ``record_function`` range while the profiler records, on
+  any thread (a profiler that records every thread sees a worker's, the
+  AIPM service's φ calls); with neither a trace nor the profiler it
+  costs one call and two checks.
   :func:`phases` does the same for a span of consecutive steps, at one
   truth test a step when nothing records.
 - Spans are always closed: ``__exit__`` runs on any exception and stamps
@@ -30,9 +32,17 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 _perf = time.perf_counter
 _profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def _recording() -> bool:
+    """Whether a torch profiler records: one started on this thread, or on
+    another (this thread's ranges are then recorded where it profiles
+    every thread; elsewhere they cost their calls and are dropped)."""
+    return _autograd_profiler._is_profiler_enabled or _profiler_enabled()
 _trace_ids = itertools.count(1)
 
 
@@ -297,7 +307,7 @@ def span(trace: Optional[Trace], name: str, **attrs: Any):
     trace is given, mirrored as a profiler range while the torch profiler
     records, and :data:`NULL_SPAN` when neither (no ``record_function``,
     nothing allocated).  ``sp.set(...)`` works on all three."""
-    if _profiler_enabled():
+    if _recording():
         return _ProfiledSpan(trace, name, attrs)
     if trace is None:
         return NULL_SPAN
@@ -365,7 +375,7 @@ def phases(trace: Optional[Trace], name: str, **attrs: Any):
     (an escaping error is stamped on both).  ``ph`` is None when nothing
     records, so that a site costs one truth test: a hot path with many
     steps pays no call, no ``with`` and no allocation a step."""
-    if trace is None and not _profiler_enabled():
+    if trace is None and not _recording():
         return _NULL_PHASES
     return Phases(trace, name, attrs)
 

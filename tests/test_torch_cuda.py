@@ -796,6 +796,32 @@ def test_moe_ffn_on_card_matches_cpu(cuda, capacity_factor):
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=1e-6)
 
 
+def test_dropless_moe_on_card_matches_its_plain_version(cuda):
+    """The dropless MoE layer in bf16 on the card, whose experts run as
+    grouped products (``torch._grouped_mm``), against the same layer in
+    float32 with one product an expert (``grouped_mm``'s plain branch),
+    at DeepSeek-V2-Lite's widths (64 experts of 1,408, top-6, 2 shared)
+    over 2 x 512 tokens: within bf16's rounding of the experts' inputs,
+    weights and outputs (3e-2 of outputs of order 1)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    cfg = get_arch("deepseek-v2-lite").model
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.init_moe_params(cfg, torch.bfloat16, cuda, gen)
+    x = torch.randn(2, 512, cfg.d_model, generator=gen, device=cuda)
+    got, _ = moe.moe_ffn(params, x.bfloat16(), cfg)
+
+    def f32(p):
+        return {k: f32(v) for k, v in p.items()} if isinstance(p, dict) \
+            else p.float()
+
+    want, _ = moe.moe_ffn(f32(params), x.bfloat16().float(),
+                          dataclasses.replace(cfg, dtype="float32"))
+    assert want.abs().max() > 0.1
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+
+
 @pytest.mark.parametrize("name", list(_SMALL_LMS))
 def test_moe_and_mla_lms_on_card_match_cpu(cuda, name):
     """MoE, MLA and MoE + MLA LMs with the same weights on the card and the

@@ -52,6 +52,7 @@ from repro_torch.training.fault_tolerance import RetryPolicy, StragglerMonitor
 from repro_torch.training.train_loop import TrainLoopConfig, run_train_loop
 from repro_torch.training.tree import flatten_with_paths
 from test_torch_distributed import _run_ranks
+from test_torch_lm import same_config
 
 # the suite runs in several workers at once: a torch process here keeps
 # to one intra-op thread, so that the timing-driven tests beside it (the
@@ -466,8 +467,7 @@ def _tokens(seed, b, s, vocab=512):
 
 def test_smoke_configs_match_the_reference():
     for arch in SMOKE:
-        assert dataclasses.asdict(smoke_config(arch)) == \
-            dataclasses.asdict(ref_smoke_config(arch))
+        assert same_config(smoke_config(arch), ref_smoke_config(arch))
 
 
 @pytest.mark.parametrize("arch", list(SMOKE))
