@@ -13,12 +13,13 @@ the card, its plain version on the CPU) over the probed buckets' rows,
 gathered on the device.  There is no per-query Python loop.
 
 The index lives on one device (``device=``, default the CUDA card).  The
-compacted ``vectors``, ``codes``, ``bucket_of``, ``code_bias`` and the
-centroids are kept resident there and refreshed after ``build``,
+compacted ``vectors``, ``ids``, ``codes``, ``bucket_of``, ``code_bias`` and
+the centroids are kept resident there and refreshed after ``build``,
 ``compact``, ``insert_many`` and ``retrain_pq``; each scan gathers its
-buckets with ``index_select`` on the device instead of uploading the table.
-Numpy mirrors of the same arrays serve the host bookkeeping, the exact
-re-rank and the single-query host path.
+buckets with ``index_select`` on the device instead of uploading the table,
+and the float scans map their selected rows to ids there too, so only the
+answers come back.  Numpy mirrors of the same arrays serve the host
+bookkeeping, the exact re-rank and the single-query host path.
 
 IVF-PQ (``cfg.pq_m > 0``): :class:`PQCodebook` trains per-subspace k-means
 codebooks at build time and every bucket stores uint8 codes (M bytes per
@@ -43,8 +44,9 @@ Observability: ``search_many(..., trace=)`` opens ``ivf.*`` spans
 :func:`repro_torch.obs.trace.phases`, which also mirrors them onto the
 torch profiler's timeline while it records, and costs one truth test a
 step when nothing records.  :data:`METRICS` counts batches,
-queries, probe signatures, the path taken and the bytes the search path
-copies between host and device, always on.
+queries, probe signatures, the path taken, the queries whose answers were
+mapped to ids on the device and the bytes the search path copies between
+host and device, always on.
 """
 from __future__ import annotations
 
@@ -68,13 +70,16 @@ from repro_torch.obs.trace import phases
 #: the index's counters, on the process roster (``launch/serve.py
 #: --metrics``): ``ivf.batches`` and ``ivf.queries`` (calls that search),
 #: ``ivf.signatures`` (distinct probe signatures), ``ivf.path.<path>``
-#: (batches by the path taken), ``ivf.h2d_bytes`` / ``ivf.d2h_bytes`` (the
-#: search path's explicit copies; table uploads are not counted)
+#: (batches by the path taken), ``ivf.mapped_on_device`` (queries whose
+#: answers were mapped to ids on the device: the grouped and dense paths),
+#: ``ivf.h2d_bytes`` / ``ivf.d2h_bytes`` (the search path's explicit copies;
+#: table uploads are not counted)
 METRICS = MetricsRegistry("vector_index")
 PATHS = ("one", "grouped", "dense", "adc", "fused")
 _BATCHES = METRICS.counter("ivf.batches")
 _QUERIES = METRICS.counter("ivf.queries")
 _SIGNATURES = METRICS.counter("ivf.signatures")
+_MAPPED = METRICS.counter("ivf.mapped_on_device")
 _H2D = METRICS.counter("ivf.h2d_bytes")
 _D2H = METRICS.counter("ivf.d2h_bytes")
 _PATH = {p: METRICS.counter(f"ivf.path.{p}") for p in PATHS}
@@ -86,6 +91,12 @@ def _fetch(t: torch.Tensor) -> np.ndarray:
     a = t.cpu().numpy()
     _D2H.inc(a.nbytes)
     return a
+
+
+def _map_ids(ids: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The ids of the selected rows: ``ids[idx]`` for [Q, k] positions
+    into the scanned rows, gathered on their device."""
+    return torch.index_select(ids, 0, idx.reshape(-1)).view(idx.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -546,6 +557,7 @@ class IVFIndex:
         self.t_centroids = self._to_device(np.asarray(self.centroids,
                                                       np.float32))
         self.t_vectors = self._to_device(self.vectors)
+        self.t_ids = self._to_device(np.asarray(self.ids), np.int64)
         self.t_bucket32 = self._to_device(np.asarray(self.bucket_of),
                                           np.int32)
         self.t_codes = (None if self.codes is None
@@ -840,22 +852,23 @@ class IVFIndex:
         return corpus, ids
 
     def _gather_buckets_dev(self, buckets: np.ndarray
-                            ) -> Tuple[torch.Tensor, np.ndarray]:
-        """Device float rows of the probed buckets: an ``index_select`` of
-        the resident table (exact mode: the table itself), then the pending
-        appends, which are the only rows uploaded."""
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device float rows of the probed buckets and their int64 ids: an
+        ``index_select`` of the resident tables (exact mode: the tables
+        themselves), then the pending appends, which are the only rows
+        uploaded."""
         if len(buckets) == self.centroids.shape[0]:
-            corpus, ids = self.t_vectors, self.ids
+            corpus, ids = self.t_vectors, self.t_ids
             pend_v, pend_i = self._pending_of(sorted(self._pend_vecs))
         else:
-            rows = self._bucket_rows(buckets)
-            corpus = torch.index_select(self.t_vectors, 0,
-                                        self._upload(rows, np.int64))
-            ids = self.ids[rows]
+            rows = self._upload(self._bucket_rows(buckets), np.int64)
+            corpus = torch.index_select(self.t_vectors, 0, rows)
+            ids = torch.index_select(self.t_ids, 0, rows)
             pend_v, pend_i = self._pending_of(buckets)
         if pend_v:
             corpus = torch.cat([corpus, self._upload(np.stack(pend_v))])
-            ids = np.concatenate([ids, np.asarray(pend_i, ids.dtype)])
+            ids = torch.cat([ids, self._upload(
+                np.asarray(pend_i, self.ids.dtype), np.int64)])
         return corpus, ids
 
     def search(self, queries: np.ndarray, k: int,
@@ -1215,35 +1228,39 @@ class IVFIndex:
     def _scan_groups(self, q: torch.Tensor, sigs: np.ndarray,
                      inverse: np.ndarray, k: int,
                      out_v: np.ndarray, out_i: np.ndarray, ph=None) -> int:
-        """One gathered kernel scan per distinct probe signature.  ``ph``
+        """One gathered kernel scan per distinct probe signature, its
+        selected rows mapped to ids on the device.  ``ph``
         (:class:`repro_torch.obs.trace.Phases`, or None) takes each step."""
         rows_scanned = 0
         for g in range(sigs.shape[0]):
             if ph:
                 ph.next("ivf.gather")
             qsel = np.nonzero(inverse == g)[0]
+            whole = len(qsel) == q.shape[0]
             corpus, ids = self._gather_buckets_dev(sigs[g])
             n_real = corpus.shape[0]
             if ph:
                 ph.set(rows=n_real)
             if n_real == 0:
                 continue
-            qg = q if len(qsel) == q.shape[0] else \
+            qg = q if whole else \
                 torch.index_select(q, 0, self._upload(qsel, np.int64))
             k_eff = min(k, n_real)
             if ph:
                 ph.next("ivf.scan", rows=n_real, q=len(qsel))
             vals, idx = ivf_scan_topk(qg, corpus, k_eff,
                                       metric=self.cfg.metric)
+            found = _map_ids(ids, idx)
             if ph:
                 ph.next("ivf.fetch")
-            vals, idx = _fetch(vals), _fetch(idx)
+            vals, found = _fetch(vals), _fetch(found)
             if ph:
-                ph.set(bytes=vals.nbytes + idx.nbytes)
+                ph.set(bytes=vals.nbytes + found.nbytes)
                 ph.next("ivf.map")
-            cols = np.arange(k_eff)[None, :]
-            out_v[qsel[:, None], cols] = vals
-            out_i[qsel[:, None], cols] = ids[idx]
+            rows = slice(None) if whole else qsel
+            out_v[rows, :k_eff] = vals
+            out_i[rows, :k_eff] = found
+            _MAPPED.inc(len(qsel))
             rows_scanned += n_real * len(qsel)
         return rows_scanned
 
@@ -1369,7 +1386,8 @@ class IVFIndex:
                     out_v: np.ndarray, out_i: np.ndarray, ph=None) -> int:
         """One masked scan of the full table for scattered probe batches:
         ``ivf_scan_topk`` over every row, each query's non-probed buckets
-        at -inf (positions past a query's probed rows map to id -1)."""
+        at -inf, the selected rows mapped to ids on the device (positions
+        past a query's probed rows map to id -1)."""
         m = self.centroids.shape[0]
         qn = q.shape[0]
         if ph:
@@ -1389,14 +1407,16 @@ class IVFIndex:
         vals, idx = ivf_scan_topk(q, corpus, k_eff, self.cfg.metric,
                                   row_bucket=row_bucket,
                                   probe_mask=self._upload(probe_mask))
+        found = torch.where(torch.isfinite(vals), _map_ids(ids, idx), -1)
         if ph:
             ph.next("ivf.fetch")
-        vals, idx = _fetch(vals), _fetch(idx)
+        vals, found = _fetch(vals), _fetch(found)
         if ph:
-            ph.set(bytes=vals.nbytes + idx.nbytes)
+            ph.set(bytes=vals.nbytes + found.nbytes)
             ph.next("ivf.map")
         out_v[:, :k_eff] = vals
-        out_i[:, :k_eff] = np.where(np.isfinite(vals), ids[idx], -1)
+        out_i[:, :k_eff] = found
+        _MAPPED.inc(qn)
         return qn * n_real
 
     def _full_corpus(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

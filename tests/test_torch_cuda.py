@@ -399,6 +399,69 @@ def test_index_on_card_matches_cpu(cuda):
             np.testing.assert_array_equal(a[0], b[0])
 
 
+def test_index_maps_ids_on_card_at_the_join_shape(cuda):
+    """The face join's batch (Q = 1,024, k = 100, 448,626 cosine rows in 4
+    buckets): ``search_many``'s ids, mapped on the card, equal the host
+    mapping ``ids[idx]`` of the same kernel's selection, on the grouped
+    and the dense path; after a compaction the resident ids are the host
+    ids and the mapping holds again."""
+    from repro_torch.configs.pandadb import VectorIndexConfig
+    from repro_torch.core.vector_index import (METRICS, IVFIndex,
+                                               pairwise_scores, stable_topk)
+    rng = np.random.default_rng(30)
+    n, d, m, qn, k = 448_626, 128, 4, 1_024, 100
+    rows = rng.standard_normal((n, d), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    st = {"vectors": rows,
+          "centroids": rng.standard_normal((m, d), dtype=np.float32),
+          "bucket_of": np.sort(rng.integers(0, m, n)),
+          "ids": rng.permutation(n) * 7 + 10 ** 10}
+    cfg = VectorIndexConfig(dim=d, metric="cosine", min_buckets=m, nprobe=8,
+                            pending_compact_min=1_000,
+                            pending_compact_frac=0.0)
+    index = IVFIndex.from_state(st, cfg, device=cuda)
+    q = rng.standard_normal((qn, d), dtype=np.float32)
+
+    def host_mapped(nprobe):
+        qt = torch.from_numpy(q).to(cuda)
+        if nprobe >= m:
+            vals, idx = ivf_scan_topk(qt, index.t_vectors, k, "cosine")
+            return vals.cpu().numpy(), index.ids[idx.cpu().numpy()]
+        _, probe = stable_topk(pairwise_scores(qt, index.t_centroids,
+                                               "cosine"), nprobe)
+        mask = torch.zeros((qn, m), dtype=torch.uint8, device=cuda)
+        mask.scatter_(1, probe, 1)
+        vals, idx = ivf_scan_topk(qt, index.t_vectors, k, "cosine",
+                                  row_bucket=index.t_bucket32,
+                                  probe_mask=mask)
+        vals = vals.cpu().numpy()
+        return vals, np.where(np.isfinite(vals),
+                              index.ids[idx.cpu().numpy()], -1)
+
+    def check():
+        assert index.t_ids.dtype == torch.int64
+        np.testing.assert_array_equal(index.t_ids.cpu().numpy(), index.ids)
+        for nprobe, path in ((8, "grouped"), (2, "dense")):
+            c0 = METRICS.snapshot()["counters"]
+            v, i = index.search_many(q, k, nprobe)
+            c1 = METRICS.snapshot()["counters"]
+            assert c1[f"ivf.path.{path}"] - c0[f"ivf.path.{path}"] == 1
+            assert c1["ivf.mapped_on_device"] - \
+                c0["ivf.mapped_on_device"] == qn
+            hv, hi = host_mapped(nprobe)
+            assert i.dtype == np.int64
+            np.testing.assert_array_equal(v, hv)
+            np.testing.assert_array_equal(i, hi)
+
+    check()
+    old = index.t_ids
+    new = rng.standard_normal((1_000, d), dtype=np.float32)
+    index.insert_many(new, 2 * 10 ** 10 + np.arange(1_000))
+    assert index.pending_count == 0 and index.t_ids is not old
+    assert len(index.ids) == n + 1_000
+    check()
+
+
 def test_cluster_on_card_matches_cpu(cuda):
     """A 4-shard cluster on the card and on the CPU: fan-out rows and kNN
     ids agree, and the card's kNN merge launched the kernel."""

@@ -23,6 +23,7 @@ import repro.core.vector_index as rvi
 from repro.configs.pandadb import VectorIndexConfig as RefCfg
 from repro_torch.configs.pandadb import VectorIndexConfig as PortCfg
 from repro_torch.core import vector_index as pvi
+from repro_torch.kernels.ivf_scan.ops import ivf_scan_topk
 
 # the suite runs in several workers at once: a torch process here keeps
 # to one intra-op thread, so that the timing-driven tests beside it (the
@@ -326,6 +327,8 @@ def test_device_tables_mirror_host_arrays():
     np.testing.assert_array_equal(port.t_codes.numpy(), port.codes)
     np.testing.assert_array_equal(port.t_bias.numpy(), port.code_bias)
     np.testing.assert_array_equal(port.t_bucket32.numpy(), port.bucket_of)
+    np.testing.assert_array_equal(port.t_ids.numpy(), port.ids)
+    assert port.t_ids.dtype == torch.int64
     assert dataclasses.is_dataclass(port)
 
 
@@ -338,3 +341,157 @@ def test_config_matches_reference_but_the_tpu_tile():
     port = {f.name: f.default for f in dataclasses.fields(PortCfg)}
     assert ref.pop("block_n") == 512
     assert port == ref
+
+
+# ---------------------------------------------------------------------------
+# the float scans' answers mapped to ids on the device
+# ---------------------------------------------------------------------------
+
+
+def _host_mapped(index, queries, k, nprobe):
+    """(path, vals, ids) of a batched float search whose selected rows are
+    mapped to ids on the host, ``ids[idx]`` in numpy: the same probe,
+    groups and scan calls as ``search_many``, over the host rows."""
+    qn, m = len(queries), index.centroids.shape[0]
+    nprobe = min(nprobe, m)
+    q = torch.from_numpy(queries)
+    cs = pvi.pairwise_scores(q, index.t_centroids, index.cfg.metric)
+    probe = np.sort(pvi.stable_topk(cs, nprobe)[1].numpy(), axis=1)
+    sigs, inverse = np.unique(probe, axis=0, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    out_v = np.full((qn, k), -np.inf, np.float32)
+    out_i = np.full((qn, k), -1, np.int64)
+    if len(sigs) > 1 and len(sigs) * nprobe >= m:
+        corpus, ids, buckets = index._full_corpus()
+        mask = np.zeros((qn, m), np.uint8)
+        mask[np.arange(qn)[:, None], probe] = 1
+        kk = min(k, len(ids))
+        vals, idx = ivf_scan_topk(
+            q, torch.from_numpy(corpus), kk, index.cfg.metric,
+            row_bucket=torch.from_numpy(buckets.astype(np.int32)),
+            probe_mask=torch.from_numpy(mask))
+        vals, idx = vals.numpy(), idx.numpy()
+        out_v[:, :kk] = vals
+        out_i[:, :kk] = np.where(np.isfinite(vals), ids[idx], -1)
+        return "dense", out_v, out_i
+    for g, sig in enumerate(sigs):
+        qsel = np.nonzero(inverse == g)[0]
+        corpus, ids = index._gather_buckets(sig)
+        if len(ids) == 0:
+            continue
+        kk = min(k, len(ids))
+        vals, idx = ivf_scan_topk(
+            torch.index_select(q, 0, torch.from_numpy(qsel)),
+            torch.from_numpy(np.ascontiguousarray(corpus)), kk,
+            metric=index.cfg.metric)
+        cols = np.arange(kk)[None, :]
+        out_v[qsel[:, None], cols] = vals.numpy()
+        out_i[qsel[:, None], cols] = ids[idx.numpy()]
+    return "grouped", out_v, out_i
+
+
+def _mapped_count():
+    return pvi.METRICS.snapshot()["counters"]["ivf.mapped_on_device"]
+
+
+def _same_as_host(index, queries, k, nprobe):
+    """``search_many`` equals the host mapping bit for bit, on the path
+    the host mapping took, and counts every query as mapped on the
+    device.  Returns the answers."""
+    path, hv, hi = _host_mapped(index, queries, k, nprobe)
+    paths0 = pvi.METRICS.snapshot()["counters"]
+    mapped0 = _mapped_count()
+    v, i = index.search_many(queries, k, nprobe, mode="float")
+    paths1 = pvi.METRICS.snapshot()["counters"]
+    assert paths1[f"ivf.path.{path}"] - paths0[f"ivf.path.{path}"] == 1
+    assert _mapped_count() - mapped0 == len(queries)
+    assert v.dtype == hv.dtype and i.dtype == hi.dtype == np.int64
+    np.testing.assert_array_equal(v, hv)
+    np.testing.assert_array_equal(i, hi)
+    return path, v, i
+
+
+def test_one_signature_cosine_k100_maps_on_device():
+    """The face join's shape in small: every bucket probed (one
+    signature, the whole batch), cosine, k = 100, ids not ``arange``."""
+    rng = np.random.default_rng(30)
+    vecs = rng.normal(size=(1_500, 16)).astype(np.float32)
+    ids = rng.permutation(10 ** 6)[:1_500].astype(np.int64)
+    cfg = PortCfg(dim=16, metric="cosine", min_buckets=4,
+                  vectors_per_bucket=10 ** 6, nprobe=8)
+    index = pvi.IVFIndex.build(vecs, ids=ids, cfg=cfg, device="cpu")
+    queries = rng.normal(size=(64, 16)).astype(np.float32)
+    path, v, i = _same_as_host(index, queries, 100, 8)
+    assert path == "grouped" and (i >= 0).all()
+    assert set(i.reshape(-1).tolist()) <= set(ids.tolist())
+
+
+@pytest.mark.parametrize("ids_dtype", [np.int64, np.int32])
+@pytest.mark.parametrize("pending", [0, 37])
+@pytest.mark.parametrize("layout", ["groups", "dense", "exact"])
+def test_float_scans_map_on_device_as_on_host(layout, pending, ids_dtype):
+    """Several signatures (``qsel`` subsets), the masked dense scan with
+    queries whose probed rows number fewer than k (the -1 fill), and
+    every bucket probed, with and without pending appends."""
+    st, _, pc = _int_state(31, pending=pending)
+    st["ids"] = st["ids"].astype(ids_dtype)
+    index = pvi.IVFIndex.from_state(st, pc, device="cpu")
+    if layout == "groups":
+        q = np.repeat(_queries(31, "dense", qn=3), 4, axis=0)
+        nprobe, k = 2, 250
+    else:
+        q = _queries(31, "dense", qn=48)
+        nprobe, k = (2, 250) if layout == "dense" else (6, 40)
+    sigs0 = pvi.METRICS.snapshot()["counters"]["ivf.signatures"]
+    path, v, i = _same_as_host(index, q, k, nprobe)
+    sigs = pvi.METRICS.snapshot()["counters"]["ivf.signatures"] - sigs0
+    assert path == ("dense" if layout == "dense" else "grouped")
+    assert (sigs > 1) == (layout != "exact")
+    if layout != "exact":
+        short = ~np.isfinite(v)
+        assert short.any() and np.array_equal(short, i == -1)
+
+
+def test_ids_uploaded_again_after_compaction():
+    st, _, pc = _int_state(32)
+    pc = dataclasses.replace(pc, pending_compact_min=50,
+                             pending_compact_frac=0.0)
+    index = pvi.IVFIndex.from_state(st, pc, device="cpu")
+    rng = np.random.default_rng(32)
+    new = rng.integers(-3, 4, (30, 16)).astype(np.float32)
+    index.insert_many(new, 5_000 + np.arange(30))
+    old = index.t_ids
+    assert index.pending_count == 30
+    for layout in ("groups", "dense"):
+        _same_as_host(index, _queries(32, layout, qn=24), 60, 2)
+    index.insert_many(new + 1, 6_000 + np.arange(30))
+    assert index.pending_count == 0 and index.t_ids is not old
+    assert len(index.ids) == 660
+    np.testing.assert_array_equal(index.t_ids.numpy(), index.ids)
+    for layout in ("groups", "dense"):
+        _same_as_host(index, _queries(32, layout, qn=24), 60, 2)
+
+
+def test_replica_piece_shares_ids_until_it_compacts():
+    from repro_torch.cluster.coordinator import _copy_piece
+
+    st, _, pc = _int_state(33)
+    pc = dataclasses.replace(pc, pending_compact_min=50,
+                             pending_compact_frac=0.0)
+    piece = pvi.IVFIndex.from_state(st, pc, device="cpu")
+    replica = _copy_piece(piece)
+    assert replica.t_ids is piece.t_ids
+    q = _queries(33, "dense", qn=24)
+    _, v0, i0 = _same_as_host(replica, q, 60, 2)
+    rng = np.random.default_rng(33)
+    new = rng.integers(-3, 4, (30, 16)).astype(np.float32)
+    replica.insert_many(new, 7_000 + np.arange(30))
+    _same_as_host(replica, q, 60, 2)
+    replica.insert_many(new - 1, 8_000 + np.arange(30))
+    assert replica.t_ids is not piece.t_ids
+    np.testing.assert_array_equal(replica.t_ids.numpy(), replica.ids)
+    np.testing.assert_array_equal(piece.t_ids.numpy(), piece.ids)
+    _same_as_host(replica, q, 60, 2)
+    _, v1, i1 = _same_as_host(piece, q, 60, 2)
+    np.testing.assert_array_equal(v1, v0)
+    np.testing.assert_array_equal(i1, i0)
