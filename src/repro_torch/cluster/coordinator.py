@@ -30,7 +30,6 @@ its ``device``.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -134,24 +133,6 @@ def _adopt_node(db: PandaDB, nid: int, scalar_props: Dict[str, Any],
     return nid
 
 
-def _copy_piece(piece: IVFIndex) -> IVFIndex:
-    """A replica-private view of one index piece: shares the (immutable
-    once compacted) arrays and their device tables but owns its append
-    buffers, so replicas can absorb DynamicIndexing inserts independently.
-
-    A shallow copy, not ``dataclasses.replace``: replace would re-run
-    ``__post_init__`` and upload every table to the device once more per
-    replica.  Sharing is safe because compaction and retraining assign new
-    arrays and tensors instead of writing into the old ones."""
-    piece.compact()
-    out = copy.copy(piece)
-    out._pend_vecs, out._pend_ids = {}, {}
-    out._pend_codes, out._pend_bias = {}, {}
-    out.pending_count = 0
-    out.scan_rows = 0
-    return out
-
-
 def _apply_op(db: PandaDB, op: str, args: tuple, kw: Dict[str, Any]) -> Any:
     if op == "create_node":
         return _create_node_slot(db, *args)
@@ -170,7 +151,7 @@ def _apply_op(db: PandaDB, op: str, args: tuple, kw: Dict[str, Any]) -> Any:
         return db.index_insert(*args)
     if op == "set_index":
         sub_key, piece = args
-        db.indexes[sub_key] = _copy_piece(piece)
+        db.indexes[sub_key] = piece.replica_view()
         db.stats.note_index_rebuild(sub_key)
         return db.indexes[sub_key]
     if op == "set_owner":

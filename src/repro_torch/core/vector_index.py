@@ -44,16 +44,17 @@ Observability: ``search_many(..., trace=)`` opens ``ivf.*`` spans
 :func:`repro_torch.obs.trace.phases`, which also mirrors them onto the
 torch profiler's timeline while it records, and costs one truth test a
 step when nothing records.  :data:`METRICS` counts batches,
-queries, probe signatures, the path taken, the queries whose answers were
-mapped to ids on the device and the bytes the search path copies between
-host and device, always on.
+queries, probe signatures, the path taken and the bytes the search path
+copies between host and device, always on.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from concurrent.futures import wait as futures_wait
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -70,16 +71,13 @@ from repro_torch.obs.trace import phases
 #: the index's counters, on the process roster (``launch/serve.py
 #: --metrics``): ``ivf.batches`` and ``ivf.queries`` (calls that search),
 #: ``ivf.signatures`` (distinct probe signatures), ``ivf.path.<path>``
-#: (batches by the path taken), ``ivf.mapped_on_device`` (queries whose
-#: answers were mapped to ids on the device: the grouped and dense paths),
-#: ``ivf.h2d_bytes`` / ``ivf.d2h_bytes`` (the search path's explicit copies;
-#: table uploads are not counted)
+#: (batches by the path taken), ``ivf.h2d_bytes`` / ``ivf.d2h_bytes`` (the
+#: search path's explicit copies; table uploads are not counted)
 METRICS = MetricsRegistry("vector_index")
 PATHS = ("one", "grouped", "dense", "adc", "fused")
 _BATCHES = METRICS.counter("ivf.batches")
 _QUERIES = METRICS.counter("ivf.queries")
 _SIGNATURES = METRICS.counter("ivf.signatures")
-_MAPPED = METRICS.counter("ivf.mapped_on_device")
 _H2D = METRICS.counter("ivf.h2d_bytes")
 _D2H = METRICS.counter("ivf.d2h_bytes")
 _PATH = {p: METRICS.counter(f"ivf.path.{p}") for p in PATHS}
@@ -506,6 +504,62 @@ def _pq_metric(cfg: VectorIndexConfig) -> str:
 # ---------------------------------------------------------------------------
 
 
+class _Rows(NamedTuple):
+    """Pending rows, stacked: bucket (int64), vectors (float32 [n, d]),
+    ids (int64), codes (uint8 [n, pq_m]; PQ mode) and bias (float32;
+    residual PQ)."""
+    bucket: np.ndarray
+    vectors: np.ndarray
+    ids: np.ndarray
+    codes: Optional[np.ndarray]
+    bias: Optional[np.ndarray]
+
+
+class _PendingRows:
+    """DynamicIndexing's append buffer: the rows inserted since the last
+    compaction, in arrival order.  A scan set lists them after the
+    compacted rows, bucket by bucket in ascending order and in arrival
+    order within a bucket -- the order :meth:`rows` gives -- so that ties,
+    and the ids they return, come out as in the reference."""
+
+    def __init__(self) -> None:
+        self._parts: List[_Rows] = []
+        self._n = 0
+
+    def __len__(self) -> int:
+        return self._n
+
+    def add(self, buckets, vectors, ids, codes=None, bias=None) -> None:
+        """Append rows in the order given (arrays with one entry a row)."""
+        part = _Rows(np.asarray(buckets, np.int64),
+                     np.asarray(vectors, np.float32),
+                     np.asarray(ids, np.int64),
+                     None if codes is None else np.asarray(codes, np.uint8),
+                     None if bias is None else np.asarray(bias, np.float32))
+        self._parts.append(part)
+        self._n += len(part.bucket)
+
+    def rows(self, buckets=None) -> Optional[_Rows]:
+        """The rows of ``buckets`` (ascending; every row when None), in
+        ascending bucket order and arrival order within a bucket, or None
+        when there are none."""
+        if not self._n:
+            return None
+        cols = [None if col[0] is None else np.concatenate(col)
+                for col in zip(*self._parts)]
+        bucket = cols[0]
+        sel = (np.arange(len(bucket)) if buckets is None
+               else np.flatnonzero(np.isin(bucket, buckets)))
+        if not len(sel):
+            return None
+        order = sel[np.argsort(bucket[sel], kind="stable")]
+        return _Rows(*(None if c is None else c[order] for c in cols))
+
+    def clear(self) -> None:
+        self._parts = []
+        self._n = 0
+
+
 @dataclasses.dataclass
 class IVFIndex:
     cfg: VectorIndexConfig
@@ -520,17 +574,6 @@ class IVFIndex:
     pq: Optional[PQCodebook] = None
     codes: Optional[np.ndarray] = None    # [N, pq_m] uint8
     code_bias: Optional[np.ndarray] = None  # [N] f32 (residual mode only)
-    # dynamic-insert append buffers (bucket -> uncompacted rows); searches
-    # always include these, compaction folds them into the sorted layout
-    _pend_vecs: Dict[int, List[np.ndarray]] = dataclasses.field(
-        default_factory=dict, repr=False)
-    _pend_ids: Dict[int, List[int]] = dataclasses.field(
-        default_factory=dict, repr=False)
-    _pend_codes: Dict[int, List[np.ndarray]] = dataclasses.field(
-        default_factory=dict, repr=False)
-    _pend_bias: Dict[int, List[float]] = dataclasses.field(
-        default_factory=dict, repr=False)
-    pending_count: int = 0
     # rows scanned (feeds the cost model's kNN term with each scan's time)
     scan_rows: int = 0
     # where the scan-resident tables live (None: the CUDA card)
@@ -538,6 +581,9 @@ class IVFIndex:
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
+        # dynamic-insert rows; searches always include them, compaction
+        # folds them into the sorted layout
+        self._pending = _PendingRows()
         self._refresh_device()
 
     def _to_device(self, a: np.ndarray, dtype=None) -> torch.Tensor:
@@ -568,6 +614,11 @@ class IVFIndex:
                                             np.float32))
 
     @property
+    def pending_count(self) -> int:
+        """Rows inserted since the last compaction."""
+        return len(self._pending)
+
+    @property
     def n_total(self) -> int:
         """Indexed vectors, compacted + pending."""
         return int(self.ids.shape[0]) + self.pending_count
@@ -578,7 +629,7 @@ class IVFIndex:
         streams the float32 rows."""
         base = int(self.centroids.nbytes)
         if self.pq is not None and self.codes is not None:
-            pend = sum(len(v) for v in self._pend_codes.values()) * self.pq.m
+            pend = self.pending_count * self.pq.m
             return base + int(self.codes.nbytes) + pend + self.pq.nbytes
         pend = self.pending_count * self.vectors.shape[1] * 4
         return base + int(self.vectors.nbytes) + pend
@@ -596,21 +647,15 @@ class IVFIndex:
             state["codes"] = np.asarray(self.codes, np.uint8)
         if self.code_bias is not None:
             state["code_bias"] = np.asarray(self.code_bias, np.float32)
-        if self.pending_count:
-            pb, pv, pi, pc, ps = [], [], [], [], []
-            for b in sorted(self._pend_vecs):
-                pb += [b] * len(self._pend_vecs[b])
-                pv += self._pend_vecs[b]
-                pi += self._pend_ids[b]
-                pc += self._pend_codes.get(b, [])
-                ps += self._pend_bias.get(b, [])
-            state["pend_bucket"] = np.asarray(pb, np.int64)
-            state["pend_vectors"] = np.stack(pv).astype(np.float32)
-            state["pend_ids"] = np.asarray(pi, np.int64)
-            if pc:
-                state["pend_codes"] = np.stack(pc).astype(np.uint8)
-            if ps:
-                state["pend_bias"] = np.asarray(ps, np.float32)
+        pend = self._pending.rows()
+        if pend is not None:
+            state["pend_bucket"] = pend.bucket
+            state["pend_vectors"] = pend.vectors
+            state["pend_ids"] = pend.ids
+            if pend.codes is not None:
+                state["pend_codes"] = pend.codes
+            if pend.bias is not None:
+                state["pend_bias"] = pend.bias
         return state
 
     @staticmethod
@@ -618,8 +663,8 @@ class IVFIndex:
                    cfg: VectorIndexConfig, device: DeviceLike = None,
                    serial: int = 1) -> "IVFIndex":
         """An index over exactly the given arrays (the keys of
-        :meth:`to_state`); pending rows (``pend_*``) join their buckets'
-        append buffers in the order given."""
+        :meth:`to_state`); pending rows (``pend_*``) arrive in the order
+        given."""
         pq = None
         if "codebooks" in state:
             pq = PQCodebook(np.asarray(state["codebooks"], np.float32),
@@ -634,20 +679,10 @@ class IVFIndex:
             code_bias=(None if "code_bias" not in state
                        else np.asarray(state["code_bias"], np.float32)),
             device=device)
-        pb = state.get("pend_bucket")
-        if pb is not None:
-            for i, b in enumerate(np.asarray(pb).tolist()):
-                index._pend_vecs.setdefault(b, []).append(
-                    np.asarray(state["pend_vectors"][i], np.float32))
-                index._pend_ids.setdefault(b, []).append(
-                    int(state["pend_ids"][i]))
-                if "pend_codes" in state:
-                    index._pend_codes.setdefault(b, []).append(
-                        np.asarray(state["pend_codes"][i], np.uint8))
-                if "pend_bias" in state:
-                    index._pend_bias.setdefault(b, []).append(
-                        float(state["pend_bias"][i]))
-            index.pending_count = len(pb)
+        if "pend_bucket" in state:
+            index._pending.add(state["pend_bucket"], state["pend_vectors"],
+                               state["pend_ids"], state.get("pend_codes"),
+                               state.get("pend_bias"))
         return index
 
     # -- Algorithm 2: BatchIndexing -------------------------------------------
@@ -719,19 +754,16 @@ class IVFIndex:
         scores = _pairwise_scores_np(vec[None], self.centroids,
                                      self.cfg.metric)[0]
         b = int(scores.argmax())
-        self._pend_vecs.setdefault(b, []).append(vec)
-        self._pend_ids.setdefault(b, []).append(int(ext_id))
+        code = bias = None
         if self.pq is not None:
             enc = vec[None]
             if self.cfg.pq_residual:
                 enc = enc - self.centroids[b][None]
-            code = self.pq.encode(enc)[0]
-            self._pend_codes.setdefault(b, []).append(code)
+            code = self.pq.encode(enc)
             if self.cfg.pq_residual:
-                self._pend_bias.setdefault(b, []).append(float(
-                    _residual_bias(self.pq, code[None], self.centroids,
-                                   np.asarray([b]), self.cfg.metric)[0]))
-        self.pending_count += 1
+                bias = _residual_bias(self.pq, code, self.centroids,
+                                      np.asarray([b]), self.cfg.metric)
+        self._pending.add([b], vec[None], [ext_id], code, bias)
         if self.pending_count >= self._compact_threshold():
             self.compact()
         return b
@@ -755,16 +787,7 @@ class IVFIndex:
             if self.cfg.pq_residual:
                 bias = _residual_bias(self.pq, codes, self.centroids,
                                       assign, self.cfg.metric)
-        for i, (v, b, eid) in enumerate(zip(vecs, assign,
-                                            np.asarray(ext_ids))):
-            b = int(b)
-            self._pend_vecs.setdefault(b, []).append(v)
-            self._pend_ids.setdefault(b, []).append(int(eid))
-            if codes is not None:
-                self._pend_codes.setdefault(b, []).append(codes[i])
-            if bias is not None:
-                self._pend_bias.setdefault(b, []).append(float(bias[i]))
-        self.pending_count += len(vecs)
+        self._pending.add(assign, vecs, ext_ids, codes, bias)
         if self.pending_count >= self._compact_threshold():
             self.compact()
         return assign
@@ -777,39 +800,22 @@ class IVFIndex:
         """Fold append buffers into the sorted bucket layout (one stable
         argsort over the concatenation; preserves ``bucket_slice``), then
         refresh the device tables."""
-        if not self.pending_count:
+        pend = self._pending.rows()
+        if pend is None:
             return
-        add_b: List[int] = []
-        add_v: List[np.ndarray] = []
-        add_i: List[int] = []
-        add_c: List[np.ndarray] = []
-        add_s: List[float] = []
-        for b in sorted(self._pend_vecs):
-            add_b += [b] * len(self._pend_vecs[b])
-            add_v += self._pend_vecs[b]
-            add_i += self._pend_ids[b]
-            if self.pq is not None:
-                add_c += self._pend_codes.get(b, [])
-                add_s += self._pend_bias.get(b, [])
         bucket_of = np.concatenate(
-            [self.bucket_of, np.asarray(add_b, self.bucket_of.dtype)])
+            [self.bucket_of, pend.bucket.astype(self.bucket_of.dtype)])
         order = np.argsort(bucket_of, kind="stable")
         self.bucket_of = bucket_of[order]
-        self.vectors = np.concatenate(
-            [self.vectors, np.stack(add_v)])[order]
+        self.vectors = np.concatenate([self.vectors, pend.vectors])[order]
         self.ids = np.concatenate(
-            [self.ids, np.asarray(add_i, self.ids.dtype)])[order]
+            [self.ids, pend.ids.astype(self.ids.dtype)])[order]
         if self.pq is not None and self.codes is not None:
-            self.codes = np.concatenate(
-                [self.codes, np.stack(add_c)])[order]
+            self.codes = np.concatenate([self.codes, pend.codes])[order]
         if self.code_bias is not None:
             self.code_bias = np.concatenate(
-                [self.code_bias, np.asarray(add_s, np.float32)])[order]
-        self._pend_vecs.clear()
-        self._pend_ids.clear()
-        self._pend_codes.clear()
-        self._pend_bias.clear()
-        self.pending_count = 0
+                [self.code_bias, pend.bias])[order]
+        self._pending.clear()
         self._refresh_device()
 
     # -- kNN search -------------------------------------------------------------
@@ -825,16 +831,6 @@ class IVFIndex:
         return (np.concatenate([np.arange(lo, hi) for lo, hi in segs])
                 if segs else np.empty(0, np.int64))
 
-    def _pending_of(self, buckets) -> Tuple[List[np.ndarray], List[int]]:
-        pend_v: List[np.ndarray] = []
-        pend_i: List[int] = []
-        for b in buckets:
-            b = int(b)
-            if b in self._pend_vecs:
-                pend_v += self._pend_vecs[b]
-                pend_i += self._pend_ids[b]
-        return pend_v, pend_i
-
     def _gather_buckets(self, buckets: np.ndarray
                         ) -> Tuple[np.ndarray, np.ndarray]:
         """Host float rows of the probed buckets, compacted slices + pending
@@ -845,10 +841,10 @@ class IVFIndex:
         rows = self._bucket_rows(buckets)
         corpus = self.vectors[rows]
         ids = self.ids[rows]
-        pend_v, pend_i = self._pending_of(buckets)
-        if pend_v:
-            corpus = np.concatenate([corpus, np.stack(pend_v)])
-            ids = np.concatenate([ids, np.asarray(pend_i, ids.dtype)])
+        pend = self._pending.rows(buckets)
+        if pend is not None:
+            corpus = np.concatenate([corpus, pend.vectors])
+            ids = np.concatenate([ids, pend.ids.astype(ids.dtype)])
         return corpus, ids
 
     def _gather_buckets_dev(self, buckets: np.ndarray
@@ -859,24 +855,26 @@ class IVFIndex:
         uploaded."""
         if len(buckets) == self.centroids.shape[0]:
             corpus, ids = self.t_vectors, self.t_ids
-            pend_v, pend_i = self._pending_of(sorted(self._pend_vecs))
         else:
             rows = self._upload(self._bucket_rows(buckets), np.int64)
             corpus = torch.index_select(self.t_vectors, 0, rows)
             ids = torch.index_select(self.t_ids, 0, rows)
-            pend_v, pend_i = self._pending_of(buckets)
-        if pend_v:
-            corpus = torch.cat([corpus, self._upload(np.stack(pend_v))])
-            ids = torch.cat([ids, self._upload(
-                np.asarray(pend_i, self.ids.dtype), np.int64)])
+        pend = self._pending.rows(buckets)
+        if pend is not None:
+            corpus = torch.cat([corpus, self._upload(pend.vectors)])
+            ids = torch.cat([ids, self._upload(pend.ids, np.int64)])
         return corpus, ids
 
     def search(self, queries: np.ndarray, k: int,
                nprobe: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """ANN search: probe ``nprobe`` nearest buckets, exact scan inside.
-        Thin alias of :meth:`search_many` (the batched path is the only
-        path)."""
+        Thin alias of :meth:`search_many`.  One query takes the host path
+        (:meth:`_search_one`): at tied scores its answers are the
+        reference's one-query answers, which the batched path does not
+        give.  Sent through the batched path instead, one query fails the
+        two-sided tests whose integer-valued vectors tie: 12 ADC, fused
+        and ip search cases and 8 of the 9 pending-row cases."""
         return self.search_many(queries, k, nprobe)
 
     def search_many(self, queries: np.ndarray, k: int,
@@ -910,7 +908,8 @@ class IVFIndex:
           index; pending appends take the staged ADC path.
 
         A single-query batch takes a host-side numpy path that skips the
-        probe-signature grouping and device dispatch entirely.
+        probe-signature grouping and device dispatch entirely, and breaks
+        ties as the reference's one-query path does (:meth:`search`).
 
         ``mode`` is ``"auto"`` (consult ``stats.choose_knn_scan`` when
         given, else ADC whenever PQ codebooks exist), ``"adc"``,
@@ -1077,48 +1076,26 @@ class IVFIndex:
         residual = self.cfg.pq_residual
         if len(buckets) == self.centroids.shape[0]:
             comp_rows = np.arange(len(self.ids))
-            pend_sel = sorted(self._pend_vecs)
             codes, ids = self.codes, self.ids
             rb = self.bucket_of if residual else None
             bias = self.code_bias if residual else None
         else:
             comp_rows = self._bucket_rows(buckets)
-            pend_sel = [int(b) for b in buckets if int(b) in self._pend_vecs]
             codes = self.codes[comp_rows]
             ids = self.ids[comp_rows]
             rb = self.bucket_of[comp_rows] if residual else None
             bias = (self.code_bias[comp_rows] if residual else None)
-        pend = self._pending_codes(pend_sel)
+        pend = self._pending.rows(buckets)
         pend_stack = None
         if pend is not None:
-            pend_stack, pc, pi, pb, ps = pend
-            codes = np.concatenate([codes, pc])
-            ids = np.concatenate([ids, np.asarray(pi, ids.dtype)])
+            pend_stack = pend.vectors
+            codes = np.concatenate([codes, pend.codes])
+            ids = np.concatenate([ids, pend.ids.astype(ids.dtype)])
             if residual:
-                rb = np.concatenate([rb, pb])
-                bias = np.concatenate([bias, ps])
+                rb = np.concatenate(
+                    [rb, pend.bucket.astype(self.bucket_of.dtype)])
+                bias = np.concatenate([bias, pend.bias])
         return codes, ids, comp_rows, pend_stack, rb, bias
-
-    def _pending_codes(self, pend_sel: Sequence[int]):
-        """Pending appends of ``pend_sel`` buckets as stacked arrays:
-        (vectors, codes, ids, buckets, biases), or None when there are
-        none."""
-        pend_v: List[np.ndarray] = []
-        pend_i: List[int] = []
-        pend_c: List[np.ndarray] = []
-        pend_s: List[float] = []
-        pend_b: List[int] = []
-        for b in pend_sel:
-            pend_v += self._pend_vecs[b]
-            pend_i += self._pend_ids[b]
-            pend_c += self._pend_codes.get(b, [])
-            pend_s += self._pend_bias.get(b, [])
-            pend_b += [b] * len(self._pend_vecs[b])
-        if not pend_v:
-            return None
-        return (np.stack(pend_v), np.stack(pend_c), pend_i,
-                np.asarray(pend_b, self.bucket_of.dtype),
-                np.asarray(pend_s, np.float32))
 
     def _gather_codes_dev(self, buckets: np.ndarray):
         """Device ADC view of the probed buckets: (codes, ids, comp_rows,
@@ -1130,13 +1107,11 @@ class IVFIndex:
         residual = self.cfg.pq_residual
         if len(buckets) == self.centroids.shape[0]:
             comp_rows = np.arange(len(self.ids))
-            pend_sel = sorted(self._pend_vecs)
             codes, ids = self.t_codes, self.ids
             rb = self.t_bucket32 if residual else None
             bias = self.t_bias if residual else None
         else:
             comp_rows = self._bucket_rows(buckets)
-            pend_sel = [int(b) for b in buckets if int(b) in self._pend_vecs]
             rows = self._upload(comp_rows, np.int64)
             codes = torch.index_select(self.t_codes, 0, rows)
             ids = self.ids[comp_rows]
@@ -1144,15 +1119,15 @@ class IVFIndex:
                   if residual else None)
             bias = (torch.index_select(self.t_bias, 0, rows)
                     if residual else None)
-        pend = self._pending_codes(pend_sel)
+        pend = self._pending.rows(buckets)
         pend_stack = None
         if pend is not None:
-            pend_stack, pc, pi, pb, ps = pend
-            codes = torch.cat([codes, self._upload(pc, np.uint8)])
-            ids = np.concatenate([ids, np.asarray(pi, ids.dtype)])
+            pend_stack = pend.vectors
+            codes = torch.cat([codes, self._upload(pend.codes, np.uint8)])
+            ids = np.concatenate([ids, pend.ids.astype(ids.dtype)])
             if residual:
-                rb = torch.cat([rb, self._upload(pb, np.int32)])
-                bias = torch.cat([bias, self._upload(ps, np.float32)])
+                rb = torch.cat([rb, self._upload(pend.bucket, np.int32)])
+                bias = torch.cat([bias, self._upload(pend.bias, np.float32)])
         return codes, ids, comp_rows, pend_stack, rb, bias
 
     def _fetch_rows(self, comp_rows: np.ndarray,
@@ -1175,8 +1150,9 @@ class IVFIndex:
                     rerank_mult: Optional[int] = None) -> int:
         """Single-query fast path: numpy end-to-end.  One centroid scoring,
         one bucket gather, one scan -- no signature grouping, no device
-        round-trip.  Candidate order matches the batched path (descending
-        score, ties to the lower row index)."""
+        round-trip.  Descending score, ties to the lower position in the
+        scan set; at ties the ids are the reference's one-query answers,
+        which may differ from the batched path's (:meth:`search`)."""
         m = self.centroids.shape[0]
         cscores = _pairwise_scores_np(queries, self.centroids,
                                       self.cfg.metric)[0]
@@ -1260,7 +1236,6 @@ class IVFIndex:
             rows = slice(None) if whole else qsel
             out_v[rows, :k_eff] = vals
             out_i[rows, :k_eff] = found
-            _MAPPED.inc(len(qsel))
             rows_scanned += n_real * len(qsel)
         return rows_scanned
 
@@ -1416,24 +1391,17 @@ class IVFIndex:
             ph.next("ivf.map")
         out_v[:, :k_eff] = vals
         out_i[:, :k_eff] = found
-        _MAPPED.inc(qn)
         return qn * n_real
 
     def _full_corpus(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(vectors, ids, bucket ids) over compacted + pending rows."""
-        if not self.pending_count:
+        pend = self._pending.rows()
+        if pend is None:
             return self.vectors, self.ids, self.bucket_of
-        pend_v: List[np.ndarray] = []
-        pend_i: List[int] = []
-        pend_b: List[int] = []
-        for b in sorted(self._pend_vecs):
-            pend_v += self._pend_vecs[b]
-            pend_i += self._pend_ids[b]
-            pend_b += [b] * len(self._pend_vecs[b])
-        return (np.concatenate([self.vectors, np.stack(pend_v)]),
-                np.concatenate([self.ids, np.asarray(pend_i, self.ids.dtype)]),
+        return (np.concatenate([self.vectors, pend.vectors]),
+                np.concatenate([self.ids, pend.ids.astype(self.ids.dtype)]),
                 np.concatenate([self.bucket_of,
-                                np.asarray(pend_b, self.bucket_of.dtype)]))
+                                pend.bucket.astype(self.bucket_of.dtype)]))
 
     def search_exact(self, queries: np.ndarray, k: int
                      ) -> Tuple[np.ndarray, np.ndarray]:
@@ -1469,6 +1437,23 @@ class IVFIndex:
         self._refresh_device()
         if stats is not None:
             stats.note_index_rebuild("pq_retrain")
+
+    def replica_view(self) -> "IVFIndex":
+        """A replica-private view of this index: compacts, then shares the
+        (immutable once compacted) arrays and their device tables but owns
+        its pending rows, so replicas can absorb DynamicIndexing inserts
+        independently.
+
+        A shallow copy, not ``dataclasses.replace``: replace would re-run
+        ``__post_init__`` and upload every table to the device once more
+        per replica.  Sharing is safe because compaction and retraining
+        assign new arrays and tensors instead of writing into the old
+        ones."""
+        self.compact()
+        out = copy.copy(self)
+        out._pending = _PendingRows()
+        out.scan_rows = 0
+        return out
 
     def shard(self, n_shards: int, strategy: str = "hash",
               assign: Optional[np.ndarray] = None) -> List["IVFIndex"]:

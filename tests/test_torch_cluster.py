@@ -168,7 +168,7 @@ def test_parity_after_dynamic_insert(n_shards):
         owner = port._blob_owner[bid]
         assert owner == ref._blob_owner[bid]
         piece = port.shards[owner].indexes["face"]
-        assert bid in sum(piece._pend_ids.values(), [])
+        assert bid in piece.to_state()["pend_ids"]
     q = rng.standard_normal((4, DIM)).astype(np.float32)
     nprobe = ref.index_pieces("face")[0].centroids.shape[0]
     assert_knn_same(ref.knn("face", q, 8, nprobe=nprobe),

@@ -181,25 +181,10 @@ def test_counters_advance_by_signatures_and_bytes(case):
     after = _counters()
     delta = {name: after[name] - before.get(name, 0) for name in after}
     path = CASES[case][5]
-    mapped = len(queries) if path in ("grouped", "dense") else 0
     assert delta == {"ivf.batches": 1, "ivf.queries": len(queries),
                      "ivf.signatures": n_sigs or 0,
-                     "ivf.mapped_on_device": mapped,
                      "ivf.h2d_bytes": h2d, "ivf.d2h_bytes": d2h,
                      **{f"ivf.path.{p}": int(p == path) for p in pvi.PATHS}}
-
-
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_mapped_on_device_counts_the_float_scans_queries(case):
-    """``ivf.mapped_on_device`` advances by Q where the answers' ids are
-    mapped on the device (the grouped and dense scans) and stays where the
-    host maps them (one query, the PQ paths)."""
-    index, queries, mode, nprobe = _index(case)
-    before = _counters()["ivf.mapped_on_device"]
-    _search(index, queries, mode, nprobe)
-    mapped = _counters()["ivf.mapped_on_device"] - before
-    on_device = CASES[case][5] in ("grouped", "dense")
-    assert mapped == (len(queries) if on_device else 0)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
