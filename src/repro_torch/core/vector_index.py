@@ -97,6 +97,24 @@ def _map_ids(ids: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.index_select(ids, 0, idx.reshape(-1)).view(idx.shape)
 
 
+def _group_signatures(probe: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(sigs, inverse) of a [Q, nprobe] probe: its distinct rows in
+    ascending lexicographic order and, per query, its row of ``sigs``
+    (int64, ``sigs[inverse] == probe``), as ``np.unique(probe, axis=0,
+    return_inverse=True)`` gives them, by one lexsort on the columns (the
+    first primary): ``np.unique`` with an axis sorts a structured view by
+    a field-by-field compare, several times slower on the host while the
+    card waits."""
+    order = np.lexsort(probe.T[::-1])
+    rows = probe[order]
+    start = np.empty(len(rows), bool)
+    start[:1] = True
+    np.any(rows[1:] != rows[:-1], axis=1, out=start[1:])
+    inverse = np.empty(len(rows), np.int64)
+    inverse[order] = np.cumsum(start) - 1
+    return rows[start], inverse
+
+
 # ---------------------------------------------------------------------------
 # scoring primitives
 # ---------------------------------------------------------------------------
@@ -972,9 +990,7 @@ class IVFIndex:
                 else:
                     if ph:
                         ph.next("ivf.group")
-                    sigs, inverse = np.unique(probe, axis=0,
-                                              return_inverse=True)
-                    inverse = inverse.reshape(-1)
+                    sigs, inverse = _group_signatures(probe)
                     n_sigs = sigs.shape[0]
                     path = ("adc" if kind == "adc" else
                             "dense" if n_sigs > 1 and n_sigs * nprobe >= m

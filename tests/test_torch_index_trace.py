@@ -6,8 +6,9 @@ with and without residual codes): the ``ivf.*`` span tree a ``Trace``
 receives, the same names as profiler ranges inside the caller's range,
 nothing opened or allocated with neither, answers bit for bit the same in
 all three, and the ``vector_index`` counters advancing by the probe
-signatures and by the bytes of every array the search copies.  Last, the
-benchmark's readers of these spans and counters, loaded by path.
+signatures and by the bytes of every array the search copies, the groups
+gathered in ``np.unique``'s signature order.  Last, the benchmark's
+readers of these spans and counters, loaded by path.
 """
 import contextlib
 import importlib.util
@@ -185,6 +186,55 @@ def test_counters_advance_by_signatures_and_bytes(case):
                      "ivf.signatures": n_sigs or 0,
                      "ivf.h2d_bytes": h2d, "ivf.d2h_bytes": d2h,
                      **{f"ivf.path.{p}": int(p == path) for p in pvi.PATHS}}
+
+
+def _gathers(trace):
+    """(rows, queries) of each group's ``ivf.gather`` and ``ivf.scan``, in
+    the order the spans were opened."""
+    spans = [s for s in trace.spans() if s.name in ("ivf.gather", "ivf.scan")]
+    return [(g.attrs["rows"], s.attrs["q"])
+            for g, s in zip(spans[::2], spans[1::2])]
+
+
+@pytest.mark.parametrize("case", ["grouped", "adc", "dense"])
+def test_groups_scanned_in_np_unique_order(case, monkeypatch):
+    """The groups are gathered in the order of ``np.unique(probe, axis=0)``'s
+    signatures, each with its queries: the order the grouping keeps.  The
+    dense case takes the masked scan, one gather of every row; its
+    scattered signatures are then run through the grouped scan."""
+    index, queries, mode, nprobe = _index(case)
+    probe = _probe(index, queries, nprobe)
+    sigs, inverse = np.unique(probe, axis=0, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    want = [(int(np.isin(index.bucket_of, sig).sum()),
+             int((inverse == g).sum())) for g, sig in enumerate(sigs)]
+    assert len(sigs) > 1
+    gathered = []
+    for name in ("_gather_buckets_dev", "_gather_codes_dev"):
+        def spy(buckets, _gather=getattr(index, name)):
+            gathered.append(np.asarray(buckets).tolist())
+            return _gather(buckets)
+        monkeypatch.setattr(index, name, spy)
+    tr = Trace()
+    _search(index, queries, mode, nprobe, tr)
+    (group,) = tr.find("ivf.group")
+    assert group.attrs["signatures"] == len(sigs)
+    if CASES[case][5] != "dense":
+        assert gathered == sigs.tolist()
+        assert _gathers(tr) == want
+        return
+    assert gathered == [list(range(M))]
+    assert _gathers(tr) == [(N, len(queries))]
+    gathered.clear()
+    tr = Trace()
+    out_v = np.full((len(queries), K), -np.inf, np.float32)
+    out_i = np.full((len(queries), K), -1, np.int64)
+    with phases(tr, "ivf.search") as ph:
+        index._scan_groups(torch.from_numpy(queries),
+                           *pvi._group_signatures(probe), K, out_v, out_i,
+                           ph)
+    assert gathered == sigs.tolist()
+    assert _gathers(tr) == want
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -556,3 +556,48 @@ def test_replica_piece_shares_ids_until_it_compacts():
     _, v1, i1 = _same_as_host(piece, q, 60, 2)
     np.testing.assert_array_equal(v1, v0)
     np.testing.assert_array_equal(i1, i0)
+
+
+# ---------------------------------------------------------------------------
+# probe signatures grouped as np.unique groups them
+# ---------------------------------------------------------------------------
+
+
+def _scattered(seed, qn, m, nprobe, dtype=np.int64):
+    """A sorted [qn, nprobe] probe: each row ``nprobe`` distinct buckets of
+    ``m``, drawn from the seed."""
+    rng = np.random.default_rng(seed)
+    pick = np.argsort(rng.random((qn, m)), axis=1)[:, :nprobe]
+    return np.sort(pick, axis=1).astype(dtype)
+
+
+#: case -> the sorted probe of one batch
+SIGNATURE_PROBES = {
+    "q2_same": lambda: np.array([[1, 4, 6], [1, 4, 6]], np.int64),
+    "q2_distinct": lambda: np.array([[1, 4, 6], [1, 3, 6]], np.int64),
+    "join_1024x4_all": lambda: np.tile(np.arange(4, dtype=np.int64),
+                                       (1_024, 1)),
+    "exact_256x10_all": lambda: np.tile(np.arange(10, dtype=np.int64),
+                                        (256, 1)),
+    "probe8_256x8_of_10": lambda: _scattered(32, 256, 10, 8),
+    "nprobe_1": lambda: _scattered(33, 200, 7, 1),
+    "m1000_nprobe32": lambda: _scattered(34, 300, 1_000, 32),
+    "int32": lambda: _scattered(35, 128, 6, 3, np.int32),
+    "q0": lambda: np.zeros((0, 3), np.int64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SIGNATURE_PROBES))
+def test_group_signatures_equal_np_unique(case):
+    """``search_many``'s grouping gives ``np.unique(axis=0)``'s signatures,
+    in its order, and its inverse, element for element: the groups are
+    visited in the same order, so every path writes the same answers."""
+    probe = SIGNATURE_PROBES[case]()
+    sigs, inverse = pvi._group_signatures(probe)
+    want_sigs, want_inv = np.unique(probe, axis=0, return_inverse=True)
+    assert sigs.dtype == want_sigs.dtype == probe.dtype
+    assert sigs.shape == want_sigs.shape
+    np.testing.assert_array_equal(sigs, want_sigs)
+    assert inverse.dtype == np.int64 and inverse.shape == (len(probe),)
+    np.testing.assert_array_equal(inverse, want_inv.reshape(-1))
+    np.testing.assert_array_equal(sigs[inverse], probe)
