@@ -36,6 +36,9 @@ fails:
    deepseek-moe-16b's prefill, 16/16 heads; deepseek-v2's MLA prefill at
    B=8, 128 heads, q and k at 192, v at 128; the phi cell's
    DeepSeek-V2-Lite MLA, B=256, S=64, 16 heads, q and k at 192, v at 128;
+   the Mellum2 cell's, B=1, S=32,768, 32 query heads over 4 of 128, with
+   the sliding layers' window of 1,024 (SDPA given the band as a boolean
+   mask) and in the full layers;
    decode: B=8 over a
    32,768-position cache with positions spread over it, at the LM path's
    positions, head width 160, float32; deepseek-moe-16b's decode, B=4, 16/16
@@ -131,7 +134,14 @@ fails:
    lowercase texts of 16-64 bytes at 64 tokens, then ``search_many`` (k =
    10, nprobe 8) over a 1,000,000-row cosine IVF-Flat index of 10
    buckets: unit, finite vectors, no (token, expert) pair dropped, every
-   answer a row of the index, the batch on the masked dense scan.
+   answer a row of the index, the batch on the masked dense scan.  Then
+   the Mellum2 cell's (``mellum2-govreport.doc-b1-t32k-k10``), a main path
+   of its own: ``LM(mellum2-12b-a2.5b)`` whole (28 layers, 21 of them
+   sliding-window ones, bf16, every layer a dropless MoE) as ``docvec`` phi
+   through the AIPM service, one seeded report of 16-64 KB at 32,768
+   tokens, then ``search_many`` (k = 10, nprobe 8) over 19,466 cosine
+   rows: one flash launch of the window instantiation a sliding layer and
+   one causal a full layer, a unit vector, no pair dropped.
 8. distributed: a world of one NCCL rank (NCCL takes one rank per card):
    ``sharded_topk`` over 200,000 rows (d = 128, Q = 256, k in {10, 100})
    must return ``scan_topk``'s ids over the whole corpus;
@@ -829,7 +839,8 @@ FAULT_KEYS = 32                 # keys a planted fault zeroes (<= a key tile)
 # the attention cases of the MoE and MLA paths, also timed on the device
 # alone (torch.profiler), kernel and SDPA
 DEVICE_MS_CASES = {"moe_prefill", "mla_prefill_b8", "moe_spread",
-                   "moe_lm_path", "phi_dsv2lite"}
+                   "moe_lm_path", "phi_dsv2lite", "mellum2_window",
+                   "mellum2_full"}
 
 
 def attn_err(got, want, dtype_name: str, slack=0.0):
@@ -842,10 +853,12 @@ def attn_err(got, want, dtype_name: str, slack=0.0):
                                    .all())
 
 
-def fault_tile(s: int, last: int) -> slice:
+def fault_tile(s: int, last: int, window: int = 0) -> slice:
     """A planted fault's keys: the 32-key tile that starts at the middle of
-    the first ``last + 1`` positions, rounded down to a tile."""
-    start = (last + 1) // 2 // FAULT_KEYS * FAULT_KEYS
+    the keys the row at position ``last`` sees (the first ``last + 1``, the
+    last ``window`` of them under a window), rounded down to a tile."""
+    first = max(0, last + 1 - window) if window else 0
+    start = (first + last + 1) // 2 // FAULT_KEYS * FAULT_KEYS
     return slice(start, min(start + FAULT_KEYS, s))
 
 
@@ -858,20 +871,29 @@ def sdpa(torch, q, k, v, **kw):
         qt, kt, vt, enable_gqa=True, **kw).transpose(1, 2)
 
 
-#: flash_attention's cases: (label, B, Sq, Skv, H, KVH, D, Dv, dtype name)
-FLASH_CASES = [("prefill", 8, 4096, 4096, 32, 8, 128, 128, "bfloat16"),
-               ("phi", 8, 64, 64, 32, 8, 128, 128, "bfloat16"),
-               ("ragged", 2, 1000, 1000, 32, 8, 128, 128, "bfloat16"),
-               ("head_dim_160", 2, 2048, 2048, 32, 8, 160, 160, "bfloat16"),
-               ("parity_f32", 2, 37, 37, 4, 2, 32, 32, "float32"),
-               ("sq_below_skv", 8, 512, 4096, 32, 8, 128, 128, "bfloat16"),
+#: flash_attention's cases: (label, B, Sq, Skv, H, KVH, D, Dv, dtype name,
+#: the causal window, 0 for none)
+FLASH_CASES = [("prefill", 8, 4096, 4096, 32, 8, 128, 128, "bfloat16", 0),
+               ("phi", 8, 64, 64, 32, 8, 128, 128, "bfloat16", 0),
+               ("ragged", 2, 1000, 1000, 32, 8, 128, 128, "bfloat16", 0),
+               ("head_dim_160", 2, 2048, 2048, 32, 8, 160, 160, "bfloat16",
+                0),
+               ("parity_f32", 2, 37, 37, 4, 2, 32, 32, "float32", 0),
+               ("sq_below_skv", 8, 512, 4096, 32, 8, 128, 128, "bfloat16",
+                0),
                ("mla_prefill", 1, 4096, 4096, 128, 128, 192, 128,
-                "bfloat16"),
-               ("padded_d80", 2, 1024, 1024, 32, 8, 80, 80, "bfloat16"),
-               ("moe_prefill", 8, 4096, 4096, 16, 16, 128, 128, "bfloat16"),
+                "bfloat16", 0),
+               ("padded_d80", 2, 1024, 1024, 32, 8, 80, 80, "bfloat16", 0),
+               ("moe_prefill", 8, 4096, 4096, 16, 16, 128, 128, "bfloat16",
+                0),
                ("mla_prefill_b8", 8, 4096, 4096, 128, 128, 192, 128,
-                "bfloat16"),
-               ("phi_dsv2lite", 256, 64, 64, 16, 16, 192, 128, "bfloat16")]
+                "bfloat16", 0),
+               ("phi_dsv2lite", 256, 64, 64, 16, 16, 192, 128, "bfloat16",
+                0),
+               ("mellum2_window", 1, 32768, 32768, 32, 4, 128, 128,
+                "bfloat16", 1024),
+               ("mellum2_full", 1, 32768, 32768, 32, 4, 128, 128, "bfloat16",
+                0)]
 
 
 def kernel_flash_attention(torch, dev):
@@ -882,9 +904,12 @@ def kernel_flash_attention(torch, dev):
     queries against 4,096 keys, MLA's prefill at deepseek-v2's full head
     count (q and k at 192, v at 128, 128 heads), and a width the wrapper
     pads (80); the phi cell's (DeepSeek-V2-Lite's MLA over 256 texts of 64
-    tokens: 16 heads, q and k at 192, v at 128, one key tile); the bf16 cases with the float32-faithful weights (the LM's
-    path) and with ``bf16_probs``, held against the plain version rounding
-    on the kernel's key tiles."""
+    tokens: 16 heads, q and k at 192, v at 128, one key tile); the Mellum2
+    cell's, one report of 32,768 positions, 32 query heads over 4 key heads
+    of 128, in a sliding layer (window 1,024: the kernel's ``WINDOW``
+    instantiation) and in a full one; the bf16 cases with the
+    float32-faithful weights (the LM's path) and with ``bf16_probs``, held
+    against the plain version rounding on the kernel's key tiles."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          key_tile)
@@ -893,7 +918,7 @@ def kernel_flash_attention(torch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     worst, main, table = 0.0, None, {}
-    for label, b, sq, skv, h, kvh, d, dv, dt in FLASH_CASES:
+    for label, b, sq, skv, h, kvh, d, dv, dt, win in FLASH_CASES:
         dt = getattr(torch, dt)
         # the plain version's key block for its timing: 256 at MLA's B = 8,
         # whose [B, H, Sq, 1,024] float32 blocks would take ~17 GB apiece
@@ -906,37 +931,40 @@ def kernel_flash_attention(torch, dev):
         # the bound of the function (flash_attention's work()); the
         # kernel's float32-faithful P.V is two bf16 products (hi + lo), so
         # its own floor counts 4Dv for P.V
-        wk = flash_ops.work(q, k, v, causal=True)
+        wk = flash_ops.work(q, k, v, causal=True, window=win)
         b_ms, b_by = bound(wk, dt)
-        pairs = flash_ops.attention_pairs(b, h, sq, skv, True)
+        pairs = flash_ops.attention_pairs(b, h, sq, skv, True, win)
         split_ms = bound((pairs * (2 * d + 4 * dv), wk[1]), torch.bfloat16)[0]
         # SDPA's is_causal aligns the rows top-left; the bottom-right mask
-        # of unequal lengths goes in as a boolean mask
-        mask = dict(is_causal=True) if sq == skv else dict(attn_mask=(
-            torch.arange(sq, device=dev)[:, None] + (skv - sq)
-            >= torch.arange(skv, device=dev)[None, :]))
+        # of unequal lengths, and a window's band, go in as a boolean mask
+        pos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+        keys = torch.arange(skv, device=dev)[None, :]
+        mask = dict(is_causal=True) if sq == skv and not win else dict(
+            attn_mask=(pos >= keys) & (keys > pos - win if win else True))
+        del pos, keys
         lib_ms = time_ms(torch, lambda: sdpa(torch, q, k, v, **mask))
         lib_dev = device_ms(torch, lambda: sdpa(torch, q, k, v, **mask)) \
             if label in DEVICE_MS_CASES else None
         modes = (False, True) if dt == torch.bfloat16 else (False,)
         row = {}
         for probs in modes:
-            got = flash_attention(q, k, v, bf16_probs=probs)
+            got = flash_attention(q, k, v, bf16_probs=probs, window=win)
             want = flash_attention_ref(q, k, v, bf16_probs=probs,
-                                       block_kv=kt)
+                                       block_kv=kt, window=win)
             # with bf16_probs each side rounds every weight to bf16 from its
             # own float32 value: the weights on a bf16 midpoint may land one
             # ulp apart, and only they get room beyond one output ulp
-            slack = bf16_probs_slack(q, k, v, block_kv=kt) if probs else 0.0
+            slack = bf16_probs_slack(q, k, v, block_kv=kt, window=win) \
+                if probs else 0.0
             torch.cuda.synchronize()
             err, ok = attn_err(got, want, name, slack)
             worst = max(worst, err)
-            ms = time_ms(torch, lambda: flash_attention(q, k, v,
-                                                        bf16_probs=probs))
+            ms = time_ms(torch, lambda: flash_attention(
+                q, k, v, bf16_probs=probs, window=win))
             plain_ms = time_ms(torch, lambda: flash_attention_ref(
-                q, k, v, bf16_probs=probs, block_kv=plain_block))
+                q, k, v, bf16_probs=probs, block_kv=plain_block, window=win))
             dev_ms = device_ms(torch, lambda: flash_attention(
-                q, k, v, bf16_probs=probs)) \
+                q, k, v, bf16_probs=probs, window=win)) \
                 if label in DEVICE_MS_CASES else None
             tag = "bf16_probs" if probs else "f32_probs"
             extra = f" split_floor_ms={split_ms:.4f}" \
@@ -955,14 +983,15 @@ def kernel_flash_attention(torch, dev):
                 extra += (f" device_ms={dev_ms:.4f} library_device_ms="
                           f"{lib_dev:.4f}")
             log(f"[kernels] flash_attention {label} B={b} Sq={sq} Skv={skv} "
-                f"H={h} KVH={kvh} D={d} Dv={dv} {name} {tag}: max_abs_err={err} "
+                f"H={h} KVH={kvh} D={d} Dv={dv} window={win} {name} {tag}: "
+                f"max_abs_err={err} "
                 f"within_tol={ok} ms={ms:.3f} plain_ms={plain_ms:.3f} "
                 f"library_ms={lib_ms:.3f} bound_ms={b_ms:.4f} ({b_by})"
                 f"{extra}")
             check(ok, f"flash_attention {label} {tag} off its plain version "
                   f"by {err}")
-            row[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            row[tag] = dict(window=win, ms=ms, plain_ms=plain_ms,
+                            max_abs_err=err, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                             device_ms=dev_ms, library_device_ms=lib_dev)
             del got
             fault = {}
@@ -970,12 +999,12 @@ def kernel_flash_attention(torch, dev):
                 # the tolerance must fail a kernel that loses one key tile's
                 # values on the longest rows (the last query tile, batch
                 # row 0), in each mode with that mode's limit
-                tile = fault_tile(skv, skv - 1)
+                tile = fault_tile(skv, skv - 1, win)
                 rows = slice(max(0, sq - 64), sq)
                 vf = v[:1].clone()
                 vf[:, tile] = 0
                 bad = flash_attention_ref(q[:1], k[:1], vf, bf16_probs=probs,
-                                          block_kv=kt)[:, rows]
+                                          block_kv=kt, window=win)[:, rows]
                 f_err, f_ok = attn_err(bad, want[:1, rows], name,
                                        slack[:1, rows] if probs else 0.0)
                 fault = dict(fault_err=f_err, fault_caught=not f_ok,
@@ -1992,6 +2021,90 @@ def phase_phi_cell(torch):
     torch.cuda.empty_cache()
     return {"ms": ms, "model_build_s": model_s, "index_build_s": build_s,
             "pairs_dropped": dropped, "dense_scans": dense}
+
+
+MELLUM2_ARCH = "mellum2-12b-a2.5b"
+#: GovReport's reports and one report's positions (the Mellum2 cell's)
+MELLUM2_ROWS, MELLUM2_TOKENS = 19_466, 32_768
+
+
+def phase_mellum2_cell(torch):
+    """The Mellum2 cell's path once, the model whole with the port's own
+    init: one report of 16-64 KB (byte tokens, cut or padded to 32,768) as
+    ``docvec`` through the AIPM service, then its top 10 among 19,466
+    cosine rows; the flash launches of that one forward by instantiation
+    (the window's, one a sliding layer, and the causal one's, one a full
+    layer), the pairs dropped, the batch's ms, the model's build."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import (AIPMConfig, PandaDBConfig,
+                                     VectorIndexConfig, get_arch)
+    from repro_torch.core import PandaDB
+    from repro_torch.core.aipm import model_embedding_extractor
+    from repro_torch.core.vector_index import IVFIndex
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import LM
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(33)
+    rows = rng.standard_normal((MELLUM2_ROWS, FACE_DIM), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    index = IVFIndex.build(rows, cfg=VectorIndexConfig(
+        dim=FACE_DIM, metric="cosine", vectors_per_bucket=5_000,
+        min_buckets=4, nprobe=8, kmeans_iters=8, pq_m=0), seed=33,
+        device=dev)
+    t0 = time.perf_counter()
+    cfg = get_arch(MELLUM2_ARCH).model
+    lm = LM(cfg, device=dev)
+    torch.cuda.synchronize()
+    model_s = time.perf_counter() - t0
+    db = PandaDB(PandaDBConfig(aipm=AIPMConfig(max_batch=1,
+                                               auto_batch=False)), device=dev)
+    fn = model_embedding_extractor(lm, dim=FACE_DIM,
+                                   max_tokens=MELLUM2_TOKENS)
+    db.register_extractor("docvec", fn, batch_size=1)
+    reports = [rng.integers(97, 123, int(n), dtype=np.uint8)
+               for n in rng.integers(16_384, 65_537, 2)]
+    fn(reports[:1])    # the first forward, outside the request's timeout
+    dropped0 = moe.METRICS.counter("moe.dropped_pairs").value
+    n0 = (flash_ops.launches.n, flash_ops.window_launches.n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = db.aipm.extract_sync("docvec", [(0, reports[1])])
+    q = got[0][None].astype(np.float32)
+    vals, ids = index.search_many(q, 10, 8)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    window = flash_ops.window_launches.n - n0[1]
+    full = flash_ops.launches.n - n0[0] - window
+    dropped = moe.METRICS.counter("moe.dropped_pairs").value - dropped0
+    ids, vals = np.asarray(ids), np.asarray(vals)
+    unit = float(np.abs(np.linalg.norm(q, axis=1) - 1).max())
+    sliding = cfg.layer_types.count("sliding_attention")
+    log(f"[mellum2-cell] {MELLUM2_ARCH} ({cfg.n_layers} layers, {sliding} "
+        f"sliding, window {cfg.sliding_window}; built in {model_s:.1f}s) as "
+        f"docvec over one report of {MELLUM2_TOKENS} positions, then "
+        f"search_many k=10 nprobe=8 over {MELLUM2_ROWS} cosine rows: "
+        f"{ms:.1f} ms; flash launches window {window} causal {full}; max "
+        f"| |phi| - 1 | {unit:.3g}, pairs dropped {dropped}, best score "
+        f"{float(vals[0, 0]):.4f}")
+    db.aipm.shutdown()
+    check(window == sliding and full == cfg.n_layers - sliding,
+          f"mellum2 cell: flash launches window {window} causal {full}")
+    check(bool(np.isfinite(q).all()) and unit < 1e-5,
+          f"mellum2 cell: vector not unit ({unit})")
+    check(dropped == 0, f"mellum2 cell: {dropped} (token, expert) pairs "
+          "dropped")
+    check(bool(((ids >= 0) & (ids < MELLUM2_ROWS)).all()),
+          "mellum2 cell: an answer outside the index")
+    del db, fn, lm, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "model_build_s": model_s, "window_launches": window,
+            "causal_launches": full, "pairs_dropped": dropped}
+
 
 
 def phase_phi(torch, model):
@@ -4308,6 +4421,7 @@ def main() -> int:
                 "pq_scan_ext": pq_ops.ext_launches,
                 "topk_merge": merge_ops.launches,
                 "flash_attention": flash_ops.launches,
+                "flash_attention_window": flash_ops.window_launches,
                 "decode_attention": decode_ops.launches,
                 "flash_attention_bwd": flash_ops.bwd_launches,
                 "gather_scatter": gs_ops.launches}
@@ -4390,6 +4504,9 @@ def main() -> int:
     paths["phi_cell"] = main_path(
         "phi-cell", ("flash_attention", "ivf_scan"),
         ("phi-cell", phase_phi_cell, torch))
+    paths["mellum2_cell"] = main_path(
+        "mellum2-cell", ("flash_attention", "flash_attention_window"),
+        ("mellum2-cell", phase_mellum2_cell, torch))
     paths["distributed"] = main_path(
         "distributed", ("topk_merge",),
         ("distributed", phase_distributed, torch))

@@ -62,6 +62,7 @@ ASSIGNED = [n for n in _ARCH_MODULES if not n.endswith("-bonus")]
 #: resolves them, ``arch_names`` and ``all_cells`` leave them out
 _PORT_MODULES = {
     "deepseek-v2-lite": "repro_torch.configs.deepseek_v2_lite",
+    "mellum2-12b-a2.5b": "repro_torch.configs.mellum2_12b_a2_5b",
 }
 
 

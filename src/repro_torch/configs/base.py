@@ -90,7 +90,11 @@ class YarnRope:
     by ``m(mscale) / m(mscale_all_dim)`` and the softmax scale by
     ``m(mscale_all_dim)^2``, m(a) = 0.1 a ln(factor) + 1.  The rotary
     dims are paired as that code pairs them: (0, 1), (2, 3), ...
-    (interleaved), where the port's plain RoPE pairs i with i + D/2."""
+    (interleaved), where the port's plain RoPE pairs i with i + D/2.
+
+    On GQA it is ``transformers``' ``rope_type: "yarn"``: the same
+    frequencies, the port's plain pairing (i with i + D/2), cos and sin
+    scaled by ``attention_factor`` and the softmax scale left as it is."""
 
     factor: float
     original_max_position: int
@@ -98,6 +102,7 @@ class YarnRope:
     beta_slow: float = 1.0
     mscale: float = 1.0
     mscale_all_dim: float = 0.0
+    attention_factor: Optional[float] = None   # GQA: cos / sin scale
 
 
 @dataclass(frozen=True)
@@ -139,9 +144,15 @@ class TransformerConfig:
     bf16_probs: bool = False          # §Perf: bf16 softmax weights in attention
     # --- the port's own (the reference's configs have none of them; each
     # off by default, so every registered arch runs as before) ---
-    yarn: Optional[YarnRope] = None   # YaRN RoPE scaling (MLA's rope dims)
+    yarn: Optional[YarnRope] = None   # YaRN RoPE scaling (full layers)
     norm_topk_prob: bool = True       # renormalise the top-k gate weights
     dropless: bool = False            # MoE: every (token, choice) pair runs
+    # per-layer attention kinds, as ``transformers`` names them
+    # ("sliding_attention" / "full_attention"; empty: every layer full);
+    # a sliding layer sees its last ``sliding_window`` keys (itself
+    # included) and rotates with plain RoPE at ``rope_theta``
+    layer_types: Tuple[str, ...] = ()
+    sliding_window: int = 0
 
     @property
     def is_moe(self) -> bool:
@@ -150,6 +161,13 @@ class TransformerConfig:
     @property
     def is_mla(self) -> bool:
         return self.kv_lora_rank > 0
+
+    def window(self, layer: int) -> int:
+        """Keys layer ``layer`` sees behind a query, itself included (0:
+        every key up to it)."""
+        if self.layer_types and self.layer_types[layer] == "sliding_attention":
+            return self.sliding_window
+        return 0
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + layers + head)."""

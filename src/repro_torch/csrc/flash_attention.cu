@@ -26,6 +26,16 @@
 // statistics are written there for the backward (flash_attention_bwd.cu):
 // m its largest scaled score (-1e30 for a row that sees no key), l the sum
 // of exp(score - m) over the row; with null pointers nothing is written.
+// A causal window w > 0 (a sliding-window layer) limits the row at position
+// p to the keys p - w < j <= p, as transformers' sliding_window mask does;
+// keys below the band score -1e30 like those past the diagonal.  It is a
+// template instantiation of each kernel (WINDOW), so the causal kernels
+// keep their code, instruction for instruction: a block's key loop starts
+// at the first tile that meets the band of its first row,
+// max(0, q0 + off - w + 1) / tile, and only the tiles on the band's lower
+// edge are masked besides the diagonal's.  A row whose first tiles hold no
+// key it sees gives them weight 1 until its first real key, whose rescale
+// exp2(-1e30 - m) = 0 then clears them.
 //
 // Bound: at the prefill's shapes (S = 4,096, D = 128) attention does
 // 2 B H S^2 D causal operations on 2 B S (H + 2 KVH) D bytes, so it is bound
@@ -180,7 +190,7 @@ __device__ __forceinline__ void pv_mma(float* o, const uint32_t* p,
 // a box of (W, rows, D / W, 1, 1) is stored chunk after chunk, swizzled by
 // the TMA unit.  Positions past Sq or Skv are filled with zeros by the TMA
 // unit.
-template <int D, int DV, bool HI_ONLY>
+template <int D, int DV, bool HI_ONLY, bool WINDOW>
 __global__ void __launch_bounds__(WTHREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
@@ -188,6 +198,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                 bf16* __restrict__ o, float* __restrict__ m_out,
                 float* __restrict__ l_out, int sq, int skv, int n_heads,
                 int n_kv_heads, float scale_log2, int causal) {
+  // under WINDOW the causal argument carries the band's width w >= 1 (so
+  // it is causal too), and the causal kernels keep their parameters
+  const int window = WINDOW ? causal : 0;
   using T = Tile<D, DV>;
   constexpr int WK = T::WK;
   constexpr int ST = T::STAGES;
@@ -209,7 +222,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   // causal: keys up to the tile's last row; a tile with a row at a negative
   // position (Sq > Skv) weighs every key, so it loads them all
   const int k_end = causal && q0 + off >= 0 ? min(skv, q0 + WQ + off) : skv;
-  const int n_tiles = (k_end + WK - 1) / WK;
+  // under a window, the key tiles wholly below the band of the block's
+  // first row are never loaded: tile t of the loop is key tile t0 + t
+  int t0 = 0;
+  if constexpr (WINDOW)
+    if (causal && q0 + off >= 0) t0 = max(0, q0 + off - window + 1) / WK;
+  const int n_tiles = (k_end + WK - 1) / WK - t0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -233,10 +251,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
         const int s = t % ST;
         if (t >= ST) pandadb::mbar_wait(&empty[s], (t / ST - 1) & 1);
         pandadb::mbar_expect_tx(&full[s], T::STAGE_BYTES);
-        pandadb::tma_load_5d(ks + s * WK * D, &k_map, &full[s], 0, t * WK, 0,
-                             kh, b);
-        pandadb::tma_load_5d(vs + s * WK * DV, &v_map, &full[s], 0, t * WK,
-                             0, kh, b);
+        pandadb::tma_load_5d(ks + s * WK * D, &k_map, &full[s], 0,
+                             (t0 + t) * WK, 0, kh, b);
+        pandadb::tma_load_5d(vs + s * WK * DV, &v_map, &full[s], 0,
+                             (t0 + t) * WK, 0, kh, b);
       }
     }
     return;
@@ -275,13 +293,17 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
 
   // scores of tile t -> weights in sc, running max and sums updated;
   // (a0, a1) rescale O
+  // t: the key tile (t0 + the loop's tile under a window)
   auto softmax = [&](int t, float& a0, float& a1) {
     const int k0 = t * WK;
-    // a tile that crosses the diagonal or the end of Skv is scaled and
-    // masked first; any other is scaled inside the exponent's FMA, its max
-    // taken unscaled (scaling by a positive factor keeps the order)
+    // a tile that crosses the diagonal, the band's lower edge (under a
+    // window) or the end of Skv is scaled and masked first; any other is
+    // scaled inside the exponent's FMA, its max taken unscaled (scaling by
+    // a positive factor keeps the order)
     float mul = scale_log2;
-    if ((causal && k0 + WK - 1 > w0 + off) || k0 + WK > skv ||
+    bool edge = false;
+    if constexpr (WINDOW) edge = causal && k0 <= w0 + 63 + off - window;
+    if (edge || (causal && k0 + WK - 1 > w0 + off) || k0 + WK > skv ||
         !(mul > 0.f)) {
 #pragma unroll
       for (int j = 0; j < WK / 8; ++j) {
@@ -293,6 +315,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                           : causal && key > row + off
                               ? ATTN_NEG
                               : sc[4 * j + e] * scale_log2;
+          // a key below the band lies before the diagonal, so before Skv
+          if constexpr (WINDOW)
+            if (causal && key <= row + off - window) sc[4 * j + e] = ATTN_NEG;
         }
       }
       mul = 1.f;
@@ -371,7 +396,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   pandadb::fence_regs<NS>(sc);
   {
     float a0, a1;
-    softmax(0, a0, a1);
+    softmax(t0, a0, a1);
   }
   pack();
 
@@ -394,7 +419,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     pandadb::wgmma_wait<1>();                  // S is done, P V may run on
     pandadb::fence_regs<NS>(sc);
     float a0, a1;
-    softmax(t, a0, a1);
+    softmax(t0 + t, a0, a1);
     pandadb::wgmma_wait<0>();                  // P_{t-1} V_{t-1} is in O
     pandadb::fence_regs<NO>(oacc);
     pandadb::mbar_arrive(&empty[sp]);          // tile t - 1 is done
@@ -455,13 +480,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
 template <int D, int DV>
 constexpr int F32_KEYS = 32 * (D + DV) * 4 <= 40960 ? 32 : 16;
 
-template <int D, int DV>
+template <int D, int DV, bool WINDOW>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
           float* __restrict__ m_out, float* __restrict__ l_out, int sq,
           int skv, int n_heads, int n_kv_heads, float scale, int causal,
-          int bf16_probs) {
+          int bf16_probs, int window) {
   constexpr int C = D / (4 * LANES);   // float4 chunks of q per thread
   constexpr int CV = DV / (4 * LANES); // and of the accumulator
   constexpr int BK = F32_KEYS<D, DV>;
@@ -500,11 +525,16 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   // negative position (Sq > Skv) weighs every key, so it reads them all
   const int q0 = qt * BQ;
   const int k_end = causal && q0 + off >= 0 ? min(skv, q0 + BQ + off) : skv;
+  // under a window, from the first tile that meets the block's first band
+  int k_begin = 0;
+  if constexpr (WINDOW)
+    if (causal && q0 + off >= 0)
+      k_begin = max(0, q0 + off - window + 1) / BK * BK;
   const size_t kv_base = (size_t)b * skv * n_kv_heads + kh;
   float* ksf = reinterpret_cast<float*>(ks);
   float* vsf = reinterpret_cast<float*>(vs);
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                       // the last tile has been read
     for (int e = threadIdx.x; e < BK * D; e += THREADS) {
       const int j = e / D;
@@ -532,8 +562,10 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       const int kp = k0 + j;
       // keys past Skv weigh nothing, even in a row that sees no key
       sc[j] = kp >= skv ? -INFINITY
-              : causal && kp > qp + off ? ATTN_NEG
-                                        : part;
+              : causal && (kp > qp + off ||
+                           (WINDOW && kp <= qp + off - window))
+                  ? ATTN_NEG
+                  : part;
       m_cur = fmaxf(m_cur, sc[j]);
     }
     const float m_new = fmaxf(m, m_cur);
@@ -594,13 +626,19 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        float* o, float* m, float* l, int n_b, int sq, int skv,
                        int n_heads, int n_kv_heads, int d, int dv, float scale,
-                       int causal, int bf16_probs, cudaStream_t st) {
+                       int causal, int bf16_probs, int window,
+                       cudaStream_t st) {
   const dim3 grid((sq + BQ - 1) / BQ, n_heads, n_b);
 #define PANDADB_FLASH(DIM, DIMV)                                              \
   case DIM * 1000 + DIMV:                                                     \
-    flash_fwd<DIM, DIMV><<<grid, THREADS, 0, st>>>(                           \
-        q, k, v, o, m, l, sq, skv, n_heads, n_kv_heads, scale, causal,        \
-        bf16_probs);                                                          \
+    if (window)                                                               \
+      flash_fwd<DIM, DIMV, true><<<grid, THREADS, 0, st>>>(                   \
+          q, k, v, o, m, l, sq, skv, n_heads, n_kv_heads, scale, causal,      \
+          bf16_probs, window);                                                \
+    else                                                                      \
+      flash_fwd<DIM, DIMV, false><<<grid, THREADS, 0, st>>>(                  \
+          q, k, v, o, m, l, sq, skv, n_heads, n_kv_heads, scale, causal,      \
+          bf16_probs, 0);                                                     \
     break;
   switch (d * 1000 + dv) {
     PANDADB_FLASH_PAIRS(PANDADB_FLASH)
@@ -611,10 +649,11 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-template <int D, int DV, bool HI_ONLY>
+template <int D, int DV, bool HI_ONLY, bool WINDOW>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                  float* m, float* l, int n_b, int sq, int skv, int n_heads,
-                 int n_kv_heads, float scale, int causal, cudaStream_t st) {
+                 int n_kv_heads, float scale, int causal, int window,
+                 cudaStream_t st) {
   using T = Tile<D, DV>;
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, q, n_b, sq, n_heads, D, T::W, WQ);
@@ -625,15 +664,15 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   static bool ready = false;     // shared memory past 48 KB, asked for once
   if (!ready) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_wgmma<D, DV, HI_ONLY>,
+        flash_fwd_wgmma<D, DV, HI_ONLY, WINDOW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     ready = true;
   }
   const dim3 grid((sq + WQ - 1) / WQ, n_heads, n_b);
-  flash_fwd_wgmma<D, DV, HI_ONLY><<<grid, WTHREADS, T::SMEM, st>>>(
+  flash_fwd_wgmma<D, DV, HI_ONLY, WINDOW><<<grid, WTHREADS, T::SMEM, st>>>(
       qm, km, vm, o, m, l, sq, skv, n_heads, n_kv_heads,
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, WINDOW ? window : causal);
   return (int)cudaGetLastError();
 }
 
@@ -641,22 +680,24 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* m,
                 float* l, int n_b, int sq, int skv, int n_heads, int n_kv_heads,
                 int d, int dv, float scale, int causal, int bf16_probs,
-                cudaStream_t st) {
+                int window, cudaStream_t st) {
+#define PANDADB_FLASH_LAUNCH(DIM, DIMV, HI, WIN)                              \
+  launch_wgmma<DIM, DIMV, HI, WIN>(q, k, v, o, m, l, n_b, sq, skv, n_heads,   \
+                                   n_kv_heads, scale, causal, window, st)
 #define PANDADB_FLASH(DIM, DIMV)                                              \
   case DIM * 1000 + DIMV:                                                     \
-    return bf16_probs                                                         \
-               ? launch_wgmma<DIM, DIMV, true>(q, k, v, o, m, l, n_b, sq, skv,\
-                                               n_heads, n_kv_heads, scale,    \
-                                               causal, st)                    \
-               : launch_wgmma<DIM, DIMV, false>(q, k, v, o, m, l, n_b, sq,    \
-                                                skv, n_heads, n_kv_heads,     \
-                                                scale, causal, st);
+    if (window)                                                               \
+      return bf16_probs ? PANDADB_FLASH_LAUNCH(DIM, DIMV, true, true)         \
+                        : PANDADB_FLASH_LAUNCH(DIM, DIMV, false, true);       \
+    return bf16_probs ? PANDADB_FLASH_LAUNCH(DIM, DIMV, true, false)          \
+                      : PANDADB_FLASH_LAUNCH(DIM, DIMV, false, false);
   switch (d * 1000 + dv) {
     PANDADB_FLASH_PAIRS(PANDADB_FLASH)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef PANDADB_FLASH
+#undef PANDADB_FLASH_LAUNCH
 }
 
 }  // namespace
@@ -665,15 +706,17 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* m,
 // n_kv_heads, dv], o [n_b, sq, n_heads, dv], all contiguous, of type dtype
 // (0 float32, 1 bfloat16; bfloat16 pointers 16-byte aligned); (d, dv) one of
 // PANDADB_FLASH_PAIRS; skv >= 1.  m and l, float32 [n_b, n_heads, sq] or
-// both null, receive the row statistics.  Returns cudaError_t.
+// both null, receive the row statistics.  window: the causal band's width
+// in keys, 0 for none.  Returns cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, float* m, float* l, int n_b, int sq,
                                int skv, int n_heads, int n_kv_heads, int d,
                                int dv, int dtype, float scale, int causal,
-                               int bf16_probs, void* stream) {
+                               int bf16_probs, int window, void* stream) {
   if (n_b <= 0 || sq <= 0) return 0;
   if (skv <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
-      n_heads > MAX_GRID || n_b > MAX_GRID)
+      n_heads > MAX_GRID || n_b > MAX_GRID || window < 0 ||
+      (window && !causal))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == pandadb::DTYPE_F32)
@@ -681,13 +724,14 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                            static_cast<const float*>(k),
                            static_cast<const float*>(v),
                            static_cast<float*>(o), m, l, n_b, sq, skv, n_heads,
-                           n_kv_heads, d, dv, scale, causal, bf16_probs, st);
+                           n_kv_heads, d, dv, scale, causal, bf16_probs, window,
+                           st);
   if (dtype == pandadb::DTYPE_BF16)
     return launch_bf16(static_cast<const bf16*>(q),
                        static_cast<const bf16*>(k),
                        static_cast<const bf16*>(v), static_cast<bf16*>(o), m, l,
                        n_b, sq, skv, n_heads, n_kv_heads, d, dv, scale, causal,
-                       bf16_probs, st);
+                       bf16_probs, window, st);
   return (int)cudaErrorInvalidValue;
 }
 

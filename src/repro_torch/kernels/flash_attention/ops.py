@@ -7,7 +7,11 @@ block does not divide to ``chunked_attention``; here the kernel masks its
 ragged last tile.  k and v may hold fewer heads than q (grouped-query
 attention); the kernel reads key head h // (H / KVH) in place.  q may be
 shorter or longer than k and v (query row i at position i + Skv - Sq, as
-the reference right-aligns it), and v may have its own width Dv.
+the reference right-aligns it), and v may have its own width Dv.  A
+causal ``window`` w > 0 limits the row at position p to the keys
+p - w < j <= p (``ref.py``); the bf16 kernel then starts each block's key
+loop at the first tile that meets its band, and masks only the tiles on
+its edges.  The backward takes no window.
 
 The kernel is compiled for the (D, Dv) pairs of ``HEAD_DIMS``; any other
 pair up to ``MAX_HEAD_DIM`` is zero-padded to the smallest compiled pair
@@ -53,12 +57,14 @@ MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter("flash_attention")
+#: of ``launches``, those of the window instantiation
+window_launches = LaunchCounter("flash_attention_window")
 bwd_launches = LaunchCounter("flash_attention_bwd")
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _F, _I, _I, _P],
+                                   _I, _I, _I, _I, _F, _I, _I, _I, _P],
                "flash_attention_key_tile": [_I, _I, _I]}
 _BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 13 + [_I] * 8
                    + [_F, _I, _P],
@@ -103,26 +109,30 @@ def bwd_layout(d: int, dv: int) -> dict:
     return dict(zip(_BWD_LAYOUT, out), d=dp, dv=dvp)
 
 
-def attention_pairs(b: int, h: int, sq: int, skv: int, causal: bool
-                    ) -> float:
+def attention_pairs(b: int, h: int, sq: int, skv: int, causal: bool,
+                    window: int = 0) -> float:
     """The (query, key) pairs attention weighs: every pair unmasked; under
     ``causal`` query row i sits at position i + Skv - Sq and sees the keys
-    up to it (a row at a negative position sees none)."""
+    up to it (a row at a negative position sees none), under a ``window``
+    w the last min(p + 1, w) of them."""
     if not causal:
         return float(b * h) * sq * skv
-    if sq <= skv:
-        return float(b * h) * (sq * (skv - sq) + sq * (sq + 1) / 2)
-    return float(b * h) * skv * (skv + 1) / 2
+
+    def upto(n: int) -> int:          # the rows at positions 0 .. n - 1
+        if not window or n <= window:
+            return n * (n + 1) // 2
+        return window * (window + 1) // 2 + (n - window) * window
+    return float(b * h) * (upto(skv) - upto(max(skv - sq, 0)))
 
 
 def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         causal: bool = True) -> Tuple[float, float]:
+         causal: bool = True, window: int = 0) -> Tuple[float, float]:
     """(FLOPs, bytes) of one ``flash_attention``: 2D operations for each
     weighed pair's score and 2Dv for its share of P.V; q, k, v read once,
     the output written once."""
     b, sq, h, d = q.shape
     skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
-    flops = attention_pairs(b, h, sq, skv, causal) * 2 * (d + dv)
+    flops = attention_pairs(b, h, sq, skv, causal, window) * 2 * (d + dv)
     n_bytes = (b * sq * h * (d + dv) + b * skv * kvh * (d + dv)) \
         * q.element_size()
     return flops, float(n_bytes)
@@ -145,23 +155,25 @@ def bwd_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     bf16_probs: bool = False, block_kv: int = 1024,
-                    return_stats: bool = False):
+                    return_stats: bool = False, window: int = 0):
     """q [B, Sq, H, D]; k [B, Skv, KVH, D], v [B, Skv, KVH, Dv], KVH
     dividing H -> [B, Sq, H, Dv] in q's dtype; with ``return_stats`` also
     the row statistics (m, l), each [B, H, Sq] float32, as
     ``flash_attention_ref`` defines them.  ``block_kv`` is the plain
-    version's key block; the kernel's tile is fixed."""
+    version's key block; the kernel's tile is fixed.  ``window``: the
+    causal band's width in keys (0: none)."""
     _check_shapes(q, k, v)
+    _check_window(window, causal)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if sharded.is_dtensor(q, k, v):
         return _on_shards(q, k, v, causal, scale, bf16_probs, block_kv,
-                          return_stats)
+                          return_stats, window)
     if _on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    bf16_probs=bf16_probs, block_kv=block_kv,
-                                   return_stats=return_stats)
+                                   return_stats=return_stats, window=window)
     if counting_work():
-        record_work("flash_attention", work(q, k, v, causal))
+        record_work("flash_attention", work(q, k, v, causal, window))
     if q.device.type == "meta":
         b, sq, h, _ = q.shape
         out = q.new_empty(b, sq, h, v.shape[3])
@@ -169,7 +181,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return out
         m = torch.empty((b, h, sq), dtype=torch.float32, device="meta")
         return out, m, torch.empty_like(m)
-    return _launch(q, k, v, causal, scale, bf16_probs, return_stats)
+    return _launch(q, k, v, causal, scale, bf16_probs, return_stats, window)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -219,14 +231,15 @@ def _local_kv(q, k, v):
     return kl, vl, heads
 
 
-def _on_shards(q, k, v, causal, scale, bf16_probs, block_kv, return_stats):
+def _on_shards(q, k, v, causal, scale, bf16_probs, block_kv, return_stats,
+               window):
     """``flash_attention`` on DTensors: each rank's query rows and heads
-    against their keys."""
+    against their keys (positions whole, so a window is each rank's)."""
     q, k, v = sharded.attention_inputs(q, k, v)
     kl, vl, _ = _local_kv(q, k, v)
     res = flash_attention(q.to_local(), kl, vl, causal=causal, scale=scale,
                           bf16_probs=bf16_probs, block_kv=block_kv,
-                          return_stats=return_stats)
+                          return_stats=return_stats, window=window)
     b, sq, h, _ = q.shape
     out_shape = (b, sq, h, v.shape[3])
     if not return_stats:
@@ -280,6 +293,12 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     compiled_dims(d, v.shape[3])
 
 
+def _check_window(window: int, causal: bool) -> None:
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention: window {window} (a causal band "
+                         "of >= 1 keys, or 0 for none)")
+
+
 def _check_card(fn: str, **tensors: torch.Tensor) -> None:
     """Every tensor contiguous on q's CUDA device in q's dtype (float32 for
     the row statistics m, l)."""
@@ -303,7 +322,8 @@ def _check_aligned(fn: str, *tensors: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            scale: float, bf16_probs: bool, return_stats: bool = False):
+            scale: float, bf16_probs: bool, return_stats: bool = False,
+            window: int = 0):
     _check_card("flash_attention", q=q, k=k, v=v)
     b, sq, h, d = q.shape
     skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -330,10 +350,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             0 if m is None else m.data_ptr(), 0 if l is None else l.data_ptr(),
             b, sq, skv, h, kvh, dp, dvp, DTYPES[q.dtype], float(scale),
-            int(causal), int(bf16_probs),
+            int(causal), int(bf16_probs), int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
     launches.add()
+    if window:
+        window_launches.add()
     out = out if dvp == dv else out[..., :dv].contiguous()
     return (out, m, l) if return_stats else out
 

@@ -13,7 +13,10 @@ or longer than k and v: as in the reference, query row i sits at position
 i + Skv - Sq (right-aligned), so under ``causal`` a row at a negative
 position sees no key and its -1e30 scores give every key the same weight.
 Any Skv runs: the last block is shorter when Skv is not a multiple of
-``block_kv``.
+``block_kv``.  Under a causal ``window`` w > 0 the row at position p sees
+the keys p - w < j <= p (w keys, itself included), as ``transformers``
+masks ``sliding_window``; the keys below the band score -1e30 as the
+causal mask's do, and weigh 0 once the row has met a key it sees.
 
 The CPU path and the tests use it; a tensor on the card goes to the CUDA
 kernel instead.  ``bf16_probs_slack`` gives the checks of the kernel (the
@@ -29,7 +32,8 @@ NEG = -1.0e30
 
 
 def _weights(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, scale: Optional[float], block_kv: int):
+             causal: bool, scale: Optional[float], block_kv: int,
+             window: int = 0):
     """The online softmax's key blocks: yields (p, alpha, v block, m) for
     each, p = exp(score - running max) [B, H, Sq, block] float32, alpha [B,
     H, Sq] the factor that carries what came before onto the new max, and m
@@ -49,7 +53,10 @@ def _weights(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sc = torch.matmul(qf, kf[:, :, start:stop].transpose(-1, -2))
         if causal:
             k_pos = torch.arange(start, stop, device=q.device)
-            sc = sc.masked_fill(q_pos[:, None] < k_pos[None, :], NEG)
+            hidden = q_pos[:, None] < k_pos[None, :]
+            if window:
+                hidden |= k_pos[None, :] <= q_pos[:, None] - window
+            sc = sc.masked_fill(hidden, NEG)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         p = torch.exp(sc - m_new[..., None])
         alpha = torch.exp(m - m_new)
@@ -60,9 +67,10 @@ def _weights(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None,
                         bf16_probs: bool = False, block_kv: int = 1024,
-                        return_stats: bool = False):
+                        return_stats: bool = False, window: int = 0):
     """q [B, Sq, H, D]; k [B, Skv, KVH, D], v [B, Skv, KVH, Dv] with KVH
-    dividing H -> [B, Sq, H, Dv] in q's dtype.  With ``return_stats`` also
+    dividing H -> [B, Sq, H, Dv] in q's dtype; ``window`` as the module
+    says (0: none; only with ``causal``).  With ``return_stats`` also
     the softmax's row statistics, each [B, H, Sq] float32: m, the largest
     scaled score of the row (-1e30 for a row that sees no key), and l, the
     sum of exp(score - m) over the row, so that the weights are
@@ -72,7 +80,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32,
                       device=q.device)
-    for p, alpha, vb, m in _weights(q, k, v, causal, scale, block_kv):
+    for p, alpha, vb, m in _weights(q, k, v, causal, scale, block_kv,
+                                    window):
         l = l * alpha + p.sum(dim=-1)
         if bf16_probs:
             # softmax weights rounded to bf16; products and sums stay fp32
@@ -162,8 +171,8 @@ def bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
 
 def bf16_probs_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool = True, scale: Optional[float] = None,
-                     block_kv: int = 1024, rel: float = 2.0 ** -12
-                     ) -> torch.Tensor:
+                     block_kv: int = 1024, rel: float = 2.0 ** -12,
+                     window: int = 0) -> torch.Tensor:
     """How far a kernel's ``bf16_probs`` output may lie from
     ``flash_attention_ref(..., bf16_probs=True, block_kv=block_kv)`` when
     its float32 weights differ from the plain version's by at most ``rel``
@@ -179,7 +188,8 @@ def bf16_probs_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     slack = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32,
                         device=q.device)
-    for p, alpha, vb, _ in _weights(q, k, v, causal, scale, block_kv):
+    for p, alpha, vb, _ in _weights(q, k, v, causal, scale, block_kv,
+                                    window):
         l = l * alpha + p.sum(dim=-1)
         mant, ex = torch.frexp(p)          # p = mant 2^ex, mant in [0.5, 1)
         ulp = torch.ldexp(torch.ones_like(p), ex - 8)   # bf16 keeps 8 bits

@@ -13,6 +13,10 @@ their plain versions, which repeat the reference's arithmetic.
 * ``decode_attention`` -- one query token against the KV cache, masked past
   ``pos``; the cache is read once for the G query heads of each key head.
 
+``chunked_attention`` takes a causal ``window`` (a sliding-window layer's
+band, ``kernels/flash_attention``); a windowed call that wants a gradient
+raises: no backward weighs a band.
+
 Both serve head widths up to 256 and raise past them.
 
 ``chunked_attention`` is differentiable: where a gradient is wanted it runs
@@ -49,17 +53,23 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, block_kv: int = 1024,
                       scale: Optional[float] = None,
-                      bf16_probs: bool = False) -> torch.Tensor:
+                      bf16_probs: bool = False, window: int = 0
+                      ) -> torch.Tensor:
     """q [B, Sq, H, D]; k [B, Skv, KVH, D], v [B, Skv, KVH, Dv] ->
     [B, Sq, H, Dv].  Query row i sits at position i + Skv - Sq (causal masks
-    the keys past it).  fp32 accumulation; ``bf16_probs`` rounds the
-    softmax weights to bf16 before P.V."""
+    the keys past it, a ``window`` w those w or more behind it).  fp32
+    accumulation; ``bf16_probs`` rounds the softmax weights to bf16 before
+    P.V."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if window:
+            raise NotImplementedError("chunked_attention: no gradient of a "
+                                      "windowed attention")
         return _FlashAttention.apply(q, k, v, causal, scale, bf16_probs,
                                      block_kv)
     return flash_attention(q, k, v, causal=causal, scale=scale,
-                           bf16_probs=bf16_probs, block_kv=block_kv)
+                           bf16_probs=bf16_probs, block_kv=block_kv,
+                           window=window)
 
 
 class _FlashAttention(torch.autograd.Function):

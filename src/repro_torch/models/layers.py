@@ -34,7 +34,9 @@ def rotary_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                    yarn: Optional[YarnRope] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for RoPE. positions: [...]; returns [..., head_dim/2].
-    Under ``yarn`` the frequencies and the cos/sin scale are YaRN's."""
+    Under ``yarn`` the frequencies and the cos/sin scale are YaRN's: its
+    ``attention_factor`` where given, else m(mscale) / m(mscale_all_dim)
+    (``transformers``' rule for both)."""
     half = head_dim // 2
     if yarn is None:
         freqs = torch.exp(-math.log(theta) * torch.arange(
@@ -42,8 +44,9 @@ def rotary_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
         mscale = 1.0
     else:
         freqs = yarn_inv_freq(yarn, head_dim, theta).to(positions.device)
-        mscale = yarn_mscale(yarn.factor, yarn.mscale) / yarn_mscale(
-            yarn.factor, yarn.mscale_all_dim)
+        mscale = yarn.attention_factor if yarn.attention_factor is not None \
+            else yarn_mscale(yarn.factor, yarn.mscale) / yarn_mscale(
+                yarn.factor, yarn.mscale_all_dim)
     angles = positions.float()[..., None] * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
     if mscale != 1.0:

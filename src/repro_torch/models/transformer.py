@@ -1,5 +1,7 @@
-"""Decoder-only LM for serving: the five transformer configs of the registry
-and DeepSeek-V2-Lite (YaRN RoPE, dropless MoE; ``configs/deepseek_v2_lite.py``).
+"""Decoder-only LM for serving: the five transformer configs of the registry,
+DeepSeek-V2-Lite (YaRN RoPE, dropless MoE; ``configs/deepseek_v2_lite.py``)
+and Mellum2-12B-A2.5B (sliding-window and full GQA layers, YaRN on the full
+ones, every layer a dropless MoE; ``configs/mellum2_12b_a2_5b.py``).
 
 The reference's ``models/transformer.py``: GQA with optional per-head
 qk-norm, RoPE, SwiGLU, an untied or tied head; fine-grained MoE with shared
@@ -18,6 +20,12 @@ prefill and MLA's prefill run through the hand-written flash-attention
 kernel and the GQA decode through the decode-attention kernel; on the CPU
 through their plain versions.
 MLA's absorbed decode is plain torch in float32, as the reference's is.
+A config's ``layer_types`` make some GQA layers sliding-window ones: their
+kernel call takes the layer's ``sliding_window`` and their rotary table is
+plain RoPE, the full layers' YaRN where the config has it.  Decoding,
+training and the uneven-heads DTensor path of a windowed layer raise.
+Each prefill kernel call sits in span ``lm.attn.window`` or
+``lm.attn.full`` inside ``lm.attn``.
 
 Training: ``loss_fn`` is the reference's (float32 logits, cross-entropy
 plus ``AUX_LOSS_COEF`` times the MoE layers' summed aux loss), and its
@@ -62,7 +70,7 @@ from repro_torch.models.moe import (
     moe_param_shapes,
     nest_moe_params,
 )
-from repro_torch.obs.trace import phases
+from repro_torch.obs.trace import phases, span
 
 Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 Layer = Dict[str, torch.Tensor]
@@ -70,6 +78,7 @@ Layer = Dict[str, torch.Tensor]
 AUX_LOSS_COEF = 0.003  # DeepSeekMoE expert-level balance coefficient
 
 _MLP_KEYS = ("w_gate", "w_up", "w_down")
+_LAYER_TYPES = ("sliding_attention", "full_attention")
 
 
 def _attn_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[Tuple, int]]:
@@ -166,8 +175,18 @@ class LM(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
-        if cfg.yarn is not None and not cfg.is_mla:
-            raise ValueError("LM: YaRN RoPE is DeepSeek-V2's, for MLA only")
+        if cfg.yarn is not None and not cfg.is_mla and cfg.yarn.mscale_all_dim:
+            raise ValueError("LM: YaRN's mscale_all_dim scales MLA's softmax; "
+                             "a GQA model's YaRN gives attention_factor")
+        if cfg.layer_types and (
+                len(cfg.layer_types) != cfg.n_layers
+                or not set(cfg.layer_types) <= set(_LAYER_TYPES)
+                or cfg.is_mla or ("sliding_attention" in cfg.layer_types
+                                  and cfg.sliding_window < 1)):
+            raise ValueError(f"LM: layer_types {cfg.layer_types} with "
+                             f"sliding_window {cfg.sliding_window}: one of "
+                             f"{_LAYER_TYPES} a layer, a window >= 1 for "
+                             "sliding layers, GQA only")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -295,14 +314,51 @@ class LM(nn.Module):
         cfg = self.cfg
         return cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
 
+    def _rotary(self, positions: torch.Tensor):
+        """(the full layers' cos, sin; the sliding layers', or None for a
+        model without them) at ``positions``: YaRN's where the config has
+        it, plain RoPE at ``rope_theta`` for the sliding layers."""
+        cfg = self.cfg
+        full = rotary_cos_sin(positions, self._rope_dim(), cfg.rope_theta,
+                              yarn=cfg.yarn)
+        if "sliding_attention" not in cfg.layer_types:
+            return full, None
+        return full, rotary_cos_sin(positions, self._rope_dim(),
+                                    cfg.rope_theta)
+
+    def _layers(self) -> Iterator[Tuple[int, str, int, Layer]]:
+        """(layer index, stack key, index in the stack, parameters) of every
+        layer, in order."""
+        i = 0
+        for key, lp, n in self._stacks():
+            for j, p in enumerate(self._unstack(lp) if n else ()):
+                yield i + j, key, j, p
+            i += n
+
     # -- attention ----------------------------------------------------------
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int = 0, scale: Optional[float] = None
+                ) -> torch.Tensor:
+        """A prefill's attention kernel call (causal, under ``window``), in
+        span ``lm.attn.window`` or ``lm.attn.full``."""
+        with span(None, "lm.attn.window" if window else "lm.attn.full"):
+            return chunked_attention(
+                q, k, v, causal=True, scale=scale, window=window,
+                block_kv=min(self.cfg.attn_block_kv, k.shape[1]),
+                bf16_probs=self.cfg.bf16_probs)
 
     def _gqa(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
              sin: torch.Tensor, cache=None, slot: "_Slot" = None,
-             want_cache: bool = False):
+             want_cache: bool = False, window: int = 0):
         cfg = self.cfg
         b, s, d = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if window and (cache is not None or self._heads_uneven(x)):
+            # the decode kernel and the uneven-heads path weigh no band
+            raise NotImplementedError("LM: a sliding-window layer prefills "
+                                      "only: no windowed decode, no uneven "
+                                      "head shards")
         if cache is None and self._heads_uneven(x):
             return self._gqa_local(p, x, cos, sin, want_cache)
         # on DTensors the products and their weights' gradients are pinned
@@ -322,9 +378,7 @@ class LM(nn.Module):
         if cache is None:
             q = constrain(q, self.rules, "batch", "seq", "heads", None)
             # k and v keep their KVH heads: the kernel reads head h // G
-            out = chunked_attention(q, k, v, causal=True,
-                                    block_kv=min(cfg.attn_block_kv, s),
-                                    bf16_probs=cfg.bf16_probs)
+            out = self._attend(q, k, v, window)
             new_cache = (k, v)
         else:
             k_cache, v_cache = cache
@@ -424,9 +478,7 @@ class LM(nn.Module):
             idx = torch.tensor(reads, device=k.device)
             k, v = k.index_select(2, idx), v.index_select(2, idx)
         if hl:
-            out = chunked_attention(q, k, v, causal=True,
-                                    block_kv=min(cfg.attn_block_kv, s),
-                                    bf16_probs=cfg.bf16_probs)
+            out = self._attend(q, k, v)
         else:
             out = q
         o = torch.einsum("bshk,hkd->bsd", out, local(p["wo"], 0, oq, hl))
@@ -482,10 +534,8 @@ class LM(nn.Module):
                            k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
             qf = constrain(torch.cat([q_nope, q_rope], dim=-1), self.rules,
                            "batch", "seq", "heads", None)
-            out = chunked_attention(qf, k, kv[..., dn:].contiguous(),
-                                    causal=True, scale=scale,
-                                    block_kv=min(cfg.attn_block_kv, s),
-                                    bf16_probs=cfg.bf16_probs)
+            out = self._attend(qf, k, kv[..., dn:].contiguous(),
+                               scale=scale)
             new_cache = (c_kv, k_rope)
         else:
             # absorbed decode: score/context in the dc-wide latent space
@@ -516,12 +566,15 @@ class LM(nn.Module):
 
     def _block(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor, moe: bool, cache=None,
-               slot: "_Slot" = None, want_cache: bool = False):
-        """One layer -> (x, its aux loss (0 for a dense layer), its cache
-        entry: the new one under ``want_cache``, the decode's given one).
-        Spans ``lm.attn`` and ``lm.ffn`` in ``lm.layer`` while anything
-        records (``obs/trace.py::phases``)."""
-        with phases(None, "lm.layer", moe=moe) as ph:
+               slot: "_Slot" = None, want_cache: bool = False,
+               window: int = 0):
+        """One layer (a sliding-window one under ``window``) -> (x, its
+        aux loss (0 for a dense layer), its cache entry: the new one under
+        ``want_cache``, the decode's given one).  Spans ``lm.attn`` and
+        ``lm.ffn`` in ``lm.layer`` (attribute ``kind``: "sliding" or
+        "full") while anything records (``obs/trace.py::phases``)."""
+        with phases(None, "lm.layer", moe=moe,
+                    kind="sliding" if window else "full") as ph:
             if ph:
                 ph.next("lm.attn")
             p = self._layer_gathered(p, moe)
@@ -532,7 +585,8 @@ class LM(nn.Module):
             else:
                 attn_out, new_cache = self._gqa(p, h, cos, sin, cache=cache,
                                                 slot=slot,
-                                                want_cache=want_cache)
+                                                want_cache=want_cache,
+                                                window=window)
             x = constrain(x + attn_out, self.rules, "batch", "seq", "embed")
             if ph:
                 ph.next("lm.ffn")
@@ -605,31 +659,46 @@ class LM(nn.Module):
         x = constrain(F.embedding(tokens, self._gathered(
             self.embed, ("p_vocab", "p_embed"))), self.rules, "batch", "seq",
             "embed")
-        cos, sin = rotary_cos_sin(torch.arange(s, device=self.device),
-                                  self._rope_dim(), cfg.rope_theta,
-                                  yarn=cfg.yarn)
+        full, sliding = self._rotary(torch.arange(s, device=self.device))
         cache = self._new_cache(b, s, torch.empty, like=x) \
             if collect_cache else None
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for key, lp, _ in self._stacks():
-            moe = key == "moe"
-            for i, p in enumerate(self._unstack(lp)):
-                if remat:
-                    x, aux_i = checkpoint(self._remat_block, p, x, cos, sin,
-                                          moe, use_reentrant=False)
-                else:
-                    x, aux_i, layer_cache = self._block(
-                        p, x, cos, sin, moe, want_cache=cache is not None)
-                    if cache is not None:
-                        for dst, src in zip(cache[key], layer_cache):
-                            dst[i].copy_(src)
-                aux = aux + aux_i
+        for i, key, j, p in self._layers():
+            moe, window = key == "moe", cfg.window(i)
+            cos, sin = sliding if window else full
+            if remat:
+                x, aux_i = checkpoint(self._remat_block, p, x, cos, sin, moe,
+                                      window, use_reentrant=False)
+            else:
+                x, aux_i, layer_cache = self._block(
+                    p, x, cos, sin, moe, want_cache=cache is not None,
+                    window=window)
+                if cache is not None:
+                    for dst, src in zip(cache[key], layer_cache):
+                        dst[j].copy_(src)
+            aux = aux + aux_i
         return x, aux, cache
 
     def _remat_block(self, p: Layer, x: torch.Tensor, cos: torch.Tensor,
-                     sin: torch.Tensor, moe: bool):
-        x, aux, _ = self._block(p, x, cos, sin, moe)
+                     sin: torch.Tensor, moe: bool, window: int):
+        x, aux, _ = self._block(p, x, cos, sin, moe, window=window)
         return x, aux
+
+    @torch.no_grad()
+    def attention(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        """Layer ``i``'s attention on h [B, S, d], its normalised input at
+        positions 0 .. S - 1 -> its output [B, S, d], before the residual
+        (what :meth:`forward` adds there)."""
+        stack, j = (self.layers, i) if i < self.n_dense else (
+            self.moe_layers, i - self.n_dense)
+        p = {name: t[j] for name, t in stack.items()}
+        window = self.cfg.window(i)
+        full, sliding = self._rotary(torch.arange(h.shape[1],
+                                                  device=self.device))
+        cos, sin = sliding if window else full
+        if self.cfg.is_mla:
+            return self._mla(p, h, cos, sin)[0]
+        return self._gqa(p, h, cos, sin, window=window)[0]
 
     @torch.no_grad()
     def forward(self, tokens, collect_cache: bool = False
@@ -711,14 +780,15 @@ class LM(nn.Module):
         x = constrain(F.embedding(tokens, self._gathered(
             self.embed, ("p_vocab", "p_embed"))), self.rules, "batch", "seq",
             "embed")
-        cos, sin = rotary_cos_sin(pos[:, None].float(), self._rope_dim(),
-                                  cfg.rope_theta, yarn=cfg.yarn)
+        full, sliding = self._rotary(pos[:, None].float())
         slot = _Slot(pos, cache["dense"][0].shape[2])
-        for key, lp, _ in self._stacks():
+        for i, key, j, p in self._layers():
+            window = cfg.window(i)
+            cos, sin = sliding if window else full
             first, second = cache[key]
-            for i, p in enumerate(self._unstack(lp)):
-                x, _, _ = self._block(p, x, cos, sin, key == "moe",
-                                      cache=(first[i], second[i]), slot=slot)
+            x, _, _ = self._block(p, x, cos, sin, key == "moe",
+                                  cache=(first[j], second[j]), slot=slot,
+                                  window=window)
         return constrain(self._head(x)[:, 0], self.rules, "batch",
                          "vocab"), cache
 

@@ -631,6 +631,94 @@ def test_flash_kernel_serves_the_reference_shapes(cuda, dtype, b, sq, skv, h,
     _assert_attn_close(got, want, ATTN_TOL[dtype], slack)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,window,bf16_probs", [
+    (2, 300, 300, 8, 2, 128, 1, False),            # each row itself alone
+    (1, 257, 257, 4, 4, 64, 300, False),           # w >= S: causal
+    (2, 700, 700, 8, 2, 128, 100, False),          # w not a key tile's
+    (1, 1000, 1000, 8, 1, 128, 256, True),
+    (1, 200, 900, 8, 2, 128, 333, False),          # Sq < Skv, right-aligned
+    (1, 130, 513, 4, 2, 64, 64, True),
+    (1, 300, 300, 4, 2, 192, 70, False),           # WK = 64
+])
+def test_flash_window_matches_plain(cuda, dtype, b, sq, skv, h, kvh, d,
+                                    window, bf16_probs):
+    """A sliding window on the kernel (one launch: the bf16 kernel skips
+    the key tiles below each block's band) against the plain version's
+    band mask, at the edges of the band."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (bf16_probs_slack,
+                                                         flash_attention_ref)
+    gen = torch.Generator().manual_seed(sq + skv * 3 + window)
+    q = _randn(gen, b, sq, h, d, dtype=dtype, device=cuda)
+    k = _randn(gen, b, skv, kvh, d, dtype=dtype, device=cuda)
+    v = _randn(gen, b, skv, kvh, d, dtype=dtype, device=cuda)
+    before = flash_ops.launches.n
+    got, m, l = flash_ops.flash_attention(q, k, v, bf16_probs=bf16_probs,
+                                          window=window, return_stats=True)
+    kt = flash_ops.key_tile(d, dtype)
+    want, wm, wl = flash_attention_ref(q, k, v, bf16_probs=bf16_probs,
+                                       block_kv=kt, window=window,
+                                       return_stats=True)
+    slack = bf16_probs_slack(q, k, v, block_kv=kt, window=window) \
+        if bf16_probs else 0.0
+    torch.cuda.synchronize()
+    assert flash_ops.launches.n == before + 1
+    _assert_attn_close(got, want, ATTN_TOL[dtype], slack)
+    # the row statistics are the band's: m its largest scaled score, l the
+    # weights' sum (a row's first tiles below its band leave nothing)
+    torch.testing.assert_close(m, wm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_window_at_the_mellum2_cell_shape(cuda, dtype):
+    """B 1, S 32,768, 32 query heads over 4 key heads of 128, window 1,024
+    (Mellum2's sliding layers at the cell's positions) against the plain
+    version."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator().manual_seed(1024)
+    s = 32768
+    q = _randn(gen, 1, s, 32, 128, dtype=dtype, device=cuda)
+    k = _randn(gen, 1, s, 4, 128, dtype=dtype, device=cuda)
+    v = _randn(gen, 1, s, 4, 128, dtype=dtype, device=cuda)
+    got = flash_ops.flash_attention(q, k, v, window=1024)
+    want = flash_attention_ref(q, k, v, window=1024,
+                               block_kv=flash_ops.key_tile(128, dtype))
+    torch.cuda.synchronize()
+    _assert_attn_close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,d", [(4096, 4096, 128), (300, 700, 64),
+                                      (64, 64, 192)])
+def test_flash_window_over_every_key_is_the_causal_kernel(cuda, dtype, sq,
+                                                          skv, d):
+    """A window as wide as the keys runs the window instantiation over the
+    causal kernel's tiles with the same masks: the same output, bit for
+    bit."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    gen = torch.Generator().manual_seed(sq + d)
+    q = _randn(gen, 1, sq, 8, d, dtype=dtype, device=cuda)
+    k = _randn(gen, 1, skv, 2, d, dtype=dtype, device=cuda)
+    v = _randn(gen, 1, skv, 2, d, dtype=dtype, device=cuda)
+    causal = flash_ops.flash_attention(q, k, v)
+    wide = flash_ops.flash_attention(q, k, v, window=skv)
+    torch.cuda.synchronize()
+    assert torch.equal(causal, wide)
+
+
+def test_flash_window_refuses_what_it_does_not_serve(cuda):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.attention import chunked_attention
+    x = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="window"):
+        flash_ops.flash_attention(x, x, x, causal=False, window=4)
+    with pytest.raises(NotImplementedError, match="windowed"):
+        chunked_attention(x.requires_grad_(), x, x, window=4)
+
+
 def _select_inputs(case):
     """(q, corpus, k, n_valid) of the selection's tie cases on the card."""
     rng = np.random.default_rng(len(case))

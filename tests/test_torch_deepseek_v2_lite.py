@@ -354,5 +354,7 @@ def test_registered_outside_the_reference_grid():
     assert "deepseek-v2-lite" not in arch_names()
     assert "deepseek-v2-lite" not in ASSIGNED
     assert get_arch("deepseek-v2-lite").name == "deepseek-v2-lite"
-    with pytest.raises(ValueError, match="MLA only"):
+    # DeepSeek's YaRN scales MLA's softmax by m(mscale_all_dim)^2; a GQA
+    # model takes YaRN in transformers' form (attention_factor) only
+    with pytest.raises(ValueError, match="mscale_all_dim"):
         LM(dataclasses.replace(SMALL, kv_lora_rank=0), device="meta")

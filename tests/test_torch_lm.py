@@ -82,7 +82,8 @@ DSV2_CUT = dict(n_layers=3, d_model=64, n_heads=4, n_kv_heads=4, d_ff=96,
 
 #: the port's own TransformerConfig fields, which the reference's config
 #: lacks, each at the value that leaves an arch as the reference runs it
-PORT_ONLY = {"yarn": None, "norm_topk_prob": True, "dropless": False}
+PORT_ONLY = {"yarn": None, "norm_topk_prob": True, "dropless": False,
+             "layer_types": (), "sliding_window": 0}
 
 
 def same_config(port, ref) -> bool:
